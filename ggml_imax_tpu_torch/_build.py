@@ -27,7 +27,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "ggml_imax_tpu_torch"
 SOURCES = ("w4a8_gemv.cu", "w4a16_gemm.cu", "decode_attention.cu",
-           "flash_attention.cu")
+           "flash_attention.cu", "nat8_gemv.cu", "nat8_gemm.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,6 +38,10 @@ _SIGNATURES = {
     "ggml_w4a8_gemv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # x, q, scale, bias, xs, out, M, K, N, scale_is_bf16, stream
     "ggml_w4a16_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x8, dx, q, scale, bias, xs, out, K, N, g, scale_is_bf16, stream
+    "ggml_nat8_gemv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, q, scale, bias, xs, out, M, K, N, g, scale_is_bf16, stream
+    "ggml_nat8_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # q, k, v, ks, vs, mask, out, B, Hq, Hkv, D, T, scale, stream
     "ggml_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _F, _P],
@@ -48,7 +52,7 @@ _SIGNATURES = {
 }
 
 LAUNCHES = {"w4a8_gemv": 0, "w4a16_gemm": 0, "decode_attention": 0,
-            "flash_attention": 0}
+            "flash_attention": 0, "nat8_w8a8": 0, "nat8_w8a16": 0}
 
 _lock = threading.Lock()
 _lib = None

@@ -1,4 +1,5 @@
-"""KV cache and masks (counterpart of ggml_imax_tpu/models/common.py).
+"""KV cache, masks and the params carry-over shared by the models
+(counterpart of ggml_imax_tpu/models/common.py).
 
 The cache is the flat arena the decode kernel reads: k/v are
 (n_layer, B, n_ctx, H*D), bf16 (or another float dtype) or q8_0 — int8 with
@@ -12,7 +13,12 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
+
+from .._device import resolve_device
+from ..quant.device import QTensor
+from ..quant.formats import GGMLType
 
 KV_GROUP = 32
 
@@ -114,3 +120,48 @@ def attention_mask(positions, n_ctx: int, n_past: int):
     visible = (k_pos <= positions[:, :, None]) & (k_pos < int(n_past) + t)
     mask = torch.where(visible, 0.0, float("-inf")).to(torch.float32)
     return mask[:, None]
+
+
+_QT_FIELDS = ("kind", "q", "scale", "bias", "k", "n", "ggml_type", "zero",
+              "interleaved_bk", "q4_layout")
+
+
+def params_from_jax(params, *, device=None):
+    """Carry a JAX-package params tree (raw or prepared, unstacked) over to
+    the port, byte-identical. QTensor leaves are read by attribute and
+    arrays through np.asarray, so nothing of JAX is imported here."""
+    dev = resolve_device(device)
+
+    def arr(a):
+        a = np.array(a)                       # an owned, writable copy
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16) \
+                .to(dev)
+        return torch.from_numpy(a).to(dev)
+
+    def leaf(x):
+        if x is None:
+            return None
+        if all(hasattr(x, f) for f in _QT_FIELDS):
+            if getattr(x, "n_stack", 0):
+                raise ValueError("stacked QTensors are not carried over")
+            opt = lambda a: None if a is None else arr(a)
+            return QTensor(str(x.kind), arr(x.q), opt(x.scale), opt(x.bias),
+                           int(x.k), int(x.n), GGMLType(int(x.ggml_type)),
+                           int(x.zero), int(x.interleaved_bk),
+                           int(x.q4_layout), str(getattr(x, "name", "")),
+                           lut=opt(getattr(x, "lut", None)),
+                           signs=opt(getattr(x, "signs", None)))
+        return arr(x)
+
+    def walk(d):
+        if isinstance(d, dict):
+            if "stack" in d:
+                raise ValueError("params_from_jax takes unstacked params "
+                                 "(before stack_model)")
+            return {k: walk(v) for k, v in d.items()}
+        if isinstance(d, list):
+            return [walk(v) for v in d]
+        return leaf(d)
+
+    return walk(params)

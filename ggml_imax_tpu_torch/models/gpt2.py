@@ -1,0 +1,159 @@
+"""GPT-2 (counterpart of ggml_imax_tpu/models/gpt2.py, the reference ggml's
+canonical example): learned position embeddings, pre-LN blocks with a bias
+after every matmul, the fused (E, 3E) q/k/v projection as stored, and an LM
+head tied to ``wte`` unless ``lm_head`` is set.
+
+Per-layer weights stay in ``params["layers"]``, a Python list. Run
+ops.qmm.params_repack on the params before `forward` to reach the kernels:
+Q8_0 weights become nat8, Q4_0 natpair. As in the reference, only weights
+whose N is a multiple of 128 take them (at GPT-2 XL's n_embd 1600: fc_w);
+the others dequantize and multiply. Attention is flash for a multi-token
+step and attention_xla for one token (head_dim 64 is under the decode
+kernel's 128).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..ops.activations import gelu
+from ..ops.embedding import get_rows
+from ..ops.flash_attention import attention
+from ..ops.norms import layer_norm
+from ..ops.qmatmul import qmatmul
+from ..quant.device import QTensor, quantize_for_device
+from ..quant.formats import GGMLType
+from .common import (KVCache, attention_mask, init_kv_cache, read_kv,
+                     update_kv)
+
+
+@dataclass(frozen=True)
+class GPT2Config:
+    n_vocab: int = 50257
+    n_ctx: int = 1024
+    n_embd: int = 768
+    n_head: int = 12
+    n_layer: int = 12
+
+    @property
+    def head_dim(self):
+        return self.n_embd // self.n_head
+
+
+def _param_tree(cfg: GPT2Config, q, vec):
+    """The reference's params layout; draws in its order."""
+    E, V, C = cfg.n_embd, cfg.n_vocab, cfg.n_ctx
+    params = {"wte": q((E, V)), "wpe": vec(C * E).reshape(C, E),
+              "ln_f_g": vec(E) + 1.0, "ln_f_b": vec(E), "lm_head": None,
+              "layers": []}
+    for _ in range(cfg.n_layer):
+        params["layers"].append({
+            "ln_1_g": vec(E) + 1.0, "ln_1_b": vec(E),
+            "ln_2_g": vec(E) + 1.0, "ln_2_b": vec(E),
+            "attn_w": q((E, 3 * E)), "attn_b": vec(3 * E),
+            "proj_w": q((E, E)), "proj_b": vec(E),
+            "fc_w": q((E, 4 * E)), "fc_b": vec(4 * E),
+            "out_w": q((4 * E, E)), "out_b": vec(E),
+        })
+    return params
+
+
+def synthetic_params(cfg: GPT2Config, wtype: GGMLType = GGMLType.F32,
+                     seed: int = 0, scale: float = 0.02, *, device=None):
+    """Random weights at model geometry, drawn on the host with the same
+    numpy stream as the reference's synthetic_params and quantized through
+    the port's bit-exact codecs (F32, Q4_0, Q8_0), so both packages build
+    identical weights from one seed."""
+    if wtype not in (GGMLType.F32, GGMLType.Q4_0, GGMLType.Q8_0):
+        raise NotImplementedError(f"synthetic weights in {wtype.name}")
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+
+    def q(shape_kn):
+        w = (rng.standard_normal(shape_kn) * scale).astype(np.float32)
+        if wtype == GGMLType.F32:
+            return QTensor("dense", torch.from_numpy(w).to(dev), None, None,
+                           shape_kn[0], shape_kn[1], wtype)
+        return quantize_for_device(w, wtype, device=dev)
+
+    def vec(n):
+        return torch.from_numpy(
+            (rng.standard_normal(n) * scale).astype(np.float32)).to(dev)
+
+    return _param_tree(cfg, q, vec)
+
+
+def synthetic_params_device(cfg: GPT2Config, seed: int = 0,
+                            scale: float = 0.02, *, device=None):
+    """Like synthetic_params, but Q8_0 drawn on the device with a
+    torch.Generator (no multi-GB host-to-device copy): int8 values uniform
+    in [-127, 127] with positive f32 scales that give the weights a
+    standard deviation near `scale`. Other numbers than the host stream."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def q(shape_kn):
+        k, n = shape_kn
+        qs = torch.randint(-127, 128, (k, n), dtype=torch.int8,
+                           generator=gen, device=dev)
+        sc = torch.randn((k // 32, n), generator=gen, device=dev).abs_() \
+            .mul_(scale / 73.6)                # std of uniform [-127, 127]
+        return QTensor("int8", qs, sc, None, k, n, GGMLType.Q8_0)
+
+    def vec(n):
+        return torch.randn(n, generator=gen, device=dev).mul_(scale)
+
+    return _param_tree(cfg, q, vec)
+
+
+def prepare_fused(params, cfg: GPT2Config | None = None):
+    """Nothing to fuse: attn_w already is the fused (E, 3E) q/k/v. Kept for
+    the same call sequence as gptj (prepare_fused, then params_repack)."""
+    return params
+
+
+def init_cache(cfg: GPT2Config, batch: int = 1, n_ctx: int | None = None,
+               dtype=torch.bfloat16, *, device=None) -> KVCache:
+    return init_kv_cache(cfg.n_layer, batch, n_ctx or cfg.n_ctx, cfg.n_head,
+                         cfg.head_dim, dtype, device=resolve_device(device))
+
+
+def forward(cfg: GPT2Config, params, tokens, positions, cache: KVCache,
+            n_past: int, *, compute_dtype=torch.bfloat16, mask=None):
+    """tokens/positions (B, T) int on the params' device -> (logits
+    (B, T, n_vocab) f32, cache). The KV cache is updated in place."""
+    B, T = tokens.shape
+    H, D, E = cfg.n_head, cfg.head_dim, cfg.n_embd
+
+    def mm(x, w):
+        return qmatmul(x, w, compute_dtype=compute_dtype,
+                       out_dtype=torch.float32)
+
+    x = get_rows(params["wte"], tokens, dtype=torch.float32)
+    x = x + params["wpe"][positions]
+    if mask is None:
+        mask = attention_mask(positions, cache.n_ctx, n_past)
+
+    for li, lp in enumerate(params["layers"]):
+        cur = layer_norm(x, lp["ln_1_g"], lp["ln_1_b"])
+        qkv = mm(cur, lp["attn_w"]) + lp["attn_b"]
+        q, kk, vv = (t.reshape(B, T, H, D) for t in qkv.split(E, dim=-1))
+        update_kv(cache, li, kk, vv, n_past)
+        attn = attention(q, *read_kv(cache, li, dtype=q.dtype), mask,
+                         out_dtype=torch.float32)
+        x = x + mm(attn.reshape(B, T, E), lp["proj_w"]) + lp["proj_b"]
+        cur = layer_norm(x, lp["ln_2_g"], lp["ln_2_b"])
+        cur = gelu(mm(cur, lp["fc_w"]) + lp["fc_b"])
+        x = x + mm(cur, lp["out_w"]) + lp["out_b"]
+
+    x = layer_norm(x, params["ln_f_g"], params["ln_f_b"])
+    head = params["lm_head"] if params.get("lm_head") is not None \
+        else params["wte"]
+    logits = mm(x, head)
+    if head.n > cfg.n_vocab:                       # padded head columns
+        logits = logits[..., :cfg.n_vocab]
+    return logits, cache

@@ -29,6 +29,7 @@ from ..quant.device import (QTensor, concat_qtensors, concat_qtensors_k,
 from ..quant.formats import GGMLType
 from .common import (KVCache, attention_mask, init_kv_cache, read_kv,
                      update_kv)
+from .common import params_from_jax  # noqa: F401  (kept importable here)
 
 
 @dataclass(frozen=True)
@@ -258,48 +259,3 @@ def forward(cfg: GPTJConfig, params, tokens, positions, cache: KVCache,
     if params["lmh_w"].n > cfg.n_vocab:
         logits = logits[..., :cfg.n_vocab]
     return logits, cache
-
-
-_QT_FIELDS = ("kind", "q", "scale", "bias", "k", "n", "ggml_type", "zero",
-              "interleaved_bk", "q4_layout")
-
-
-def params_from_jax(params, *, device=None):
-    """Carry a JAX-package params tree (raw or prepared, unstacked) over to
-    the port, byte-identical. QTensor leaves are read by attribute and
-    arrays through np.asarray, so nothing of JAX is imported here."""
-    dev = resolve_device(device)
-
-    def arr(a):
-        a = np.array(a)                       # an owned, writable copy
-        if a.dtype.name == "bfloat16":
-            return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16) \
-                .to(dev)
-        return torch.from_numpy(a).to(dev)
-
-    def leaf(x):
-        if x is None:
-            return None
-        if all(hasattr(x, f) for f in _QT_FIELDS):
-            if getattr(x, "n_stack", 0):
-                raise ValueError("stacked QTensors are not carried over")
-            opt = lambda a: None if a is None else arr(a)
-            return QTensor(str(x.kind), arr(x.q), opt(x.scale), opt(x.bias),
-                           int(x.k), int(x.n), GGMLType(int(x.ggml_type)),
-                           int(x.zero), int(x.interleaved_bk),
-                           int(x.q4_layout), str(getattr(x, "name", "")),
-                           lut=opt(getattr(x, "lut", None)),
-                           signs=opt(getattr(x, "signs", None)))
-        return arr(x)
-
-    def walk(d):
-        if isinstance(d, dict):
-            if "stack" in d:
-                raise ValueError("params_from_jax takes unstacked params "
-                                 "(before stack_model)")
-            return {k: walk(v) for k, v in d.items()}
-        if isinstance(d, list):
-            return [walk(v) for v in d]
-        return leaf(d)
-
-    return walk(params)

@@ -1,22 +1,23 @@
 """Quantized matrix multiplication dispatch (counterpart of
 ggml_imax_tpu/ops/qmatmul.py).
 
-`qmatmul` sends natpair weights whose N is a multiple of 128 to the
-hand-written kernels (ops/qmm.py) — the reference's fused-path gate — and
-everything else through a plain dequantize + matmul, the role XLA played
-in the JAX package.
+`qmatmul` sends natpair and nat8 weights whose N is a multiple of 128 to
+the hand-written kernels (ops/qmm.py) — the reference's fused-path gate —
+and everything else through a plain dequantize + matmul, the role XLA
+played in the JAX package.
 """
 from __future__ import annotations
 
 import torch
 
 from ..quant.device import QTensor
-from .qmm import qmatmul_natpair, unpack_natpair
+from .qmm import qmatmul_nat8, qmatmul_natpair, unpack_natpair
 
 
 def dequantize(qt: QTensor, dtype=torch.bfloat16) -> torch.Tensor:
     """Expand a QTensor to a dense (K, N) tensor in `dtype` (counterpart of
-    dequantize_xla: natpair and natural plane-split nib4, int8, dense)."""
+    dequantize_xla: natpair and natural plane-split nib4, natural and
+    nat8 int8, dense)."""
     if qt.kind == "dense":
         return qt.q.to(dtype)
     if qt.lut is not None or qt.kind not in ("nib4", "int8"):
@@ -24,7 +25,7 @@ def dequantize(qt: QTensor, dtype=torch.bfloat16) -> torch.Tensor:
     n_groups = qt.scale.shape[0]
     group = qt.k // n_groups
     if qt.kind == "int8":
-        if qt.q4_layout:
+        if qt.q4_layout not in (0, 4):        # nat8 rows are natural
             raise NotImplementedError(f"dequantize: int8 layout {qt.q4_layout}")
         q = qt.q
     elif qt.q4_layout == 3:
@@ -46,12 +47,16 @@ def dequantize(qt: QTensor, dtype=torch.bfloat16) -> torch.Tensor:
 
 def qmatmul(x: torch.Tensor, qt: QTensor, *, compute_dtype=torch.bfloat16,
             out_dtype=None) -> torch.Tensor:
-    """x @ dequant(W): x (..., K) -> (..., N). Natpair weights with N % 128
-    == 0 take the kernels (W4A8 at m == 1, W4A16 above); others dequantize
-    to `compute_dtype` and multiply with f32 accumulation."""
+    """x @ dequant(W): x (..., K) -> (..., N). Natpair and nat8 weights with
+    N % 128 == 0 take the kernels (W4A8 / W8A8 at m == 1, W4A16 / W8A16
+    above); others dequantize to `compute_dtype` and multiply with f32
+    accumulation."""
     out_dtype = out_dtype or x.dtype
-    if qt.kind == "nib4" and qt.q4_layout == 3 and qt.n % 128 == 0:
-        return qmatmul_natpair(x, qt).to(out_dtype)
+    if qt.n % 128 == 0:
+        if qt.kind == "nib4" and qt.q4_layout == 3:
+            return qmatmul_natpair(x, qt).to(out_dtype)
+        if qt.kind == "int8" and qt.q4_layout == 4:
+            return qmatmul_nat8(x, qt).to(out_dtype)
     w = dequantize(qt, dtype=compute_dtype)
     y = x.to(compute_dtype).float() @ w.float()
     return y.to(out_dtype)

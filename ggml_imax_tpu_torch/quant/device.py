@@ -9,7 +9,10 @@ Layouts (K = contraction dim, N = output dim):
   (``q4_layout`` 3, ops/qmm.repack_natpair) packs elements (2i, 2i+1) of
   byte row i, XOR 8, so a signed nibble read is q - 8.
   w[k, n] = (nib - zero) * scale[k // 32, n] + bias[k // 32, n].
-- ``int8``: (K, N) int8, w = q * scale + bias.
+- ``int8``: (K, N) int8, w = q * scale[k // g, n] + bias[k // g, n], with
+  g = K / scale rows (32, or 16 for the per-16 formats). Rows are in
+  natural order; the nat8 layout (``q4_layout`` 4, ops/qmm.repack_nat8) is
+  the same bytes with a tag.
 - ``dense``: (K, N) float.
 """
 from __future__ import annotations
@@ -20,7 +23,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .formats import GGMLType
+from .._device import resolve_device
+from . import codecs
+from .formats import FORMATS, GGMLType
 
 
 @dataclass
@@ -38,7 +43,7 @@ class QTensor:
     ggml_type: GGMLType
     zero: int = 0             # nib4 zero-point
     interleaved_bk: int = 0   # 0 = natural layout; else the repack's K tile
-    q4_layout: int = 0        # 0 = plane split, 3 = natpair
+    q4_layout: int = 0        # 0 = natural, 3 = natpair, 4 = nat8
     name: str = ""
     n_stack: int = 0
     lut: Optional[torch.Tensor] = None
@@ -46,8 +51,9 @@ class QTensor:
 
 
 def dequantize_qtensor(qt: QTensor) -> torch.Tensor:
-    """Reference dequantization of the natural device layout -> (K, N) f32
-    (counterpart of quant/device.dequantize_qtensor)."""
+    """Reference dequantization of the natural device layout (and of nat8,
+    whose rows are natural) -> (K, N) f32 (counterpart of
+    quant/device.dequantize_qtensor)."""
     if qt.kind == "dense":
         return qt.q.float()
     if qt.lut is not None or qt.kind not in ("nib4", "int8"):
@@ -61,11 +67,58 @@ def dequantize_qtensor(qt: QTensor) -> torch.Tensor:
         idx = torch.cat([g & 0x0F, g >> 4], dim=1).reshape(qt.k, qt.n)
         q = idx.float() - float(qt.zero)
     else:
+        if qt.q4_layout not in (0, 4):
+            raise ValueError(f"dequantize_qtensor: int8 layout {qt.q4_layout}")
         q = qt.q.float()
     w = q.reshape(-1, group, qt.n) * scale[:, None, :]
     if qt.bias is not None:
         w = w + qt.bias.float()[:, None, :]
     return w.reshape(qt.k, qt.n)
+
+
+def _nib4_from_u8(vals: np.ndarray) -> np.ndarray:
+    """(N, K) unsigned 4-bit values in natural order -> packed (K/2, N)
+    uint8 with the intra-block plane split."""
+    n, k = vals.shape
+    v = vals.reshape(n, k // 32, 2, 16)
+    packed = (v[:, :, 0, :] | (v[:, :, 1, :] << 4)).astype(np.uint8)
+    return np.ascontiguousarray(packed.reshape(n, k // 2).T)
+
+
+def to_device_format(raw: np.ndarray, t: GGMLType, shape_ne: tuple[int, ...],
+                     *, device=None) -> QTensor:
+    """Decode a ggml-encoded 2-D weight into the device layout (counterpart
+    of quant/device.to_device_format for F32, Q4_0 and Q8_0). shape_ne is
+    the ggml shape, row length K first; the tensors land on `device` (the
+    card unless "cpu" is passed)."""
+    dev = resolve_device(device)
+    k, n = shape_ne[0], int(np.prod(shape_ne[1:]))
+    put = lambda a: torch.from_numpy(a).to(dev)
+    if t == GGMLType.F32:
+        w = codecs.dequantize(raw, t, shape=(n, k)).T
+        return QTensor("dense", put(np.ascontiguousarray(w)), None, None, k,
+                       n, t)
+    if t not in (GGMLType.Q4_0, GGMLType.Q8_0):
+        raise NotImplementedError(f"no device layout for {t.name} yet")
+    if k % FORMATS[t].block_size:
+        raise ValueError(f"{t.name}: K={k} is not a whole number of blocks")
+    b = codecs.blocks_view(raw, t).reshape(n, k // 32)
+    d = np.ascontiguousarray(b["d"].T.astype(np.float32))     # (K/32, N)
+    if t == GGMLType.Q4_0:
+        qs = b["qs"]                                  # (N, K/32, 16)
+        vals = np.concatenate([qs & 0x0F, qs >> 4], axis=2).reshape(n, k)
+        return QTensor("nib4", put(_nib4_from_u8(vals)), put(d), None, k, n,
+                       t, zero=8)
+    qdev = np.ascontiguousarray(b["qs"].reshape(n, k).T)
+    return QTensor("int8", put(qdev), put(d), None, k, n, t)
+
+
+def quantize_for_device(w: np.ndarray, t: GGMLType, *, device=None) -> QTensor:
+    """Quantize a float (K, N) weight through the bit-exact codec, then lay
+    it out for the device: exactly what a GGUF round trip gives."""
+    k, n = w.shape
+    raw = codecs.quantize(np.ascontiguousarray(w.T), t)
+    return to_device_format(raw, t, (k, n), device=device)
 
 
 def _same_layout(a: QTensor, b: QTensor, *extra) -> bool:

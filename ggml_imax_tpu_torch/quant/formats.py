@@ -1,5 +1,6 @@
 """Block-quantization format metadata (the port's own copy of
-ggml_imax_tpu/quant/formats.py, trimmed to what the GPT-J slice needs).
+ggml_imax_tpu/quant/formats.py, trimmed to what the GPT-J and GPT-2 slices
+need).
 
 `GGMLType` keeps ggml's integer values so a type read from the JAX package
 or a GGUF file maps by value.

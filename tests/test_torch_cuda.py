@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from ggml_imax_tpu_torch import _build
-from ggml_imax_tpu_torch.models import gptj
+from ggml_imax_tpu_torch.models import gpt2, gptj
 from ggml_imax_tpu_torch.models.common import init_kv_cache, update_kv
 from ggml_imax_tpu_torch.ops import decode_attention as da
 from ggml_imax_tpu_torch.ops import flash_attention as fa
@@ -28,6 +28,10 @@ pytestmark = pytest.mark.cuda
 def gen():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    try:
+        _build._nvcc()
+    except RuntimeError as e:
+        pytest.skip(f"needs nvcc to build the CUDA kernels: {e}")
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
     return g
@@ -127,6 +131,83 @@ def test_small_gptj_on_card_matches_cpu(gen):
         lg, cache = gptj.forward(cfg, p, torch.as_tensor(prompt[None], device=dev),
                                  torch.arange(24, device=dev)[None], cache, 0)
         lg2, _ = gptj.forward(cfg, p, torch.tensor([[7]], device=dev),
+                              torch.tensor([[24]], device=dev), cache, 24)
+        outs[dev] = (lg.cpu(), lg2.cpu())
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert float((a - b).abs().max()) < 5e-2
+
+
+def nat8(K, N, gen, g=32, scale_dtype=torch.float32, bias=False):
+    q = torch.randint(-127, 128, (K, N), dtype=torch.int8, generator=gen,
+                      device="cuda")
+    s = torch.rand((K // g, N), generator=gen, device="cuda") * 0.01
+    b = torch.rand((K // g, N), generator=gen, device="cuda") * 0.01 \
+        if bias else None
+    return QTensor("int8", q, s.to(scale_dtype), None if b is None
+                   else b.to(scale_dtype), K, N, GGMLType.Q8_0,
+                   interleaved_bk=K, q4_layout=4)
+
+
+@pytest.mark.parametrize("g", [16, 32])
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias", [False, True])
+def test_nat8_w8a8_kernel_matches_plain(gen, g, scale_dtype, bias):
+    qt = nat8(1600, 1280, gen, g, scale_dtype, bias)      # K = 1600: 400 quads
+    x = torch.randn(1, 1600, generator=gen, device="cuda")
+    before = _build.LAUNCHES["nat8_w8a8"]
+    got = qmm.qmatmul_nat8(x, qt)
+    assert _build.LAUNCHES["nat8_w8a8"] == before + 1
+    x8, dx = qmm.quantize_activations_q8(x, g)
+    xs = dx[:, 0] * x8[:, 0].float().sum(-1)
+    ref = qmm.nat8_w8a8_gemv_plain(x8[:, 0], dx[:, 0], qt, xs)
+    assert rel(got[0], ref) < 1e-5
+
+
+@pytest.mark.parametrize("m,n", [(5, 640), (100, 200), (512, 640)])
+@pytest.mark.parametrize("g,bias", [(32, False), (16, True)])
+def test_nat8_w8a16_kernel_matches_plain(gen, m, n, g, bias):
+    qt = nat8(1600, n, gen, g, torch.float32, bias)
+    x = torch.randn(m, 1600, generator=gen, device="cuda")
+    before = _build.LAUNCHES["nat8_w8a16"]
+    got = qmm.nat8_w8a16_gemm(x, qt)
+    assert _build.LAUNCHES["nat8_w8a16"] == before + 1
+    assert rel(got, qmm.nat8_w8a16_gemm_plain(x, qt)) < 1e-4
+
+
+def test_nat8_w8a16_refuses_misaligned_x(gen):
+    qt = nat8(1600, 640, gen)
+    flat = torch.randn(5 * 1600 + 1, generator=gen, device="cuda")
+    x = flat.to(torch.bfloat16)[1:].view(5, 1600)       # 2-byte offset
+    before = _build.LAUNCHES["nat8_w8a16"]
+    with pytest.raises(ValueError, match="aligned"):
+        qmm.nat8_w8a16_gemm(x, qt)
+    assert _build.LAUNCHES["nat8_w8a16"] == before
+
+
+def test_gpt2_device_weights_are_q8_0(gen):
+    cfg = gpt2.GPT2Config(n_vocab=1000, n_ctx=64, n_embd=320, n_head=5,
+                          n_layer=2)
+    p = gpt2.synthetic_params_device(cfg, seed=1)
+    for w in [p["wte"]] + [lp[k] for lp in p["layers"]
+                           for k in ("attn_w", "proj_w", "fc_w", "out_w")]:
+        assert w.kind == "int8" and w.ggml_type == GGMLType.Q8_0
+        assert w.q.dtype == torch.int8 and int(w.q.min()) >= -127
+        assert w.scale.shape == (w.k // 32, w.n) and bool((w.scale >= 0).all())
+
+
+@pytest.mark.parametrize("wtype", [GGMLType.Q8_0, GGMLType.Q4_0])
+def test_small_gpt2_on_card_matches_cpu(gen, wtype):
+    cfg = gpt2.GPT2Config(n_vocab=1000, n_ctx=64, n_embd=320, n_head=5,
+                          n_layer=2)
+    prompt = np.random.default_rng(3).integers(0, 1000, 24)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        p = qmm.params_repack(gpt2.synthetic_params(cfg, wtype, seed=4,
+                                                    device=dev))
+        cache = gpt2.init_cache(cfg, device=dev)
+        lg, cache = gpt2.forward(cfg, p, torch.as_tensor(prompt[None], device=dev),
+                                 torch.arange(24, device=dev)[None], cache, 0)
+        lg2, _ = gpt2.forward(cfg, p, torch.tensor([[7]], device=dev),
                               torch.tensor([[24]], device=dev), cache, 24)
         outs[dev] = (lg.cpu(), lg2.cpu())
     for a, b in zip(outs["cuda"], outs["cpu"]):

@@ -153,4 +153,6 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert len(mods) >= 17
+    assert len(mods) >= 19
+    assert {"ggml_imax_tpu_torch.models.gpt2",
+            "ggml_imax_tpu_torch.quant.codecs"} <= set(mods)
