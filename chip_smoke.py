@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's main paths on one NVIDIA GPU: GPT-J-6B Q4_0
-and GPT-2 1558M (XL) Q8_0.
+(one stream, and continuous-batching serving) and GPT-2 1558M (XL) Q8_0.
 
     python3 chip_smoke.py
 
@@ -9,15 +9,20 @@ Phases (any failure exits nonzero and prints no result line):
 1. setup: device facts, `nvidia-smi` name and power limit, the kernel build
    from ggml_imax_tpu_torch/csrc (nvcc -Xptxas -v summary);
 2. kernels: each hand-written kernel against its plain PyTorch version on
-   the card at the main paths' shapes (GPT-J: natpair W4A8/W4A16, decode
-   attention, flash; GPT-2 XL: nat8 W8A8/W8A16 on fc_w, flash at D = 64),
-   with its time (CUDA events, L2 flushed before each launch), the plain
-   version's time, one PyTorch library call computing the same function (a
-   yardstick only: the port never calls it) and the least time the card
-   could take (bound);
+   the card at the main paths' shapes (GPT-J: natpair W4A8/W4A16 (M 512,
+   the serving ubatches M 8 and 128), decode attention, flash; serving:
+   cells decode attention at 8 rows over a 2048-cell arena, the fused
+   KV-update kernel in flat mode at T 512 and in cells mode at 8 rows x
+   2048, flash at a mixed ubatch's 128 rows over that q8_0 arena; GPT-2
+   XL: nat8 W8A8/W8A16 on fc_w, flash at D = 64), with its time (CUDA
+   events, L2 flushed before each launch), the plain version's time, one
+   PyTorch library call computing the same function (a yardstick only: the
+   port never calls it) and the least time the card could take (bound);
 3. small models: a 2-layer GPT-J with head_dim 256, and a 2-layer GPT-2
    with head_dim 64 in Q8_0 and in Q4_0, on the card (kernels) against the
-   same model on the CPU (plain versions), prefill + decode;
+   same model on the CPU (plain versions), prefill + decode; and the small
+   GPT-J's BatchedEngine (two requests and a fork, q8_0 KV, both cells
+   routes) on the card against the CPU, ubatch by ubatch;
 4. GPT-J engine: synthetic GPT-J-6B Q4_0 drawn on the card, prepare_fused +
    natpair repack, Engine(n_ctx=512) serving 3 requests of a 448-token
    prompt + 64 greedy tokens, with the launch counts of that run; then the
@@ -27,7 +32,19 @@ Phases (any failure exits nonzero and prints no result line):
    prepare_fused + nat8 repack, Engine(n_ctx=1024), the same 3 requests,
    launch counts and profile, and the device time of the products the
    reference's N % 128 gate leaves to dequantize + matmul (attn_w, proj_w,
-   out_w, the tied LM head) against the step's device time.
+   out_w, the tied LM head) against the step's device time;
+6. GPT-J serving: synthetic GPT-J-6B Q4_0, BatchedEngine(n_ctx=2048, q8_0
+   KV arena, on-device sampling) under the workload of the reference's
+   `examples/serve.py --bench` (8 requests arriving every 4 engine steps,
+   64-127-token prompts, 32 tokens each at temp 0.8 / top_k 40 / top_p
+   0.95, step_chunk(8)), once to warm up and once timed: aggregate tok/s,
+   p50 TTFT, ubatch counts, exact launch counts, peak memory, the device
+   busy share of a decode-only ubatch; then a short greedy serving pass
+   (two mixed ubatches, a fork, decode-only ubatches) held to the same pass
+   with every kernel's plain version on the card, and the fused KV-update
+   routes on that pass and on Engine decode steps held to the default
+   routes (equal tokens, logits within ROUTE_TOL); two planted faults of
+   the fused kernel must fail that check.
 
 Each engine phase sets the launch counters to 0 just before its requests
 and reads them just after. The line before the last is the kernels JSON,
@@ -36,6 +53,7 @@ network and one card.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -53,6 +71,19 @@ GPTJ_6B = dict(n_vocab=50400, n_ctx=512, n_embd=4096, n_head=16, n_layer=28,
                n_rot=64)
 GPT2_XL = dict(n_vocab=50257, n_ctx=1024, n_embd=1600, n_head=25, n_layer=48)
 PROMPT, N_PREDICT, N_REQUESTS = 448, 64, 3
+# examples/serve.py --bench: n_ctx, requests, arrival every k engine steps,
+# prompt lengths [lo, hi), tokens per request, decode steps per chunk
+SERVE = dict(n_ctx=2048, n_req=8, arrive=4, plen=(64, 128), n_predict=32,
+             chunk=8)
+# Two sound greedy runs of GPT-J-6B (the fused KV-update routes against the
+# default ones; kernels against plain versions) agree to this share of the
+# largest |logit| (phase 6). A run rounds a few terms differently (the fresh
+# row's p is not rounded to bf16; sums in another order), which flips bf16
+# and int8 activation roundings downstream. Readings of this script on an
+# H100 (PERF.md): sound runs at most 1.66% (the Engine's fused route);
+# the planted fault the limit alone must catch (the fresh row written one
+# row off, Engine, tokens still equal) at least 8.1%. 3.5% lies between.
+ROUTE_TOL = 3.5e-2
 # kernel -> (source under ggml_imax_tpu_torch/csrc, the TPU kernel it replaces)
 KERNELS = {
     "w4a8_gemv": ("w4a8_gemv.cu", "ggml_imax_tpu/ops/pallas_qmm.py:960"),
@@ -63,6 +94,10 @@ KERNELS = {
                         "ggml_imax_tpu/ops/flash_attention.py:44"),
     "nat8_w8a8": ("nat8_gemv.cu", "ggml_imax_tpu/ops/pallas_qmm.py:1181"),
     "nat8_w8a16": ("nat8_gemm.cu", "ggml_imax_tpu/ops/pallas_qmm.py:1212"),
+    "decode_attention_cells": ("decode_attention_cells.cu",
+                               "ggml_imax_tpu/ops/decode_attention.py:129"),
+    "decode_attention_update": ("decode_attention_update.cu",
+                                "ggml_imax_tpu/ops/decode_attention.py:376"),
 }
 
 
@@ -166,24 +201,28 @@ def random_nat8(K, N, gen, g=32, scale_dtype=torch.float32, bias=False):
 
 
 def flash_case(ck, timer, gen, label, B, Tq, Tk, Hq, Hkv, Dh, kw, timed,
-               q_off=None):
+               q_off=None, kv=None, visible=None):
     """One flash-attention case; causal over positions q_off + i (the last
     Tq keys by default), keys at or past q_off + Tq masked as the engine's
-    bucketed prefill masks them."""
+    bucketed prefill masks them. kv: the keys and values (B, Tk, Hkv, Dh)
+    instead of random ones; visible: a (B, Tq, Tk) bool visibility instead
+    of the causal one."""
     from ggml_imax_tpu_torch.ops import flash_attention as fa
     sdpa = torch.nn.functional.scaled_dot_product_attention
     q = torch.randn(B, Tq, Hq, Dh, generator=gen, device="cuda")
-    k = torch.randn(B, Tk, Hkv, Dh, generator=gen, device="cuda")
-    v = torch.randn(B, Tk, Hkv, Dh, generator=gen, device="cuda")
+    k, v = kv if kv is not None else (
+        torch.randn(B, Tk, Hkv, Dh, generator=gen, device="cuda")
+        for _ in range(2))
     q_off = Tk - Tq if q_off is None else q_off
     qi = torch.arange(Tq, device="cuda")[:, None] + q_off
-    visible = torch.arange(Tk, device="cuda")[None, :] <= qi
+    if visible is None:
+        visible = torch.arange(Tk, device="cuda")[None, :] <= qi
+    visible = visible.expand(B, Tq, Tk)
     if kw.get("max_bias"):
         dist = (torch.arange(Tk, device="cuda")[None, :] - qi).float()
-        mask = torch.where(visible, dist, float("-inf"))[None, None]
+        mask = torch.where(visible, dist, float("-inf"))[:, None]
     else:
-        mask = torch.where(visible, 0.0, float("-inf"))[None, None]
-    mask = mask.expand(B, 1, Tq, Tk)
+        mask = torch.where(visible, 0.0, float("-inf"))[:, None]
     prep = fa._prep(q, k, v, mask, kw.get("max_bias", 0.0))
     args = prep + (1.0 / math.sqrt(Dh), kw.get("logit_softcap", 0.0),
                    kw.get("want_lse", False))
@@ -198,7 +237,8 @@ def flash_case(ck, timer, gen, label, B, Tq, Tk, Hq, Hkv, Dh, kw, timed,
         timing = dict(
             ms=timer(lambda: fa.flash_attention_kernel(*args), iters=50),
             plain_ms=timer(lambda: fa.flash_attention_plain(*args), iters=5),
-            lib_ms=timer(lambda: sdpa(qb, kb, vb, attn_mask=visible), iters=50),
+            lib_ms=timer(lambda: sdpa(qb, kb, vb, attn_mask=visible[:, None]),
+                         iters=50),
             nbytes=(B * Tq * Hq + 2 * B * Tk * Hkv) * Dh * 2
             + B * Tq * Tk * 4 + B * Tq * Hq * Dh * 4,
             ops=4 * B * Hq * Tq * Tk * Dh)
@@ -229,18 +269,19 @@ def check_gptj_kernels(ck, timer, gen):
                   timer(lambda: torch.matmul(xb, wd)),
                   K * N // 2 + sbytes + K + K // 32 * 4 + N * 4, 2 * K * N,
                   PEAK_INT8)
-        # B: W4A16 GEMM at the prefill bucket M = 512
-        M = 512
-        xm = torch.randn(M, K, generator=gen, device="cuda")
-        got = qmm.w4a16_gemm(xm, qt)
-        ref = qmm.w4a16_gemm_plain(xm, qt)
-        xmb = xm.to(torch.bfloat16)
-        ck.record("w4a16_gemm", f"{label} M={M} K={K} N={N}", got, ref, 1e-3,
-                  timer(lambda: qmm.w4a16_gemm(xm, qt)),
-                  timer(lambda: qmm.w4a16_gemm_plain(xm, qt), iters=3),
-                  timer(lambda: torch.matmul(xmb, wd)),
-                  M * K * 2 + K * N // 2 + sbytes + M * N * 4, 2 * M * K * N,
-                  PEAK_BF16)
+        # B: W4A16 GEMM at the prefill bucket M = 512, the serving
+        # decode-only ubatch M = 8 and a mixed serving ubatch's bucket 128
+        for M in (512, 8, 128):
+            xm = torch.randn(M, K, generator=gen, device="cuda")
+            got = qmm.w4a16_gemm(xm, qt)
+            ref = qmm.w4a16_gemm_plain(xm, qt)
+            xmb = xm.to(torch.bfloat16)
+            ck.record("w4a16_gemm", f"{label} M={M} K={K} N={N}", got, ref,
+                      1e-3, timer(lambda: qmm.w4a16_gemm(xm, qt)),
+                      timer(lambda: qmm.w4a16_gemm_plain(xm, qt), iters=3),
+                      timer(lambda: torch.matmul(xmb, wd)),
+                      M * K * 2 + K * N // 2 + sbytes + M * N * 4,
+                      2 * M * K * N, PEAK_BF16)
         del qt, wd
 
     # C: decode attention over one layer of a 512-row arena, bf16 and q8_0
@@ -284,6 +325,147 @@ def check_gptj_kernels(ck, timer, gen):
     for label, B, Tq, Tk, Hq, Hkv, Dh, kw in cases:
         flash_case(ck, timer, gen, label, B, Tq, Tk, Hq, Hkv, Dh, kw,
                    timed=label.startswith("gptj"))
+
+
+def check_serving_kernels(ck, timer, gen):
+    """The serving path's attention kernels at GPT-J-6B width (16 heads of
+    256): read-only cells attention for 8 query rows (one a pad row) over a
+    2048-cell arena, bf16 and q8_0; the fused KV-update kernel in flat mode
+    at the Engine's B 1 / T 512 (bf16) and in cells mode at 8 rows x 2048
+    (q8_0, the serving arena). Each fused launch also writes its rows: the
+    kernel's arena must equal the plain version's after the call. Then
+    flash at a mixed ubatch's shape: 128 query rows over the 2048-cell q8_0
+    arena under a cell mask."""
+    from ggml_imax_tpu_torch.models.common import _q8_rows, init_kv_cache, \
+        read_kv, update_kv
+    from ggml_imax_tpu_torch.ops import decode_attention as da
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    H, D = GPTJ_6B["n_head"], GPTJ_6B["n_embd"] // GPTJ_6B["n_head"]
+    scale = 1.0 / math.sqrt(D)
+
+    def arena(kv, B, T):
+        cache = init_kv_cache(2, B, T, H, D, kv, device="cuda")
+        update_kv(cache, 1, torch.randn(B, T, H, D, generator=gen, device="cuda"),
+                  torch.randn(B, T, H, D, generator=gen, device="cuda"), 0)
+        return cache, (cache.k[1], cache.v[1],
+                       None if cache.ks is None else cache.ks[1],
+                       None if cache.vs is None else cache.vs[1])
+
+    def library(q3, k, v, ks, vs, visible):
+        """SDPA over the dequantized arena with a boolean mask (yardstick)."""
+        B = q3.shape[0]
+        kd, vd = (da._dense(x, xs, B, H).to(torch.bfloat16)
+                  for x, xs in ((k, ks), (v, vs)))
+        qb = q3.to(torch.bfloat16)[:, :, None]
+        return timer(lambda: sdpa(qb, kd, vd, attn_mask=visible[:, None, None]),
+                     iters=50)
+
+    def elt(cache):
+        return 2 if cache.ks is None else 1 + 4 / 32
+
+    NB, T = 8, SERVE["n_ctx"]
+    seq = torch.randint(0, NB - 1, (T,), generator=gen, device="cuda")
+    visible = seq[None] == torch.arange(NB, device="cuda")[:, None]
+    visible[NB - 1] = False                          # a pad row: sees nothing
+    visible[:, T - 1] = False                        # the trash cell: nobody's
+    mask = torch.where(visible, 0.0, da.NEG)
+    for kv in ("q8_0", torch.bfloat16):
+        cache, ar = arena(kv, 1, T)
+        q = torch.randn(NB, H, D, generator=gen, device="cuda")
+        args = (q, *ar, mask, H, scale)
+        name = "q8_0" if cache.ks is not None else "bf16"
+        ck.record("decode_attention_cells", f"{name} NB={NB} H={H} D={D} T={T}",
+                  da.decode_attention_cells_kernel(*args),
+                  da.decode_attention_plain(*args), 1e-2,
+                  timer(lambda: da.decode_attention_cells_kernel(*args), iters=50),
+                  timer(lambda: da.decode_attention_plain(*args), iters=5),
+                  library(q, *ar, visible),
+                  2 * NB * H * D * 4 + 2 * T * H * D * elt(cache) + NB * T * 4,
+                  4 * NB * H * T * D, PEAK_BF16)
+        del cache, ar
+
+    def fused_case(kv, NB, T, rows, mask, visible, label):
+        cache, ar = arena(kv, NB if label == "flat" else 1, T)
+        twin = [None if t is None else t.clone() for t in ar]
+        q = torch.randn(NB, H, D, generator=gen, device="cuda")
+        kn, vn = (torch.randn(NB, 1, H, D, generator=gen, device="cuda")
+                  for _ in range(2))
+        if cache.ks is not None:
+            (k8, kd), (v8, vd) = _q8_rows(kn), _q8_rows(vn)
+            fresh = (k8.reshape(NB, -1), v8.reshape(NB, -1),
+                     kd.reshape(NB, -1), vd.reshape(NB, -1))
+        else:
+            fresh = (kn.reshape(NB, -1).bfloat16(), vn.reshape(NB, -1).bfloat16(),
+                     None, None)
+        tail = (mask, rows, H, scale)
+        got = da.decode_attention_update_kernel(q, *ar, *fresh, *tail)
+        ref = da.decode_attention_update_plain(q, *twin, *fresh, *tail)
+        if not all(a is None or torch.equal(a, b) for a, b in zip(ar, twin)):
+            ck.failures.append(f"decode_attention_update {label}: the arena "
+                               "differs from the plain version's")
+        fbytes = 2 * NB * H * D * elt(cache) * 2   # fresh rows read + written
+        name = "q8_0" if cache.ks is not None else "bf16"
+        ck.record("decode_attention_update",
+                  f"{label} {name} NB={NB} H={H} D={D} T={T}", got, ref, 1e-2,
+                  timer(lambda: da.decode_attention_update_kernel(
+                      q, *ar, *fresh, *tail), iters=50),
+                  timer(lambda: da.decode_attention_update_plain(
+                      q, *twin, *fresh, *tail), iters=5),
+                  library(q, *ar, visible),
+                  2 * NB * H * D * 4 + 2 * T * H * D * elt(cache) + NB * T * 4
+                  + fbytes, 4 * NB * H * T * D, PEAK_BF16)
+
+    # flat mode at the Engine's shape: B 1, T 512, n_past 499 (as check C)
+    Tf = PROMPT + N_PREDICT
+    n_past = Tf - 13
+    vis_f = torch.arange(Tf, device="cuda")[None] <= n_past
+    fused_case(torch.bfloat16, 1, Tf, torch.tensor([n_past], device="cuda"),
+               torch.where(vis_f, 0.0, da.NEG), vis_f, "flat")
+    # cells mode at the serving shape: each row's own cell, the pad row's
+    # the trash cell
+    rows = torch.stack([torch.nonzero(visible[n])[-1, 0] for n in range(NB - 1)]
+                       + [torch.tensor(T - 1, device="cuda")])
+    fused_case("q8_0", NB, T, rows, mask, visible, "cells")
+
+    # flash as a mixed serving ubatch runs it: the bucket's 128 query rows
+    # over the whole q8_0 arena, expanded to f32 as the forward reads it,
+    # under the cell mask of that ubatch's registry
+    cache, _ = arena("q8_0", 1, T)
+    flash_case(ck, timer, gen, f"serving mixed Tq=128 Tk={T} H={H} D={D}",
+               1, 128, T, H, H, D, {}, timed=True,
+               kv=read_kv(cache, 1, dtype=torch.float32),
+               visible=mixed_ubatch_mask(T, 128)[:, 0] == 0)
+    del cache
+
+
+def mixed_ubatch_mask(n_ctx, nb):
+    """cells_attention_mask (1, 1, nb, n_ctx) of a mixed serving ubatch,
+    registry as BatchedEngine.step leaves it: 7 sequences decoding (prompts
+    of 64-127 tokens plus 0-31 generated, each a run of cells, this step's
+    cell included), a new request's 100-token prompt chunk, and pad rows up
+    to the bucket nb (seq MAX_SEQ - 1, the trash cell, visible to none)."""
+    from ggml_imax_tpu_torch.models.common import cells_attention_mask
+    from ggml_imax_tpu_torch.runtime.batched import MAX_SEQ
+    rng = np.random.default_rng(3)
+    cell_pos = np.full(n_ctx, -1, np.int64)
+    cell_seq = np.zeros(n_ctx, np.int64)
+    tok_pos, tok_seq, head = [], [], 0
+    for s, n in enumerate(rng.integers(64, 128, 7) + rng.integers(0, 32, 7)):
+        cell_pos[head:head + n + 1] = np.arange(n + 1)
+        cell_seq[head:head + n + 1] = 1 << s
+        tok_pos.append(n)
+        tok_seq.append(s)
+        head += n + 1
+    cell_pos[head:head + 100] = np.arange(100)
+    cell_seq[head:head + 100] = 1 << 7
+    tok_pos += range(100)
+    tok_seq += [7] * 100
+    pad = nb - len(tok_pos)
+    tok_pos += [0] * pad
+    tok_seq += [MAX_SEQ - 1] * pad
+    dev = lambda a: torch.as_tensor(np.asarray(a), device="cuda")[None]
+    return cells_attention_mask(dev(tok_pos), dev(tok_seq), dev(cell_pos),
+                                dev(cell_seq))
 
 
 def check_gpt2_kernels(ck, timer, gen):
@@ -388,6 +570,84 @@ def check_small_models(failures):
             gpt2.synthetic_params(cfg2, wtype, seed=5, device=dev)))
         variants.append((wtype.name, mk, {}))
     check_small_model(failures, gpt2, cfg2, variants, "GPT-2")
+
+
+def recording(model, logs):
+    """The model module with a forward that also appends, per call, the f32
+    logits of the ubatch's real rows (not the pad rows, whose cell is the
+    trash cell) to `logs`, on the host."""
+    import functools
+    import types
+
+    @functools.wraps(model.forward)
+    def forward(cfg, params, tokens, positions, cache, n_past, **kw):
+        lg, cache = model.forward(cfg, params, tokens, positions, cache, n_past,
+                                  **kw)
+        logs.append(lg[0][kw["cells"][0] != cache.n_ctx - 1].float().cpu())
+        return lg, cache
+    return types.SimpleNamespace(forward=forward, __name__=model.__name__,
+                                 init_cache=model.init_cache)
+
+
+def same_greedy(ref, got, ref_toks, got_toks, tol=5e-2):
+    """Two runs of one greedy workload (two devices, two routes, or kernels
+    and plain versions): ref/got are their logits, one (rows, V) tensor per
+    forward. Holds when the tokens are equal and every forward agrees to
+    `tol`. Returns (ok, diffs, note): diffs, the max |logit diff| of each
+    forward; where the tokens differ, only up to the first forward whose
+    picks part (the later ones are fed other tokens; a row that samples
+    nothing, a prompt row, may part at a near-tie without that)."""
+    diffs = []
+    for i, (a, b) in enumerate(zip(ref, got)):
+        if a.shape != b.shape:
+            break
+        diffs.append(float((a - b).abs().max()))
+        if ref_toks != got_toks and (a.argmax(-1) != b.argmax(-1)).any():
+            return False, diffs, f"tokens differ, picks part at forward {i}"
+    if ref_toks != got_toks or len(ref) != len(got):
+        return False, diffs, "tokens differ"
+    return max(diffs) <= tol, diffs, "tokens equal"
+
+
+def logit_scale(logs) -> float:
+    return max(float(a.abs().max()) for a in logs)
+
+
+def check_small_batched(failures):
+    """The small GPT-J's BatchedEngine (two requests, then a fork of the
+    first, q8_0 KV, greedy with host sampling) on the card and on the CPU,
+    both cells routes: the logits of every ubatch agree to 5e-2 and the
+    tokens are equal (same_greedy)."""
+    from ggml_imax_tpu_torch.models import gptj
+    from ggml_imax_tpu_torch.ops.qmm import params_repack
+    from ggml_imax_tpu_torch.runtime.batched import BatchedEngine
+
+    cfg = gptj.GPTJConfig(n_vocab=512, n_ctx=256, n_embd=512, n_head=2,
+                          n_layer=2, n_rot=64)
+    rng = np.random.default_rng(6)
+    prompts = [list(rng.integers(0, cfg.n_vocab, n)) for n in (21, 9)]
+    for fused in (False, True):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            logs = []
+            p = params_repack(gptj.prepare_fused(
+                gptj.synthetic_params(cfg, seed=5, device=dev), cfg))
+            be = BatchedEngine(recording(gptj, logs), cfg, p, kv_dtype="q8_0",
+                               device=dev, fused_kv_update=fused)
+            rids = [be.add_request(pr, 8, temp=0.0) for pr in prompts]
+            be.step()
+            rids.append(be.fork(rids[0]))
+            res = be.run()
+            runs[dev] = ([res[r] for r in rids], logs, dict(be.n_ubatches))
+        (tok_c, lg_c, nu_c), (tok_h, lg_h, _) = runs["cuda"], runs["cpu"]
+        ok, diffs, note = same_greedy(lg_h, lg_c, tok_h, tok_c)
+        log(f"  small GPT-J BatchedEngine fused_kv_update={fused}: {nu_c} "
+            f"ubatches, max |logit diff| card vs CPU {max(diffs):.3e} (tol "
+            f"5e-02), tokens equal {tok_c == tok_h}, {note}")
+        if not ok:
+            failures.append(f"small batched fused={fused}: err "
+                            f"{max(diffs):.3e}, {note}, tokens {tok_c} vs "
+                            f"{tok_h}")
 
 
 def _device_ms(fn, reps):
@@ -511,6 +771,266 @@ def gated_products_ms(cfg, params, busy_ms, walls):
     return out
 
 
+def serving_workload(be, rng):
+    """examples/serve.py --bench: SERVE["n_req"] requests, one every
+    SERVE["arrive"] engine steps, prompts of rng.integers(*plen) tokens,
+    n_predict tokens each at temp 0.8, top_k 40, top_p 0.95; the loop body
+    is step_chunk(chunk), and a decode-only iteration advances the arrival
+    clock by the chunk. Returns (tokens generated, wall s, sorted TTFTs s,
+    request ids)."""
+    vocab = be.cfg.n_vocab
+    lo, hi = SERVE["plen"]
+    queue = [(SERVE["arrive"] * i, int(rng.integers(lo, hi)),
+              SERVE["n_predict"]) for i in range(SERVE["n_req"])]
+    t_start = time.perf_counter()
+    ttft, t_add, step_no = {}, {}, 0
+    while queue or any(not be.requests[rid].done for rid in t_add):
+        while queue and queue[0][0] <= step_no:
+            _, plen, n_pred = queue.pop(0)
+            rid = be.add_request(list(rng.integers(0, vocab - 1, plen)), n_pred,
+                                 temp=0.8, top_k=40, top_p=0.95, seed=step_no)
+            t_add[rid] = time.perf_counter()
+        live = [r for r in be.requests.values() if not r.done]
+        decode_only = live and all(r.n_prompt_done >= len(r.prompt)
+                                   for r in live)
+        be.step_chunk(SERVE["chunk"])
+        step_no += SERVE["chunk"] if decode_only else 1
+        for rid, t_a in t_add.items():
+            r = be.requests[rid]
+            if rid not in ttft and (r.out or r.next_tok is not None):
+                ttft[rid] = time.perf_counter() - t_a
+    wall = time.perf_counter() - t_start
+    gen = sum(len(be.requests[rid].out) for rid in t_add)
+    return gen, wall, sorted(ttft.values()), list(t_add)
+
+
+@contextlib.contextmanager
+def patched(pairs):
+    """Set the (module, name, value) attributes for the block, then restore
+    them."""
+    old = [(m, n, getattr(m, n)) for m, n, _ in pairs]
+    for m, n, val in pairs:
+        setattr(m, n, val)
+    try:
+        yield
+    finally:
+        for m, n, val in old:
+            setattr(m, n, val)
+
+
+def plain_on_card():
+    """Patches pointing every kernel entry of the GPT-J paths at its plain
+    version, so that the wrappers run the plain versions on CUDA tensors
+    (a check of the whole path only; the port never does this)."""
+    from ggml_imax_tpu_torch.ops import decode_attention as da
+    from ggml_imax_tpu_torch.ops import flash_attention as fa
+    from ggml_imax_tpu_torch.ops import qmm
+    return [(qmm, "w4a16_gemm", qmm.w4a16_gemm_plain),
+            (qmm, "w4a8_gemv", qmm.w4a8_gemv_plain),
+            (fa, "flash_attention_kernel", fa.flash_attention_plain),
+            (da, "decode_attention_kernel", da.decode_attention_plain),
+            (da, "decode_attention_cells_kernel", da.decode_attention_plain),
+            (da, "decode_attention_update_kernel",
+             da.decode_attention_update_plain)]
+
+
+def planted_faults():
+    """Two wrong fused KV-update kernels, the route check's controls: the
+    fresh row written one row past its destination (so the next step sees
+    a row never written), and the fresh row left out of the softmax (the
+    row is written, then the read-only kernel runs with it masked)."""
+    from ggml_imax_tpu_torch.ops import decode_attention as da
+    real = da.decode_attention_update_kernel
+
+    def one_row_off(q3, k, v, ks, vs, kn, vn, kns, vns, mask2, rows, hkv, sc):
+        return real(q3, k, v, ks, vs, kn, vn, kns, vns, mask2,
+                    (rows + 1) % k.shape[1], hkv, sc)
+
+    def fresh_left_out(q3, k, v, ks, vs, kn, vn, kns, vns, mask2, rows, hkv,
+                       sc):
+        real(q3, k, v, ks, vs, kn, vn, kns, vns, mask2, rows, hkv, sc)
+        own = torch.arange(k.shape[1], device=rows.device)[None] \
+            == rows.long()[:, None]
+        read = da.decode_attention_cells_kernel if k.shape[0] == 1 \
+            else da.decode_attention_kernel
+        return read(q3, k, v, ks, vs, torch.where(own, da.NEG, mask2), hkv, sc)
+
+    entry = lambda fn: [(da, "decode_attention_update_kernel", fn)]
+    return {"the fresh row one row off": entry(one_row_off),
+            "the fresh row left out": entry(fresh_left_out)}
+
+
+def short_serving(cfg, params, fused, patches=()):
+    """A short greedy serving pass at GPT-J-6B width (q8_0 arena, n_ctx
+    2048, host sampling so each ubatch's logits are kept): two requests (40
+    and 23 prompt tokens) in a mixed ubatch of bucket 64, then a fork of
+    the first and a third request (70 tokens), whose prompt joins the three
+    decode rows in a mixed ubatch of bucket 128; 8 tokens each. Returns
+    (tokens, logits per ubatch, launch counts)."""
+    from ggml_imax_tpu_torch import _build
+    from ggml_imax_tpu_torch.models import gptj
+    from ggml_imax_tpu_torch.runtime.batched import BatchedEngine
+    rng = np.random.default_rng(7)
+    prompts = [list(rng.integers(0, cfg.n_vocab - 1, n)) for n in (40, 23, 70)]
+    logs = []
+    with patched(patches):
+        eng = BatchedEngine(recording(gptj, logs), cfg, params,
+                            n_ctx=SERVE["n_ctx"], kv_dtype="q8_0",
+                            fused_kv_update=fused)
+        _build.reset_launches()
+        rids = [eng.add_request(p, 8, temp=0.0) for p in prompts[:2]]
+        eng.step()
+        rids += [eng.fork(rids[0]), eng.add_request(prompts[2], 8, temp=0.0)]
+        res = eng.run()
+        counts = dict(_build.LAUNCHES)
+    return [res[r] for r in rids], logs, counts
+
+
+def engine_greedy(cfg, params, fused, patches=(), n=8):
+    """Engine(n_ctx=512) at GPT-J-6B width: a 40-token prompt and n greedy
+    tokens (n - 1 decode steps). Returns (tokens, logits per forward, launch
+    counts of the decode steps and the prefill)."""
+    from ggml_imax_tpu_torch import _build
+    from ggml_imax_tpu_torch.models import gptj
+    from ggml_imax_tpu_torch.runtime.engine import Engine
+    prompt = list(np.random.default_rng(7).integers(0, cfg.n_vocab - 1, 8))
+    with patched(patches):
+        eng = Engine(gptj, cfg, params, n_ctx=512, fused_kv_update=fused)
+        _build.reset_launches()
+        lg, cache = eng.prefill(eng.new_cache(), np.asarray([prompt]))
+        toks, logs = [int(lg[0].argmax())], [torch.from_numpy(lg)]
+        for i in range(n - 1):
+            lg, cache = eng.decode_step(cache, np.asarray(toks[-1:]),
+                                        len(prompt) + i)
+            toks.append(int(lg[0].argmax()))
+            logs.append(torch.from_numpy(lg))
+        counts = dict(_build.LAUNCHES)
+    return toks, logs, counts
+
+
+def check_route(label, ref, got, failures, control=False):
+    """Hold one greedy run (tokens, logits, counts) to another at
+    ROUTE_TOL of ref's largest |logit|; a control run (a planted fault) must
+    fail that check."""
+    tol = ROUTE_TOL * logit_scale(ref[1])
+    ok, diffs, note = same_greedy(ref[1], got[1], ref[0], got[0], tol)
+    log(f"  {label}: max |logit diff| per forward "
+        f"[{', '.join(f'{d:.3e}' for d in diffs)}] (limit {tol:.3e}, largest "
+        f"|logit| {logit_scale(ref[1]):.3f}), {note} -> "
+        f"{'holds' if ok else 'fails'}")
+    if ok == control:
+        failures.append(f"{label}: the check {'holds' if ok else 'fails'} "
+                        f"({note}, max diff {max(diffs):.3e}, limit {tol:.3e})")
+
+
+def serve_gptj(failures):
+    """Phase 6. Returns (serving summary, launch counts by path)."""
+    from ggml_imax_tpu_torch import _build
+    from ggml_imax_tpu_torch.models import gptj
+    from ggml_imax_tpu_torch.ops.qmm import params_repack
+    from ggml_imax_tpu_torch.runtime.batched import BatchedEngine
+
+    cfg = gptj.GPTJConfig(**dict(GPTJ_6B, n_ctx=SERVE["n_ctx"]))
+    L = cfg.n_layer
+    t0 = time.time()
+    params = params_repack(gptj.prepare_fused(
+        gptj.synthetic_params_device(cfg, seed=0), cfg))
+    torch.cuda.synchronize()
+    log(f"  weights drawn + prepared in {time.time() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
+    be = BatchedEngine(gptj, cfg, params, n_ctx=SERVE["n_ctx"],
+                       kv_dtype="q8_0", on_device_sampling=True, seed=1)
+    arena = sum(t.numel() * t.element_size()
+                for t in (be.cache.k, be.cache.v, be.cache.ks, be.cache.vs))
+    log(f"  q8_0 KV arena {arena / 2**30:.3f} GiB")
+    rng = np.random.default_rng(0)
+    t0 = time.time()
+    serving_workload(be, rng)                        # warm-up
+    log(f"  warm-up pass {time.time() - t0:.1f} s")
+    be.requests.clear()
+    be.n_ubatches = {"mixed": 0, "decode": 0}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    gen, wall, ttfts, rids = serving_workload(be, rng)
+    counts = dict(_build.LAUNCHES)
+    nu = dict(be.n_ubatches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    outs = [be.requests[r].out for r in rids]
+    if sorted(map(len, outs)) != [SERVE["n_predict"]] * SERVE["n_req"] or \
+            not all(0 <= t < cfg.n_vocab for o in outs for t in o):
+        failures.append(f"serving: request lengths {list(map(len, outs))}")
+    summary = {"tok_s": gen / wall, "generated": gen, "wall_s": wall,
+               "p50_ttft_ms": 1e3 * ttfts[len(ttfts) // 2],
+               "ttft_ms": [1e3 * t for t in ttfts], "ubatches": nu,
+               "max_memory_allocated_gib": peak}
+    log(f"  served {SERVE['n_req']} requests: {gen} tokens in {wall:.3f} s = "
+        f"{gen / wall:.2f} tok/s aggregate, p50 TTFT "
+        f"{summary['p50_ttft_ms']:.2f} ms (TTFTs "
+        f"{', '.join(f'{1e3 * t:.1f}' for t in ttfts)} ms)")
+    log(f"  ubatches: {nu['mixed']} mixed, {nu['decode']} decode-only; "
+        f"max_memory_allocated {peak:.3f} GiB")
+    log(f"  launches: {counts}")
+    n_all = nu["mixed"] + nu["decode"]
+    check_counts(counts, {"decode_attention_cells": L * nu["decode"],
+                          "flash_attention": L * nu["mixed"],
+                          "w4a16_gemm": (2 * L + 1) * n_all}, failures)
+    launches = {"serving": counts}
+
+    # device busy share of a decode-only ubatch: 8 streams past their prompts
+    for _ in range(SERVE["n_req"]):
+        be.add_request(list(rng.integers(0, cfg.n_vocab - 1, 64)), 64, temp=0.8)
+    while any(r.n_prompt_done < len(r.prompt) for r in be.requests.values()
+              if not r.done):
+        be.step()
+    t0 = time.perf_counter()
+    for _ in range(4):
+        be.step()
+    step_ms = (time.perf_counter() - t0) / 4 * 1e3
+    dev = _device_ms(lambda _: be.step(), 4)
+    if dev:
+        busy = sum(dev.values())
+        summary.update(decode_ubatch_ms=step_ms, decode_ubatch_busy_ms=busy)
+        log(f"  profiled decode-only ubatch (nb 8): device busy {busy:.3f} ms "
+            f"of {step_ms:.3f} ms unprofiled -> busy {100 * busy / step_ms:.1f}%, "
+            f"idle {100 * (1 - busy / step_ms):.1f}%")
+        for key, ms in sorted(dev.items(), key=lambda kv: -kv[1])[:8]:
+            log(f"    {ms:9.4f} ms  {key[:90]}")
+    else:
+        log("  profiled decode-only ubatch: no device time (not measured)")
+
+    del be
+    # the route checks at GPT-J-6B depth (see ROUTE_TOL): the default
+    # serving route with kernels against the same with the plain versions on
+    # the card, and the fused routes (cells and flat mode) against the
+    # default ones; then each planted fault, which must fail the check
+    ref_s = short_serving(cfg, params, False)
+    check_route("serving, kernels vs plain versions on the card", ref_s,
+                short_serving(cfg, params, False, plain_on_card()), failures)
+    fused_s = short_serving(cfg, params, True)
+    launches["serving_fused"] = fused_s[2]
+    check_route("serving, fused route (cells mode) vs default", ref_s,
+                fused_s, failures)
+    if fused_s[2]["decode_attention_update"] == 0:
+        failures.append("fused serving pass: no fused KV-update launch")
+    ref_e = engine_greedy(cfg, params, False)
+    fused_e = engine_greedy(cfg, params, True)
+    launches["engine_fused"] = fused_e[2]
+    check_route("Engine, fused route (flat mode) vs default", ref_e, fused_e,
+                failures)
+    check_counts(launches["engine_fused"],
+                 {"decode_attention_update": L * 7, "w4a8_gemv": 7 * (2 * L + 1),
+                  "w4a16_gemm": 2 * L + 1, "flash_attention": L}, failures)
+    for fault, patches in planted_faults().items():
+        check_route(f"control: serving, fused route with {fault}", ref_s,
+                    short_serving(cfg, params, True, patches), failures,
+                    control=True)
+        check_route(f"control: Engine, fused route with {fault}", ref_e,
+                    engine_greedy(cfg, params, True, patches), failures,
+                    control=True)
+    return summary, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -544,6 +1064,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     check_gptj_kernels(ck, timer, gen)
+    check_serving_kernels(ck, timer, gen)
     check_gpt2_kernels(ck, timer, gen)
     del timer                                      # the 256 MB flush buffer
     torch.cuda.empty_cache()
@@ -551,6 +1072,7 @@ def main() -> int:
     # ---- 3. small models, card vs CPU
     log("# phase 3: small GPT-J and GPT-2, card kernels vs CPU plain versions")
     check_small_models(failures)
+    check_small_batched(failures)
     if failures:
         raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
 
@@ -599,6 +1121,15 @@ def main() -> int:
     gated = gated_products_ms(cfg, params, *profile_engine(eng, rng, reqs))
     launches["gpt2"], engines["gpt2"] = counts, reqs
     del eng, params
+    torch.cuda.empty_cache()
+
+    # ---- 6. continuous-batching serving at GPT-J-6B width
+    log("# phase 6: GPT-J-6B Q4_0 serving (BatchedEngine, q8_0 KV, n_ctx "
+        f"{SERVE['n_ctx']})")
+    engines["serving"], by_path = serve_gptj(failures)
+    launches.update(by_path)
+    if failures:
+        raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
 
     kernels = []
     for k in KERNELS:

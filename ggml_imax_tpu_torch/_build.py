@@ -1,11 +1,12 @@
 """Build, load and count the hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all
-started together, for ``sm_90a``; the objects are linked into one shared
-library with a plain C interface, ``build/ggml_imax_tpu_torch/libkernels.so``
-beside the package, and loaded with ctypes. The build runs at first use and
-again whenever a source or a flag changes (a SHA-256 stamp). A failed build
-raises with nvcc's output.
+Every ``csrc/*.cu`` file (with the ``*.cuh`` headers it includes) is
+compiled by its own ``nvcc`` process, all started together, for ``sm_90a``;
+the objects are linked into one shared library with a plain C interface,
+``build/ggml_imax_tpu_torch/libkernels.so`` beside the package, and loaded
+with ctypes. The build runs at first use and again whenever a source, a
+header or a flag changes (a SHA-256 stamp). A failed build raises with
+nvcc's output.
 
 Each C entry returns ``cudaGetLastError()`` right after its launch;
 `check` raises on a nonzero code. `LAUNCHES` counts the launches of each
@@ -27,7 +28,9 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "ggml_imax_tpu_torch"
 SOURCES = ("w4a8_gemv.cu", "w4a16_gemm.cu", "decode_attention.cu",
-           "flash_attention.cu", "nat8_gemv.cu", "nat8_gemm.cu")
+           "flash_attention.cu", "nat8_gemv.cu", "nat8_gemm.cu",
+           "decode_attention_cells.cu", "decode_attention_update.cu")
+HEADERS = ("decode_split.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,10 +52,17 @@ _SIGNATURES = {
     # softcap, stream
     "ggml_flash_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _F, _F, _P],
+    # q, k, v, ks, vs, mask, ws_acc, ws_ml, out, NB, Hq, Hkv, D, T, split,
+    # scale, stream
+    "ggml_decode_attention_cells": [_P] * 9 + [_I] * 6 + [_F, _P],
+    # q, k, v, ks, vs, kn, vn, kns, vns, rows, mask, ws_acc, ws_ml, out, NB,
+    # Bk, Hq, Hkv, D, T, split, scale, stream
+    "ggml_decode_attention_update": [_P] * 14 + [_I] * 7 + [_F, _P],
 }
 
 LAUNCHES = {"w4a8_gemv": 0, "w4a16_gemm": 0, "decode_attention": 0,
-            "flash_attention": 0, "nat8_w8a8": 0, "nat8_w8a16": 0}
+            "flash_attention": 0, "nat8_w8a8": 0, "nat8_w8a16": 0,
+            "decode_attention_cells": 0, "decode_attention_update": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -74,7 +84,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()

@@ -112,6 +112,40 @@ def update_kv(cache: KVCache, layer: int, k_new, v_new, n_past: int) -> KVCache:
     return cache
 
 
+def update_kv_cells(cache: KVCache, layer: int, k_new, v_new, cells) -> KVCache:
+    """Write k_new/v_new (B, T, H, D) into arbitrary cells (B, T) of the
+    layer, in place: the batched KV writes at cells[head + i] of the
+    reference's continuous batching. Unlike update_kv the destination rows
+    need not be contiguous."""
+    B, T = k_new.shape[:2]
+    b = torch.arange(B, device=cells.device)[:, None]
+    if cache.quantized:
+        k8, kd = _q8_rows(k_new)
+        v8, vd = _q8_rows(v_new)
+        cache.k[layer, b, cells] = k8.reshape(B, T, -1)
+        cache.v[layer, b, cells] = v8.reshape(B, T, -1)
+        cache.ks[layer, b, cells] = kd.reshape(B, T, -1)
+        cache.vs[layer, b, cells] = vd.reshape(B, T, -1)
+    else:
+        cache.k[layer, b, cells] = k_new.reshape(B, T, -1).to(cache.k.dtype)
+        cache.v[layer, b, cells] = v_new.reshape(B, T, -1).to(cache.v.dtype)
+    return cache
+
+
+def cells_attention_mask(tok_pos, tok_seq, cell_pos, cell_seq):
+    """Per-(token, cell) additive mask over a celled arena: a cell is visible
+    iff it belongs to the token's sequence and cell.pos <= token.pos.
+    tok_pos/tok_seq (B, T); cell_pos (B, n_ctx), -1 = empty; cell_seq
+    (B, n_ctx) the bitmask of owning sequence ids, kept as int32 (bit 31 is
+    the sign bit: ``(x >> s) & 1`` reads it for a negative value too).
+    Returns (B, 1, T, n_ctx) f32, 0 or -inf."""
+    same_seq = (cell_seq[:, None, :] >> tok_seq[:, :, None]) & 1
+    cp = cell_pos[:, None, :]
+    visible = (same_seq == 1) & (cp >= 0) & (cp <= tok_pos[:, :, None])
+    mask = torch.where(visible, 0.0, float("-inf")).to(torch.float32)
+    return mask[:, None]
+
+
 def attention_mask(positions, n_ctx: int, n_past: int):
     """(B, T) query positions -> (B, 1, T, n_ctx) additive mask: visible iff
     k_pos <= q_pos and k_pos < n_past + T."""

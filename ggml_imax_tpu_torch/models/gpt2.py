@@ -27,7 +27,7 @@ from ..ops.qmatmul import qmatmul
 from ..quant.device import QTensor, quantize_for_device
 from ..quant.formats import GGMLType
 from .common import (KVCache, attention_mask, init_kv_cache, read_kv,
-                     update_kv)
+                     update_kv, update_kv_cells)
 
 
 @dataclass(frozen=True)
@@ -123,9 +123,20 @@ def init_cache(cfg: GPT2Config, batch: int = 1, n_ctx: int | None = None,
 
 
 def forward(cfg: GPT2Config, params, tokens, positions, cache: KVCache,
-            n_past: int, *, compute_dtype=torch.bfloat16, mask=None):
+            n_past: int, *, compute_dtype=torch.bfloat16, mask=None,
+            cells=None, cells_kernel=False, fused_kv_update=False):
     """tokens/positions (B, T) int on the params' device -> (logits
-    (B, T, n_vocab) f32, cache). The KV cache is updated in place."""
+    (B, T, n_vocab) f32, cache). The KV cache is updated in place: rows
+    [n_past, n_past + T), or the cells (B, T) of a celled arena with `mask`
+    their per-cell mask (continuous batching, runtime/batched.py).
+
+    cells_kernel and fused_kv_update are gptj.forward's route keywords, so
+    the engines pass one set to every model. The decode kernels take head
+    dims that are multiples of 128, so at GPT-2's 64 every ubatch takes the
+    plain route, as in the reference: cells_kernel changes nothing, and
+    fused_kv_update, a route GPT-2 does not have, raises."""
+    if fused_kv_update:
+        raise ValueError("gpt2.forward has no fused KV-update route")
     B, T = tokens.shape
     H, D, E = cfg.n_head, cfg.head_dim, cfg.n_embd
 
@@ -142,7 +153,10 @@ def forward(cfg: GPT2Config, params, tokens, positions, cache: KVCache,
         cur = layer_norm(x, lp["ln_1_g"], lp["ln_1_b"])
         qkv = mm(cur, lp["attn_w"]) + lp["attn_b"]
         q, kk, vv = (t.reshape(B, T, H, D) for t in qkv.split(E, dim=-1))
-        update_kv(cache, li, kk, vv, n_past)
+        if cells is None:
+            update_kv(cache, li, kk, vv, n_past)
+        else:
+            update_kv_cells(cache, li, kk, vv, cells)
         attn = attention(q, *read_kv(cache, li, dtype=q.dtype), mask,
                          out_dtype=torch.float32)
         x = x + mm(attn.reshape(B, T, E), lp["proj_w"]) + lp["proj_b"]

@@ -18,7 +18,10 @@ import torch
 
 from .._device import resolve_device
 from ..ops.activations import gelu
-from ..ops.decode_attention import decode_attention
+from ..ops.decode_attention import (decode_attention, decode_attention_cells,
+                                    decode_attention_update,
+                                    decode_attention_update_cells,
+                                    select_decode_path)
 from ..ops.embedding import get_rows
 from ..ops.flash_attention import attention
 from ..ops.norms import layer_norm
@@ -28,7 +31,7 @@ from ..quant.device import (QTensor, concat_qtensors, concat_qtensors_k,
                             pad_qtensor_cols, permute_qtensor_cols)
 from ..quant.formats import GGMLType
 from .common import (KVCache, attention_mask, init_kv_cache, read_kv,
-                     update_kv)
+                     update_kv, update_kv_cells)
 from .common import params_from_jax  # noqa: F401  (kept importable here)
 
 
@@ -196,14 +199,20 @@ def init_cache(cfg: GPTJConfig, batch: int = 1, n_ctx: int | None = None,
 
 
 def forward(cfg: GPTJConfig, params, tokens, positions, cache: KVCache,
-            n_past: int, *, compute_dtype=torch.bfloat16, mask=None):
+            n_past: int, *, compute_dtype=torch.bfloat16, mask=None,
+            cells=None, cells_kernel=False, fused_kv_update=False):
     """tokens/positions (B, T) int on the params' device -> (logits
     (B, T, n_vocab) f32, cache). The KV cache is updated in place.
 
     Takes the fused key sets (qkvf_w / qkv_w, of_w) and the plain ones
-    (q_w, k_w, v_w, o_w, fc_in_w, fc_out_w). A single-token step runs the
-    decode-attention kernel over the whole arena; a multi-token one runs
-    flash attention over the layer's keys."""
+    (q_w, k_w, v_w, o_w, fc_in_w, fc_out_w). cells (B, T) are destination
+    cells of a celled arena (continuous batching, runtime/batched.py) with
+    `mask` their per-cell mask; otherwise rows [n_past, n_past + T) are
+    written. Each layer's KV write and attention take the route of
+    ops.decode_attention.select_decode_path: a decode-only celled ubatch
+    (cells_kernel) the cells kernels, a single-token step the decode
+    kernel (both fused with fused_kv_update), anything else flash
+    attention over the layer's keys."""
     B, T = tokens.shape
     H, D, E = cfg.n_head, cfg.head_dim, cfg.n_embd
 
@@ -218,9 +227,11 @@ def forward(cfg: GPTJConfig, params, tokens, positions, cache: KVCache,
         _rope = lambda t: rope_split(t, positions, n_dims=cfg.n_rot)
     else:
         _rope = lambda t: rope(t, positions, n_dims=cfg.n_rot)
-    # the reference's decode-kernel gate (select_decode_path): one token,
-    # 128-aligned heads
-    decode_kernel = T == 1 and D % 128 == 0
+    path = select_decode_path(T=T, B=B, D=D, cells=cells,
+                              cells_kernel=cells_kernel, mask=mask,
+                              fused_kv_update=fused_kv_update)
+    # a celled ubatch's T rows are the cells kernels' query rows
+    rows = lambda t: t.reshape(T, 1, H, D)
 
     for li, lp in enumerate(params["layers"]):
         cur = layer_norm(x, lp["ln_1_g"], lp["ln_1_b"])
@@ -237,10 +248,23 @@ def forward(cfg: GPTJConfig, params, tokens, positions, cache: KVCache,
         q, kk, vv = qkv.unbind(2)
         q = _rope(q)
         kk = _rope(kk)
-        update_kv(cache, li, kk, vv, n_past)
-        if decode_kernel:
+        if path == "cells":
+            attn, _ = decode_attention_update_cells(
+                cache, li, rows(q), rows(kk), rows(vv), cells[0], mask[0, 0])
+        elif path == "cells2":
+            update_kv_cells(cache, li, kk, vv, cells)
+            attn = decode_attention_cells(cache, li, rows(q), mask[0, 0])
+        elif path == "fused":
+            attn, _ = decode_attention_update(cache, li, q, kk, vv, n_past,
+                                              mask)
+        elif path == "kernel":
+            update_kv(cache, li, kk, vv, n_past)
             attn = decode_attention(cache, li, q, mask)
         else:
+            if cells is None:
+                update_kv(cache, li, kk, vv, n_past)
+            else:
+                update_kv_cells(cache, li, kk, vv, cells)
             attn = attention(q, *read_kv(cache, li, dtype=q.dtype), mask,
                              out_dtype=torch.float32)
         attn = attn.reshape(B, T, E)

@@ -1,9 +1,18 @@
-"""Host token sampling (the port's own copies of ggml_imax_tpu/ops/sampling.py
-`sample_host` and `sample_greedy`): temperature, top-k, top-p nucleus
-(inclusive of the crossing token), then a draw — the reference CLI flow."""
+"""Token sampling (counterpart of ggml_imax_tpu/ops/sampling.py):
+temperature, top-k, top-p nucleus (inclusive of the crossing token), then
+a draw — the reference CLI flow.
+
+- `sample_host`, `sample_greedy`: numpy, on the host.
+- `sample_device`: batched tensors on the logits' device with per-row
+  temp/top_k/top_p and a Gumbel-max draw from a torch.Generator;
+  `sample_gumbel` is the same function with the noise given, so a test can
+  feed the JAX package and the port the same noise (a JAX key and a torch
+  generator never give the same bits).
+"""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def sample_host(logits: np.ndarray, *, top_k: int = 40, top_p: float = 0.9,
@@ -42,3 +51,38 @@ def sample_host(logits: np.ndarray, *, top_k: int = 40, top_p: float = 0.9,
 
 def sample_greedy(logits) -> int:
     return int(np.argmax(np.asarray(logits)))
+
+
+def sample_gumbel(logits, noise, *, top_k, top_p, temp):
+    """logits (nb, V); noise (nb, k_max) standard Gumbel; top_k (nb, 1) int,
+    top_p and temp (nb, 1) f32, or scalars. Keeps the k_max largest scaled
+    logits (torch.topk, sorted), masks ranks >= top_k (top_k <= 0 keeps the
+    whole window), softmax, keeps the top-p nucleus up to and including the
+    crossing token (the top token always: top_p <= 0 is greedy), then
+    argmax(log p + noise). Returns (nb,) int64 token ids."""
+    lf = logits.float() / torch.clamp(torch.as_tensor(temp, dtype=torch.float32,
+                                                      device=logits.device),
+                                      min=1e-6)
+    k_max = min(noise.shape[-1], lf.shape[-1])
+    vals, idx = torch.topk(lf, k_max, dim=-1)                 # sorted desc
+    rank = torch.arange(k_max, device=lf.device)
+    top_k = torch.as_tensor(top_k, device=lf.device)
+    vals = torch.where((rank < top_k) | (top_k <= 0), vals, float("-inf"))
+    probs = torch.softmax(vals, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    keep = (cum - probs) < torch.as_tensor(top_p, dtype=torch.float32,
+                                           device=lf.device)
+    probs = torch.where(keep | (rank == 0), probs, 0.0)
+    z = torch.log(torch.clamp(probs, min=1e-30)) + noise[..., :k_max]
+    return torch.gather(idx, -1, z.argmax(-1, keepdim=True))[..., 0]
+
+
+def sample_device(logits, generator: torch.Generator, *, top_k, top_p, temp,
+                  k_max: int = 64):
+    """sample_gumbel with (nb, k_max) Gumbel noise drawn from `generator`
+    on the logits' device: -log(-log(u)), u uniform in [tiny, 1)."""
+    u = torch.rand((logits.shape[0], k_max), generator=generator,
+                   device=logits.device)
+    u = torch.clamp(u, min=float(np.finfo(np.float32).tiny))
+    return sample_gumbel(logits, -torch.log(-torch.log(u)), top_k=top_k,
+                         top_p=top_p, temp=temp)

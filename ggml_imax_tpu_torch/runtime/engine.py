@@ -43,12 +43,17 @@ class Engine:
     init_cache(cfg, batch, n_ctx, dtype, device=...). The params are used
     as given (for the kernels: the model's prepare_fused, then
     ops.qmm.params_repack). device: where tokens and the cache live — the
-    card unless "cpu" is passed; it must match the params'."""
+    card unless "cpu" is passed; it must match the params'.
+    fused_kv_update: single-token steps write their K/V row inside the
+    attention kernel (the fused kernel's flat mode; a model without that
+    route raises)."""
 
     def __init__(self, model_module, cfg, params, *,
                  compute_dtype=torch.bfloat16, kv_dtype=torch.bfloat16,
-                 n_ctx: int | None = None, batch: int = 1, device=None):
+                 n_ctx: int | None = None, batch: int = 1, device=None,
+                 fused_kv_update: bool = False):
         self.device = resolve_device(device)
+        self.fused_kv_update = fused_kv_update
         self.model = model_module
         self.cfg = cfg
         self.params = params
@@ -66,7 +71,8 @@ class Engine:
         toks = torch.as_tensor(tokens, dtype=torch.int64, device=self.device)
         pos = torch.as_tensor(positions, dtype=torch.int64, device=self.device)
         return self.model.forward(self.cfg, self.params, toks, pos, cache,
-                                  n_past, compute_dtype=self.compute_dtype)
+                                  n_past, compute_dtype=self.compute_dtype,
+                                  fused_kv_update=self.fused_kv_update)
 
     def new_cache(self):
         return self.model.init_cache(self.cfg, batch=self.batch,

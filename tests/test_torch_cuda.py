@@ -14,7 +14,7 @@ import torch
 
 from ggml_imax_tpu_torch import _build
 from ggml_imax_tpu_torch.models import gpt2, gptj
-from ggml_imax_tpu_torch.models.common import init_kv_cache, update_kv
+from ggml_imax_tpu_torch.models.common import _q8_rows, init_kv_cache, update_kv
 from ggml_imax_tpu_torch.ops import decode_attention as da
 from ggml_imax_tpu_torch.ops import flash_attention as fa
 from ggml_imax_tpu_torch.ops import qmm
@@ -212,3 +212,114 @@ def test_small_gpt2_on_card_matches_cpu(gen, wtype):
         outs[dev] = (lg.cpu(), lg2.cpu())
     for a, b in zip(outs["cuda"], outs["cpu"]):
         assert float((a - b).abs().max()) < 5e-2
+
+
+def filled_cache(gen, kv, B, T, hkv, D):
+    cache = init_kv_cache(2, B, T, hkv, D, kv, device="cuda")
+    k = torch.randn(B, T, hkv, D, generator=gen, device="cuda")
+    v = torch.randn(B, T, hkv, D, generator=gen, device="cuda")
+    update_kv(cache, 1, k, v, 0)
+    return cache
+
+
+def arena_args(cache):
+    return (cache.k[1], cache.v[1], None if cache.ks is None else cache.ks[1],
+            None if cache.vs is None else cache.vs[1])
+
+
+def cells_mask(gen, nb, T, n_pad):
+    """Each row sees a random ~half of the cells; the last n_pad rows are
+    pad rows that see none."""
+    vis = torch.rand(nb, T, generator=gen, device="cuda") < 0.5
+    vis[nb - n_pad:] = False
+    return torch.where(vis, 0.0, da.NEG)
+
+
+# T = 200 is not a multiple of the 64-key slices; nb 9 x g_rep 4 = 36 query
+# rows take three passes of the block
+@pytest.mark.parametrize("kv", [torch.bfloat16, "q8_0"])
+@pytest.mark.parametrize("nb,hq,hkv", [(5, 4, 4), (5, 8, 2), (9, 8, 2)])
+def test_decode_attention_cells_kernel_matches_plain(gen, kv, nb, hq, hkv):
+    T, D = 200, 128
+    cache = filled_cache(gen, kv, 1, T, hkv, D)
+    q = torch.randn(nb, hq, D, generator=gen, device="cuda")
+    args = (q, *arena_args(cache), cells_mask(gen, nb, T, 1), hkv,
+            1 / math.sqrt(D))
+    before = _build.LAUNCHES["decode_attention_cells"]
+    got = da.decode_attention_cells_kernel(*args)
+    assert _build.LAUNCHES["decode_attention_cells"] == before + 1
+    ref = da.decode_attention_plain(*args)
+    assert rel(got, ref) < 1e-2
+    # the pad row is the mean of V, as in the reference
+    vmean = da._dense(cache.v[1], None if cache.vs is None else cache.vs[1],
+                      1, hkv)[0].mean(1)                 # (hkv, D)
+    assert rel(got[-1, ::hq // hkv], vmean) < 1e-2
+
+
+@pytest.mark.parametrize("kv", [torch.bfloat16, "q8_0"])
+@pytest.mark.parametrize("mode,hq,hkv", [("flat", 4, 4), ("cells", 4, 4),
+                                         ("cells", 8, 2)])
+def test_decode_attention_update_kernel_matches_plain(gen, kv, mode, hq, hkv):
+    T, D, nb = 200, 128, 4
+    B = nb if mode == "flat" else 1
+    cache = filled_cache(gen, kv, B, T, hkv, D)
+    twin = filled_cache(gen, kv, B, T, hkv, D)
+    for name in ("k", "v", "ks", "vs"):
+        if getattr(cache, name) is not None:
+            getattr(twin, name).copy_(getattr(cache, name))
+    start = {n: getattr(cache, n).clone() for n in ("k", "v")}
+    q = torch.randn(nb, hq, D, generator=gen, device="cuda")
+    kn, vn = (torch.randn(nb, 1, hkv, D, generator=gen, device="cuda")
+              for _ in range(2))
+    if mode == "flat":
+        rows = torch.full((nb,), 150, device="cuda")
+        mask = torch.zeros(nb, T, device="cuda")
+        mask[:, 151:] = da.NEG
+    else:
+        rows = torch.tensor([3, 77, 150, T - 1], device="cuda")   # last: pad
+        mask = cells_mask(gen, nb, T, 1)
+    if kv == "q8_0":
+        k8, kd = _q8_rows(kn)
+        v8, vd = _q8_rows(vn)
+        fresh = (k8.reshape(nb, -1), v8.reshape(nb, -1), kd.reshape(nb, -1),
+                 vd.reshape(nb, -1))
+    else:
+        fresh = (kn.reshape(nb, -1).bfloat16(), vn.reshape(nb, -1).bfloat16(),
+                 None, None)
+    tail = (mask, rows, hkv, 1 / math.sqrt(D))
+    before = _build.LAUNCHES["decode_attention_update"]
+    got = da.decode_attention_update_kernel(q, *arena_args(cache), *fresh,
+                                            *tail)
+    assert _build.LAUNCHES["decode_attention_update"] == before + 1
+    ref = da.decode_attention_update_plain(q, *arena_args(twin), *fresh, *tail)
+    assert rel(got, ref) < 1e-2
+    for name in ("k", "v", "ks", "vs"):          # the rows written in place
+        if getattr(cache, name) is not None:
+            assert torch.equal(getattr(cache, name), getattr(twin, name)), name
+    written = torch.zeros(T, dtype=torch.bool, device="cuda")
+    written[rows] = True
+    for name, t in start.items():                # and nothing else moved
+        a = getattr(cache, name)
+        assert torch.equal(a[0], t[0]) and torch.equal(a[1][:, ~written],
+                                                       t[1][:, ~written])
+        assert not torch.equal(a[1][:, written], t[1][:, written])
+
+
+def test_small_gptj_batched_on_card_matches_cpu(gen):
+    """The BatchedEngine on the card (cells kernels, fused and not) against
+    the same engine on the CPU: greedy tokens equal."""
+    from ggml_imax_tpu_torch.runtime.batched import BatchedEngine
+    cfg = gptj.GPTJConfig(n_vocab=512, n_ctx=128, n_embd=256, n_head=2,
+                          n_layer=2, n_rot=64)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        p = qmm.params_repack(gptj.prepare_fused(
+            gptj.synthetic_params(cfg, seed=2, device=dev), cfg))
+        for fused in (False, True):
+            be = BatchedEngine(gptj, cfg, p, kv_dtype="q8_0", device=dev,
+                               fused_kv_update=fused)
+            rids = [be.add_request(pr, 6, temp=0.0)
+                    for pr in ([3, 5, 7, 11], [13, 17])]
+            res = be.run()
+            outs[dev, fused] = [res[r] for r in rids]
+    assert outs["cuda", False] == outs["cpu", False] == outs["cuda", True]

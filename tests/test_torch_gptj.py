@@ -153,6 +153,9 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert len(mods) >= 19
+    assert len(mods) >= 20
     assert {"ggml_imax_tpu_torch.models.gpt2",
-            "ggml_imax_tpu_torch.quant.codecs"} <= set(mods)
+            "ggml_imax_tpu_torch.quant.codecs",
+            "ggml_imax_tpu_torch.runtime.batched",
+            "ggml_imax_tpu_torch.ops.decode_attention",
+            "ggml_imax_tpu_torch.ops.sampling"} <= set(mods)
