@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's main paths on one NVIDIA GPU: GPT-J-6B Q4_0
-(one stream, and continuous-batching serving) and GPT-2 1558M (XL) Q8_0.
+(one stream, and continuous-batching serving), GPT-2 1558M (XL) Q8_0, and
+GPT-2 117M training steps.
 
     python3 chip_smoke.py
 
@@ -14,7 +15,11 @@ Phases (any failure exits nonzero and prints no result line):
    cells decode attention at 8 rows over a 2048-cell arena, the fused
    KV-update kernel in flat mode at T 512 and in cells mode at 8 rows x
    2048, flash at a mixed ubatch's 128 rows over that q8_0 arena; GPT-2
-   XL: nat8 W8A8/W8A16 on fc_w, flash at D = 64), with its time (CUDA
+   XL: nat8 W8A8/W8A16 on fc_w, flash at D = 64; GPT-2 117M training:
+   flash with lse and the dQ and dK/dV backward kernels at B 8, T 512, 12
+   heads of 64, the backward kernels also at D 256 and on a ragged GQA +
+   softcap + ALiBi case with a fully masked row; dx through the W4A16 and
+   W8A16 routes against the plain routes), with its time (CUDA
    events, L2 flushed before each launch), the plain version's time, one
    PyTorch library call computing the same function (a yardstick only: the
    port never calls it) and the least time the card could take (bound);
@@ -44,12 +49,22 @@ Phases (any failure exits nonzero and prints no result line):
    with every kernel's plain version on the card, and the fused KV-update
    routes on that pass and on Engine decode steps held to the default
    routes (equal tokens, logits within ROUTE_TOL); two planted faults of
-   the fused kernel must fail that check.
+   the fused kernel must fail that check;
+7. GPT-2 117M training: synthetic F32 weights (124.4 M params), batch
+   8 x 512 tokens, a fresh f32 KV cache per loss call, the mean NLL of
+   log_softmax, AdamW (alpha 1e-4) through optimize.opt: 2 warm-up steps,
+   then 10 timed ones through opt_resume (ms/step, train tok/s, the loss
+   must fall, exact launch counts: 12 flash forwards and 12 of each
+   backward kernel a step, nothing else), the device busy share of one
+   profiled step with the flash kernels' and the KV arena's CopySlices
+   share; then one step's loss and gradients with the kernels held to the
+   same step with every plain version on the card (TRAIN_TOL), and a
+   planted fault (dK without its scale) that must fail that check.
 
-Each engine phase sets the launch counters to 0 just before its requests
-and reads them just after. The line before the last is the kernels JSON,
-the last line is {"ok": true, "device": {...}}. Needs no arguments, no
-network and one card.
+Each engine phase, and the timed training steps, sets the launch counters
+to 0 just before its run and reads them just after. The line before the
+last is the kernels JSON, the last line is {"ok": true, "device": {...}}.
+Needs no arguments, no network and one card.
 """
 from __future__ import annotations
 
@@ -84,6 +99,19 @@ SERVE = dict(n_ctx=2048, n_req=8, arrive=4, plen=(64, 128), n_predict=32,
 # the planted fault the limit alone must catch (the fresh row written one
 # row off, Engine, tokens still equal) at least 8.1%. 3.5% lies between.
 ROUTE_TOL = 3.5e-2
+# GPT-2 117M training (tools/bench_train.py's batch shape, quality_gate.py's
+# loss): 2 warm-up AdamW steps through optimize.opt, then `steps` timed ones
+# through opt_resume
+GPT2_117M = dict(n_vocab=50257, n_ctx=1024, n_embd=768, n_head=12, n_layer=12)
+TRAIN = dict(batch=8, seq=512, warmup=2, steps=10, alpha=1e-4)
+# A training step's loss and gradients with the kernels against the same
+# step with every plain version on the card (phase 7): max |dg| per leaf
+# within this share of that leaf's largest |g|. The two round P and dS to
+# bf16 at the same points but sum in another order, so a rounding flips
+# here and there. Readings of this script on an H100 (PERF.md): sound at
+# most 6.0e-4 (the tied wte); the planted fault (dK without its scale)
+# 0.53. 1e-2 is 17x the one, a fiftieth of the other.
+TRAIN_TOL = 1e-2
 # kernel -> (source under ggml_imax_tpu_torch/csrc, the TPU kernel it replaces)
 KERNELS = {
     "w4a8_gemv": ("w4a8_gemv.cu", "ggml_imax_tpu/ops/pallas_qmm.py:960"),
@@ -98,6 +126,10 @@ KERNELS = {
                                "ggml_imax_tpu/ops/decode_attention.py:129"),
     "decode_attention_update": ("decode_attention_update.cu",
                                 "ggml_imax_tpu/ops/decode_attention.py:376"),
+    "flash_backward_dq": ("flash_backward.cu",
+                          "ggml_imax_tpu/ops/flash_backward.py:67"),
+    "flash_backward_dkv": ("flash_backward.cu",
+                           "ggml_imax_tpu/ops/flash_backward.py:97"),
 }
 
 
@@ -161,8 +193,9 @@ class Checks:
             self.failures.append(f"{name} {label}: rel_err {err:.3e} > {tol:.0e}")
         if ms is not None:
             b_ms, b_by = bound(nbytes, ops, peak)
+            lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
             line += (f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library "
-                     f"{lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+                     f"{lib}  bound {b_ms:.4f} ms ({b_by})")
             src, replaces = KERNELS[name]
             self.results.setdefault(name, {
                 "name": name, "route": "cuda",
@@ -514,6 +547,106 @@ def check_gpt2_kernels(ck, timer, gen):
     H, D = GPT2_XL["n_head"], GPT2_XL["n_embd"] // GPT2_XL["n_head"]
     flash_case(ck, timer, gen, f"gpt2 B=1 Tq=512 Tk=1024 H={H} D={D}", 1, 512,
                1024, H, H, D, {}, timed=True, q_off=0)
+
+
+def backward_case(ck, timer, gen, label, B, Tq, Tk, Hq, Hkv, Dh, kw,
+                  masked_row=None, mask=None):
+    """The flash backward kernels (dQ; dK/dV) against the plain backward on
+    one case, from the forward kernel's out and lse; each timed beside the
+    plain backward (one time for both), its bound, and the backward of bf16
+    scaled_dot_product_attention with the same additive mask (one time for
+    the pair; a yardstick the port never calls). mask: an additive
+    (B, 1, Tq, Tk) mask instead of the causal one."""
+    from ggml_imax_tpu_torch.ops import flash_attention as fa
+    from ggml_imax_tpu_torch.ops import flash_backward as fb
+    q = torch.randn(B, Tq, Hq, Dh, generator=gen, device="cuda")
+    k, v = (torch.randn(B, Tk, Hkv, Dh, generator=gen, device="cuda")
+            for _ in range(2))
+    if mask is None:
+        qi = torch.arange(Tq, device="cuda")[:, None] + (Tk - Tq)
+        kj = torch.arange(Tk, device="cuda")[None]
+        fill = (kj - qi).float() if kw.get("max_bias") else \
+            torch.zeros(Tq, Tk, device="cuda")
+        mask = torch.where(kj <= qi, fill, float("-inf"))[None, None] \
+            .expand(B, 1, Tq, Tk).clone()
+    if masked_row is not None:
+        mask[:, :, masked_row] = float("-inf")
+    prep = fa._prep(q, k, v, mask, kw.get("max_bias", 0.0))
+    scale, cap = 1.0 / math.sqrt(Dh), kw.get("logit_softcap", 0.0)
+    out, lse = fa.flash_attention_kernel(*prep, scale, cap, True)
+    do = torch.randn(out.shape, generator=gen, device="cuda")
+    di = (do * out).sum(-1).transpose(1, 2).contiguous()
+    args = (*prep[:3], do.to(torch.bfloat16), *prep[3:], lse, di, scale, cap)
+    dq = fb.flash_backward_dq(*args)
+    dk, dv = fb.flash_backward_dkv(*args)
+    rq, rk, rv = fb.flash_attention_bwd_plain(*args)
+    plain_ms = timer(lambda: fb.flash_attention_bwd_plain(*args), iters=5)
+    lib_ms = None
+    if not cap:      # SDPA has no softcap
+        # (B, H, T, D) bf16, k/v repeated over the GQA group
+        rep = Hq // Hkv
+        lq, lk, lv = (t.to(torch.bfloat16).transpose(1, 2).repeat_interleave(
+            r, dim=1).contiguous().requires_grad_(True)
+                      for t, r in ((q, 1), (k, rep), (v, rep)))
+        lmask = prep[3][:, None].to(torch.bfloat16)
+        if prep[4] is not None:
+            lmask = lmask * prep[4].reshape(1, Hq, 1, 1).to(torch.bfloat16)
+        lo = torch.nn.functional.scaled_dot_product_attention(
+            lq, lk, lv, attn_mask=lmask, scale=scale)
+        ldo = do.to(torch.bfloat16).transpose(1, 2)
+        lib_ms = timer(lambda: torch.autograd.grad(
+            lo, (lq, lk, lv), ldo, retain_graph=True), iters=10)
+    bf, f4 = 2, 4
+    ins = (2 * B * Tq * Hq + 2 * B * Tk * Hkv) * Dh * bf \
+        + 2 * B * Hq * Tq * f4 + B * Tq * Tk * f4
+    flops = 2 * B * Hq * Tq * Tk * Dh
+    shape = f"{label} B={B} Tq={Tq} Tk={Tk} H={Hq}:{Hkv} D={Dh}"
+    ck.record("flash_backward_dq", shape, dq, rq, 1e-2,
+              timer(lambda: fb.flash_backward_dq(*args), iters=20), plain_ms,
+              lib_ms, ins + B * Tq * Hq * Dh * f4, 3 * flops, PEAK_BF16)
+    ck.record("flash_backward_dkv", shape + " dK", dk, rk, 1e-2,
+              timer(lambda: fb.flash_backward_dkv(*args), iters=20), plain_ms,
+              lib_ms, ins + 2 * B * Tk * Hkv * Dh * f4, 4 * flops, PEAK_BF16)
+    ck.record("flash_backward_dkv", shape + " dV", dv, rv, 1e-2)
+
+
+def check_train_kernels(ck, timer, gen):
+    """The training path's attention kernels: flash forward with lse and the
+    two backward kernels at GPT-2 117M training (B 8, T 512, 12 heads of 64,
+    the causal mask of gpt2.forward); the backward kernels also at D 256
+    (GPT-J width, key tiles of 32) and on a ragged GQA case with softcap,
+    ALiBi and a fully masked row. Then dx through the kernel matmul routes
+    (W4A16 at M 512, W8A16) against the same routes run plain on the card."""
+    from ggml_imax_tpu_torch.models.common import attention_mask
+    from ggml_imax_tpu_torch.ops import qmm
+    from ggml_imax_tpu_torch.ops.qmatmul import qmatmul
+    B, T = TRAIN["batch"], TRAIN["seq"]
+    H, D = GPT2_117M["n_head"], GPT2_117M["n_embd"] // GPT2_117M["n_head"]
+    flash_case(ck, timer, gen, f"train B={B} T={T} H={H} D={D} (lse)", B, T, T,
+               H, H, D, {"want_lse": True}, timed=True)
+    pos = torch.arange(T, device="cuda")[None].expand(B, T)
+    backward_case(ck, timer, gen, "train", B, T, T, H, H, D, {},
+                  mask=attention_mask(pos, T, 0))
+    backward_case(ck, timer, gen, "gptj", 1, 512, 512, 16, 16, 256, {})
+    backward_case(ck, timer, gen, "gqa+softcap+alibi", 2, 200, 300, 8, 2, 128,
+                  {"logit_softcap": 20.0, "max_bias": 8.0}, masked_row=7)
+
+    for label, qt in (("natpair W4A16", random_natpair(4096, 4096, gen)),
+                      ("nat8 W8A16", random_nat8(1600, 6400, gen))):
+        x = torch.randn(512, qt.k, generator=gen, device="cuda")
+        dxs = []
+        for patches in ((), [(qmm, "w4a16_gemm", qmm.w4a16_gemm_plain),
+                             (qmm, "nat8_w8a16_gemm",
+                              qmm.nat8_w8a16_gemm_plain)]):
+            with patched(patches):
+                xg = x.clone().requires_grad_(True)
+                y = qmatmul(xg, qt, out_dtype=torch.float32)
+                dxs.append(torch.autograd.grad(torch.sin(y).sum(), xg)[0])
+        err = rel_err(*dxs)
+        log(f"  dx through {label} M=512 K={qt.k} N={qt.n}: kernel route vs "
+            f"plain route rel_err {err:.2e} (tol 1e-02)")
+        if not err < 1e-2:
+            ck.failures.append(f"dx through {label}: rel_err {err:.3e}")
 
 
 def check_small_model(failures, model, cfg, variants, label, n_prompt=40,
@@ -1031,6 +1164,154 @@ def serve_gptj(failures):
     return summary, launches
 
 
+def train_loss(cfg, toks, tgts):
+    """tools/quality_gate.py's training loss: a fresh f32 KV cache per call,
+    gpt2.forward with compute_dtype f32, the mean NLL of log_softmax."""
+    from ggml_imax_tpu_torch.models import gpt2
+    B, T = toks.shape
+    pos = torch.arange(T, device="cuda")[None].expand(B, T)
+
+    def loss(p):
+        cache = gpt2.init_cache(cfg, batch=B, n_ctx=T, dtype=torch.float32)
+        logits, _ = gpt2.forward(cfg, p, toks, pos, cache, 0,
+                                 compute_dtype=torch.float32)
+        lp = torch.log_softmax(logits, dim=-1)
+        return -lp.gather(-1, tgts[..., None]).mean()
+    return loss
+
+
+def loss_and_grads(loss_fn, params, patches=()):
+    from ggml_imax_tpu_torch.optimize import float_leaves
+    with patched(patches):
+        loss = loss_fn(params)
+        grads = torch.autograd.grad(loss, float_leaves(params))
+    return float(loss.detach()), grads
+
+
+def check_train_route(label, ref, got, failures, control=False):
+    """Hold one training step's loss and gradients to another's: the loss
+    within 1e-3 relative, each leaf's max |dg| within TRAIN_TOL of that
+    leaf's largest |g| in ref. A control (a planted fault) must fail."""
+    worst, at = 0.0, None
+    for i, (a, b) in enumerate(zip(ref[1], got[1])):
+        r = rel_err(b, a)
+        if r > worst:
+            worst, at = r, (i, tuple(a.shape))
+    dl = abs(got[0] - ref[0]) / abs(ref[0])
+    ok = dl <= 1e-3 and worst <= TRAIN_TOL
+    log(f"  {label}: loss {got[0]:.6f} vs {ref[0]:.6f} (rel {dl:.2e}, tol "
+        f"1e-03); worst leaf max|dg|/max|g| {worst:.3e} at leaf {at} (limit "
+        f"{TRAIN_TOL:.0e}) -> {'holds' if ok else 'fails'}")
+    if ok == control:
+        failures.append(f"{label}: the check {'holds' if ok else 'fails'} "
+                        f"(loss rel {dl:.2e}, worst leaf {worst:.3e})")
+
+
+def train_gpt2(failures):
+    """Phase 7. Returns (training summary, launch counts)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ggml_imax_tpu_torch import _build
+    from ggml_imax_tpu_torch import optimize as opt
+    from ggml_imax_tpu_torch.models import gpt2
+    from ggml_imax_tpu_torch.ops import flash_attention as fa
+    from ggml_imax_tpu_torch.ops import flash_backward as fb
+    from ggml_imax_tpu_torch.quant.formats import GGMLType
+
+    cfg = gpt2.GPT2Config(**GPT2_117M)
+    B, T, L = TRAIN["batch"], TRAIN["seq"], cfg.n_layer
+    t0 = time.time()
+    params = gpt2.synthetic_params(cfg, GGMLType.F32, seed=0)
+    n_params = sum(t.numel() for t in opt.float_leaves(params))
+    rng = np.random.default_rng(0)
+    toks, tgts = (torch.as_tensor(rng.integers(0, cfg.n_vocab, (B, T)),
+                                  device="cuda") for _ in range(2))
+    loss_fn = train_loss(cfg, toks, tgts)
+    torch.cuda.synchronize()
+    log(f"  {n_params / 1e6:.1f} M f32 params drawn in "
+        f"{time.time() - t0:.1f} s")
+    po = opt.default_params("adam")
+    po.adam = opt.AdamParams(n_iter=TRAIN["warmup"], alpha=TRAIN["alpha"],
+                             eps_f=0.0, eps_g=0.0)
+    t0 = time.time()
+    _, params, ctx = opt.opt(loss_fn, params, po)         # warm-up steps
+    log(f"  {TRAIN['warmup']} warm-up steps in {time.time() - t0:.1f} s")
+    ctx.params.adam.n_iter = TRAIN["steps"]
+    losses = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res, params = opt.opt_resume(ctx, loss_fn, params,
+                                 callback=lambda it, f: losses.append(f))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    step_ms = wall / TRAIN["steps"] * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    summary = {"step_ms": step_ms,
+               "train_tok_s": TRAIN["steps"] * B * T / wall,
+               "loss_first": losses[0], "loss_last": losses[-1],
+               "steps": len(losses), "max_memory_allocated_gib": peak}
+    log(f"  {len(losses)} timed steps ({res.name}): {step_ms:.2f} ms/step, "
+        f"{summary['train_tok_s']:.0f} train tok/s, loss {losses[0]:.5f} -> "
+        f"{losses[-1]:.5f}, max_memory_allocated {peak:.3f} GiB")
+    log(f"  launches over {TRAIN['steps']} steps: {counts}")
+    n = TRAIN["steps"] * L
+    check_counts(counts, {"flash_attention": n, "flash_backward_dq": n,
+                          "flash_backward_dkv": n}, failures)
+    if not (len(losses) == TRAIN["steps"] and losses[-1] < losses[0]
+            and all(math.isfinite(f) for f in losses)):
+        failures.append(f"training losses {losses}")
+
+    # one profiled step: device busy share, the flash kernels' share, the
+    # KV arena's CopySlices backward (the in-place writes' gradient copies)
+    ctx.params.adam.n_iter = 1
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        opt.opt_resume(ctx, loss_fn, params)
+    evs = prof.key_averages()
+    dev = {ev.key: ev.self_device_time_total / 1e3 for ev in evs
+           if str(ev.device_type).endswith("CUDA")
+           and ev.self_device_time_total > 0}
+    if dev:
+        busy = sum(dev.values())
+        flash = sum(ms for k, ms in dev.items() if "flash" in k)
+        copies = [(ev.count, getattr(ev, "device_time_total", 0) / 1e3)
+                  for ev in evs if ev.key.endswith("CopySlices")]
+        n_copy, copy_ms = max(copies, key=lambda c: c[1], default=(0, 0.0))
+        summary.update(step_busy_ms=busy, flash_ms=flash,
+                       copyslices_ms=copy_ms)
+        log(f"  profiled step: device busy {busy:.3f} ms of {step_ms:.3f} ms "
+            f"unprofiled -> busy {100 * busy / step_ms:.1f}%, idle "
+            f"{100 * (1 - busy / step_ms):.1f}%; flash kernels {flash:.3f} ms "
+            f"({100 * flash / busy:.1f}% of busy); CopySlices backward "
+            f"{copy_ms:.3f} ms over {n_copy} nodes "
+            f"({100 * copy_ms / busy:.1f}%)")
+        for key, ms in sorted(dev.items(), key=lambda kv: -kv[1])[:10]:
+            log(f"    {ms:9.4f} ms  {key[:90]}")
+    else:
+        log("  profiled step: no device time in the trace (not measured)")
+
+    # the gradient route check at full width (see TRAIN_TOL), then a planted
+    # fault that it must catch: dK returned without its softmax scale
+    plain = [(fa, "flash_attention_kernel", fa.flash_attention_plain),
+             (fb, "flash_attention_bwd_kernel", fb.flash_attention_bwd_plain)]
+    real_dkv = fb.flash_backward_dkv
+
+    def dk_unscaled(*args):
+        dk, dv = real_dkv(*args)
+        return dk / args[8], dv
+    ref = loss_and_grads(loss_fn, params, plain)
+    check_train_route("training step, kernels vs plain versions on the card",
+                      ref, loss_and_grads(loss_fn, params), failures)
+    fault = [(fb, "flash_backward_dkv", dk_unscaled)]
+    check_train_route("control: dK without its scale", ref,
+                      loss_and_grads(loss_fn, params, fault), failures,
+                      control=True)
+    return summary, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1066,6 +1347,7 @@ def main() -> int:
     check_gptj_kernels(ck, timer, gen)
     check_serving_kernels(ck, timer, gen)
     check_gpt2_kernels(ck, timer, gen)
+    check_train_kernels(ck, timer, gen)
     del timer                                      # the 256 MB flush buffer
     torch.cuda.empty_cache()
     failures = ck.failures
@@ -1128,6 +1410,14 @@ def main() -> int:
         f"{SERVE['n_ctx']})")
     engines["serving"], by_path = serve_gptj(failures)
     launches.update(by_path)
+    if failures:
+        raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
+    torch.cuda.empty_cache()
+
+    # ---- 7. GPT-2 117M training steps
+    log(f"# phase 7: GPT-2 117M training (F32, B {TRAIN['batch']}, T "
+        f"{TRAIN['seq']}, AdamW)")
+    engines["train"], launches["train"] = train_gpt2(failures)
     if failures:
         raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
 

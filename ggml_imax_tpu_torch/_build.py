@@ -29,7 +29,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "ggml_imax_tpu_torch"
 SOURCES = ("w4a8_gemv.cu", "w4a16_gemm.cu", "decode_attention.cu",
            "flash_attention.cu", "nat8_gemv.cu", "nat8_gemm.cu",
-           "decode_attention_cells.cu", "decode_attention_update.cu")
+           "decode_attention_cells.cu", "decode_attention_update.cu",
+           "flash_backward.cu")
 HEADERS = ("decode_split.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -58,11 +59,17 @@ _SIGNATURES = {
     # q, k, v, ks, vs, kn, vn, kns, vns, rows, mask, ws_acc, ws_ml, out, NB,
     # Bk, Hq, Hkv, D, T, split, scale, stream
     "ggml_decode_attention_update": [_P] * 14 + [_I] * 7 + [_F, _P],
+    # q, k, v, dout, lse, di, mask, slopes, dq, B, Tq, Tk, Hq, Hkv, D, scale,
+    # softcap, stream
+    "ggml_flash_backward_dq": [_P] * 9 + [_I] * 6 + [_F, _F, _P],
+    # the same with dk, dv in place of dq
+    "ggml_flash_backward_dkv": [_P] * 10 + [_I] * 6 + [_F, _F, _P],
 }
 
 LAUNCHES = {"w4a8_gemv": 0, "w4a16_gemm": 0, "decode_attention": 0,
             "flash_attention": 0, "nat8_w8a8": 0, "nat8_w8a16": 0,
-            "decode_attention_cells": 0, "decode_attention_update": 0}
+            "decode_attention_cells": 0, "decode_attention_update": 0,
+            "flash_backward_dq": 0, "flash_backward_dkv": 0}
 
 _lock = threading.Lock()
 _lib = None

@@ -5,6 +5,11 @@ dispatcher; kernel in csrc/flash_attention.cu).
 Masks use the finite NEG = -0.7 * f32max instead of -inf, so fully masked
 (padding) rows give 0, not NaN; q, k and v enter the kernel as bf16 and the
 softmax and sums are f32.
+
+Differentiable (the counterpart of the reference's `_fa` custom VJP): when
+q, k or v requires grad, the forward also writes lse and the backward runs
+ops/flash_backward.py. Otherwise the forward launches exactly what an
+inference call launches.
 """
 from __future__ import annotations
 
@@ -78,6 +83,44 @@ def flash_attention_kernel(qb, kb, vb, m3, slopes, scale, softcap, want_lse):
     return out, lse
 
 
+def _forward(q, k, v, mask, scale, max_bias, softcap, want_lse):
+    """-> (the prepared inputs, (out f32, lse or None)): the kernel on a
+    CUDA tensor, the plain version on a CPU one."""
+    prep = _prep(q, k, v, mask, max_bias)
+    fn = flash_attention_plain if q.device.type == "cpu" \
+        else flash_attention_kernel
+    return prep, fn(*prep, scale, softcap, want_lse)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """flash_attention with lse, differentiable in q, k and v (no gradient
+    for the mask)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, scale, max_bias, softcap, out_dtype):
+        prep, (out, lse) = _forward(q, k, v, mask, scale, max_bias, softcap,
+                                    True)
+        out = out.to(out_dtype)
+        # a bf16 arena's read_kv view passes _prep as itself: keep an owned
+        # copy, or the next layer's in-place KV write would change it
+        qb, kb, vb = (t.clone() if t is src else t
+                      for t, src in zip(prep[:3], (q, k, v)))
+        ctx.save_for_backward(qb, kb, vb, *prep[3:], out, lse)
+        ctx.cfg = (scale, softcap, q.dtype, k.dtype, v.dtype)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        from .flash_backward import backward_prepared
+        scale, softcap, *dtypes = ctx.cfg
+        qb, kb, vb, m3, slopes, out, lse = ctx.saved_tensors
+        grads = backward_prepared(qb, kb, vb, m3, slopes, out, lse, do,
+                                  scale, softcap)
+        return (*(g.to(dt) for g, dt in zip(grads, dtypes)), None, None,
+                None, None, None)
+
+
 def flash_attention(q, k, v, mask=None, *, scale: float | None = None,
                     max_bias: float = 0.0, logit_softcap: float = 0.0,
                     out_dtype=None, want_lse: bool = False):
@@ -85,13 +128,16 @@ def flash_attention(q, k, v, mask=None, *, scale: float | None = None,
     (B, 1, Tq, Tk), (B, Tq, Tk), (Tq, Tk); heads share it. Returns
     (B, Tq, Hq, D), and with want_lse also lse (B, Hq, Tq) = m + log(l)."""
     out_dtype = out_dtype or q.dtype
-    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    args = _prep(q, k, v, mask, max_bias) + (float(scale),
-                                              float(logit_softcap), want_lse)
-    fn = flash_attention_plain if q.device.type == "cpu" \
-        else flash_attention_kernel
-    out, lse = fn(*args)
-    out = out.to(out_dtype)
+    scale = float(scale if scale is not None else 1.0 / math.sqrt(q.shape[-1]))
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        out, lse = _FlashAttention.apply(q, k, v, mask, scale,
+                                         float(max_bias), float(logit_softcap),
+                                         out_dtype)
+    else:
+        _, (out, lse) = _forward(q, k, v, mask, scale, max_bias,
+                                 float(logit_softcap), want_lse)
+        out = out.to(out_dtype)
     return (out, lse) if want_lse else out
 
 

@@ -5,6 +5,11 @@ ggml_imax_tpu/ops/qmatmul.py).
 the hand-written kernels (ops/qmm.py) — the reference's fused-path gate —
 and everything else through a plain dequantize + matmul, the role XLA
 played in the JAX package.
+
+The kernel routes are differentiable in x (the counterpart of the
+reference's `_qmm_fused` VJP): dx = bf16(dy) @ dequantize(W, bf16)^T with
+f32 sums. Quantized weights are frozen and get no gradient. The plain route
+is ordinary torch ops.
 """
 from __future__ import annotations
 
@@ -45,6 +50,27 @@ def dequantize(qt: QTensor, dtype=torch.bfloat16) -> torch.Tensor:
     return w.reshape(qt.k, qt.n)
 
 
+class _KernelRoute(torch.autograd.Function):
+    """route(x, qt) with the dequantized-weight VJP for x."""
+
+    @staticmethod
+    def forward(ctx, x, qt, route):
+        ctx.qt, ctx.x_dtype = qt, x.dtype
+        return route(x, qt)
+
+    @staticmethod
+    def backward(ctx, dy):
+        w = dequantize(ctx.qt, dtype=torch.bfloat16)
+        dx = dy.to(torch.bfloat16).float() @ w.float().T
+        return dx.to(ctx.x_dtype), None, None
+
+
+def _kernel_route(x, qt, route):
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _KernelRoute.apply(x, qt, route)
+    return route(x, qt)
+
+
 def qmatmul(x: torch.Tensor, qt: QTensor, *, compute_dtype=torch.bfloat16,
             out_dtype=None) -> torch.Tensor:
     """x @ dequant(W): x (..., K) -> (..., N). Natpair and nat8 weights with
@@ -54,9 +80,9 @@ def qmatmul(x: torch.Tensor, qt: QTensor, *, compute_dtype=torch.bfloat16,
     out_dtype = out_dtype or x.dtype
     if qt.n % 128 == 0:
         if qt.kind == "nib4" and qt.q4_layout == 3:
-            return qmatmul_natpair(x, qt).to(out_dtype)
+            return _kernel_route(x, qt, qmatmul_natpair).to(out_dtype)
         if qt.kind == "int8" and qt.q4_layout == 4:
-            return qmatmul_nat8(x, qt).to(out_dtype)
+            return _kernel_route(x, qt, qmatmul_nat8).to(out_dtype)
     w = dequantize(qt, dtype=compute_dtype)
     y = x.to(compute_dtype).float() @ w.float()
     return y.to(out_dtype)

@@ -323,3 +323,117 @@ def test_small_gptj_batched_on_card_matches_cpu(gen):
             res = be.run()
             outs[dev, fused] = [res[r] for r in rids]
     assert outs["cuda", False] == outs["cpu", False] == outs["cuda", True]
+
+
+def causal_mask(b, tq, tk, dist=False):
+    qi = torch.arange(tq, device="cuda")[:, None] + (tk - tq)
+    kj = torch.arange(tk, device="cuda")[None]
+    fill = (kj - qi).float() if dist else torch.zeros(tq, tk, device="cuda")
+    return torch.where(kj <= qi, fill, float("-inf"))[None, None] \
+        .expand(b, 1, tq, tk)
+
+
+@pytest.mark.parametrize("b,tq,tk,hq,hkv,d,causal,kw", [
+    # the reference's flash-backward test cases (tests/test_flash_backward.py)
+    (2, 16, 16, 4, 4, 32, False, {}),
+    (1, 24, 40, 4, 2, 64, True, {}),
+    (1, 16, 16, 4, 4, 32, True, {"logit_softcap": 5.0}),
+    (1, 16, 16, 8, 8, 32, True, {"max_bias": 8.0}),
+    (2, 8, 128, 4, 1, 16, False, {}),
+    # GPT-2 117M training (D 64), GPT-J (D 256, key tiles of 32), ragged
+    # GQA with softcap and ALiBi and a fully masked row
+    (2, 128, 128, 12, 12, 64, True, {}),
+    (1, 96, 96, 4, 4, 256, True, {}),
+    (2, 72, 100, 8, 2, 128, True, {"logit_softcap": 20.0, "max_bias": 8.0,
+                                   "masked_row": 5}),
+])
+def test_flash_backward_kernels_match_plain(gen, b, tq, tk, hq, hkv, d, causal,
+                                            kw):
+    from ggml_imax_tpu_torch.ops import flash_backward as fb
+    kw = dict(kw)
+    row = kw.pop("masked_row", None)
+    q = torch.randn(b, tq, hq, d, generator=gen, device="cuda")
+    k, v = (torch.randn(b, tk, hkv, d, generator=gen, device="cuda")
+            for _ in range(2))
+    mask = causal_mask(b, tq, tk, kw.get("max_bias", 0) > 0) if causal \
+        else None
+    if row is not None:
+        mask = mask.clone()
+        mask[:, :, row] = float("-inf")
+    prep = fa._prep(q, k, v, mask, kw.get("max_bias", 0.0))
+    scale, cap = 1 / math.sqrt(d), kw.get("logit_softcap", 0.0)
+    out, lse = fa.flash_attention_kernel(*prep, scale, cap, True)
+    do = torch.randn(out.shape, generator=gen, device="cuda")
+    di = (do * out).sum(-1).transpose(1, 2).contiguous()
+    args = (*prep[:3], do.bfloat16(), *prep[3:], lse, di, scale, cap)
+    n0 = dict(_build.LAUNCHES)
+    got = fb.flash_attention_bwd_kernel(*args)
+    assert _build.LAUNCHES["flash_backward_dq"] == n0["flash_backward_dq"] + 1
+    assert _build.LAUNCHES["flash_backward_dkv"] == n0["flash_backward_dkv"] + 1
+    want = fb.flash_attention_bwd_plain(*args)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        assert rel(g, w) < 1e-2, name
+
+
+def test_flash_attention_grads_on_card_match_cpu(gen):
+    q = torch.randn(2, 40, 4, 64, generator=gen, device="cuda")
+    k, v = (torch.randn(2, 56, 2, 64, generator=gen, device="cuda")
+            for _ in range(2))
+    mask = causal_mask(2, 40, 56)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        args = [t.to(dev).clone().requires_grad_(True) for t in (q, k, v)]
+        o = fa.flash_attention(*args, mask.to(dev), out_dtype=torch.float32)
+        grads[dev] = torch.autograd.grad(torch.sin(o).sum(), args)
+    for g, w in zip(grads["cuda"], grads["cpu"]):
+        assert rel(g.cpu(), w) < 1e-2
+
+
+@pytest.mark.parametrize("route,m", [("natpair", 1), ("natpair", 64),
+                                     ("nat8", 1), ("nat8", 64)])
+def test_kernel_routes_carry_gradients(gen, route, m):
+    """dx through each kernel route (W4A8, W4A16, W8A8, W8A16) on the card:
+    the product launches its kernel and the gradient is the dequantized-
+    weight VJP, as on the CPU."""
+    from ggml_imax_tpu_torch.ops.qmatmul import dequantize, qmatmul
+    qt = natpair(512, 256, gen) if route == "natpair" else nat8(512, 256, gen)
+    name = {("natpair", 1): "w4a8_gemv", ("natpair", 64): "w4a16_gemm",
+            ("nat8", 1): "nat8_w8a8", ("nat8", 64): "nat8_w8a16"}[route, m]
+    x = torch.randn(m, 512, generator=gen, device="cuda").requires_grad_(True)
+    n0 = _build.LAUNCHES[name]
+    y = qmatmul(x, qt, out_dtype=torch.float32)
+    assert _build.LAUNCHES[name] == n0 + 1 and y.grad_fn is not None
+    (dx,) = torch.autograd.grad(torch.sin(y).sum(), x)
+    ref = torch.cos(y.detach()).bfloat16().float() \
+        @ dequantize(qt, torch.bfloat16).float().T
+    assert rel(dx, ref) < 1e-5
+
+
+def test_small_gpt2_training_step_on_card_matches_cpu(gen):
+    """Loss and every float leaf's gradient through gpt2.forward (flash with
+    its backward kernels on the card, plain versions on the CPU)."""
+    from ggml_imax_tpu_torch.optimize import float_leaves
+    cfg = gpt2.GPT2Config(n_vocab=256, n_ctx=64, n_embd=128, n_head=2,
+                          n_layer=2)
+    rng = np.random.default_rng(3)
+    toks, tgts = rng.integers(0, 256, (2, 48)), rng.integers(0, 256, (2, 48))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = gpt2.synthetic_params(cfg, seed=1, device=dev)
+        leaves = float_leaves(p)
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        cache = gpt2.init_cache(cfg, batch=2, n_ctx=48, dtype=torch.float32,
+                                device=dev)
+        lg, _ = gpt2.forward(cfg, p, torch.as_tensor(toks, device=dev),
+                             torch.arange(48, device=dev)[None].expand(2, 48),
+                             cache, 0, compute_dtype=torch.float32)
+        loss = -torch.log_softmax(lg, -1).gather(
+            -1, torch.as_tensor(tgts, device=dev)[..., None]).mean()
+        out[dev] = (float(loss.detach()), [g.cpu() for g in
+                                  torch.autograd.grad(loss, leaves)])
+    assert abs(out["cuda"][0] - out["cpu"][0]) < 1e-3 * abs(out["cpu"][0])
+    for g, w in zip(out["cuda"][1], out["cpu"][1]):
+        assert rel(g, w) < 2e-2

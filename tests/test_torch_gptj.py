@@ -158,4 +158,6 @@ def test_port_imports_no_jax():
             "ggml_imax_tpu_torch.quant.codecs",
             "ggml_imax_tpu_torch.runtime.batched",
             "ggml_imax_tpu_torch.ops.decode_attention",
-            "ggml_imax_tpu_torch.ops.sampling"} <= set(mods)
+            "ggml_imax_tpu_torch.ops.sampling",
+            "ggml_imax_tpu_torch.ops.flash_backward",
+            "ggml_imax_tpu_torch.optimize"} <= set(mods)
