@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's main paths on one NVIDIA GPU: GPT-J-6B Q4_0
-(one stream, and continuous-batching serving), GPT-2 1558M (XL) Q8_0, and
-GPT-2 117M training steps.
+(one stream, and continuous-batching serving), GPT-2 1558M (XL) Q8_0,
+GPT-2 117M training steps, and GPT-2 117M in Q3_K and Q2_K (with the
+row-pair and u-order int8 layouts).
 
     python3 chip_smoke.py
 
@@ -19,12 +20,17 @@ Phases (any failure exits nonzero and prints no result line):
    flash with lse and the dQ and dK/dV backward kernels at B 8, T 512, 12
    heads of 64, the backward kernels also at D 256 and on a ragged GQA +
    softcap + ALiBi case with a fully masked row; dx through the W4A16 and
-   W8A16 routes against the plain routes), with its time (CUDA
+   W8A16 routes against the plain routes; GPT-2 117M K-quants: the
+   plane-split W4A16 kernel on Q3_K and Q2_K weights, the row-pair W4A16
+   on Q4_0 and the u-order W8A16 on Q8_0, at attn_w 768x2304 and out_w
+   3072x768, M 1 and 512, and a 4096x16384 sizing shape that is on no
+   path), with its time (CUDA
    events, L2 flushed before each launch), the plain version's time, one
    PyTorch library call computing the same function (a yardstick only: the
    port never calls it) and the least time the card could take (bound);
 3. small models: a 2-layer GPT-J with head_dim 256, and a 2-layer GPT-2
-   with head_dim 64 in Q8_0 and in Q4_0, on the card (kernels) against the
+   with head_dim 64 in Q8_0 and in Q4_0, and at n_embd 256 in Q3_K, Q2_K,
+   row-pair Q4_0 and u-order Q8_0, on the card (kernels) against the
    same model on the CPU (plain versions), prefill + decode; and the small
    GPT-J's BatchedEngine (two requests and a fork, q8_0 KV, both cells
    routes) on the card against the CPU, ubatch by ubatch;
@@ -59,7 +65,18 @@ Phases (any failure exits nonzero and prints no result line):
    profiled step with the flash kernels' and the KV arena's CopySlices
    share; then one step's loss and gradients with the kernels held to the
    same step with every plain version on the card (TRAIN_TOL), and a
-   planted fault (dK without its scale) that must fail that check.
+   planted fault (dK without its scale) that must fail that check;
+8. GPT-2 117M K-quants: synthetic GPT2Config() weights drawn on the host
+   in Q3_K (the reference's numpy stream and codecs), params_repack (every
+   layer weight to the plane-split layout), Engine(n_ctx=1024) serving the
+   3 requests of phases 4-5 with exact launch counts, the device busy
+   share of a prefill and of a decode step and the device time of the
+   gated LM head (dequantize + matmul, N 50257); Q2_K, and the legacy
+   layouts (Q4_0 through repack_rowpair, Q8_0 through repack_int8_rows),
+   one request each; then a short greedy pass of each with the kernels
+   held to the same with every plain version on the card (KQ_ROUTE_TOL),
+   and a planted fault (the plane-split kernel with its low and high
+   scale rows swapped) that must fail that check.
 
 Each engine phase, and the timed training steps, sets the launch counters
 to 0 just before its run and reads them just after. The line before the
@@ -112,6 +129,18 @@ TRAIN = dict(batch=8, seq=512, warmup=2, steps=10, alpha=1e-4)
 # most 6.0e-4 (the tied wte); the planted fault (dK without its scale)
 # 0.53. 1e-2 is 17x the one, a fiftieth of the other.
 TRAIN_TOL = 1e-2
+# GPT-2 117M K-quants (phase 8): a short greedy pass (the PROMPT-token
+# prompt + 8 tokens) with the kernels, and the same pass fed its tokens
+# with every plain version on the card, agree to this share of the largest
+# |logit|. The two sum each product in another order, which flips bf16
+# roundings of the activations downstream. Readings of this script on an
+# H100 (PERF.md): sound runs at most 0.49% (Q2_K; Q3_K 0.47%, row-pair
+# 0.46%, u-order 0.42%), the planted fault (the low and high scale rows
+# swapped) 120%. 2% is 4x the one and a sixtieth of the other. Fed the
+# same tokens, the two passes' picks may part only at a near-tie: the
+# random weights give top-2 margins under 1e-2 (the first run, fed its own
+# picks, parted the u-order Q8_0 pass that way at the second forward).
+KQ_ROUTE_TOL = 2e-2
 # kernel -> (source under ggml_imax_tpu_torch/csrc, the TPU kernel it replaces)
 KERNELS = {
     "w4a8_gemv": ("w4a8_gemv.cu", "ggml_imax_tpu/ops/pallas_qmm.py:960"),
@@ -130,6 +159,11 @@ KERNELS = {
                           "ggml_imax_tpu/ops/flash_backward.py:67"),
     "flash_backward_dkv": ("flash_backward.cu",
                            "ggml_imax_tpu/ops/flash_backward.py:97"),
+    "planes_w4a16": ("permuted_gemm.cu", "ggml_imax_tpu/ops/pallas_qmm.py:249"),
+    "rowpair_w4a16": ("permuted_gemm.cu",
+                      "ggml_imax_tpu/ops/pallas_qmm.py:287"),
+    "int8_rows_w8a16": ("permuted_gemm.cu",
+                        "ggml_imax_tpu/ops/pallas_qmm.py:1388"),
 }
 
 
@@ -287,7 +321,7 @@ def check_gptj_kernels(ck, timer, gen):
     shapes = {"qkvf_w": (E, 7 * E), "of_w": (5 * E, E), "lm_head": (E, 51200)}
     for label, (K, N) in shapes.items():
         qt = random_natpair(K, N, gen)
-        wd = qmm.dequant_natpair_bf16(qt)            # library yardstick only
+        wd = qmm.dequant_bf16(qt)                     # library yardstick only
         sbytes = qt.scale.numel() * qt.scale.element_size()
         # A: W4A8 GEMV at m = 1
         x = torch.randn(1, K, generator=gen, device="cuda")
@@ -513,7 +547,7 @@ def check_gpt2_kernels(ck, timer, gen):
                 ("fc_w g16 bias bf16", 16, torch.bfloat16, True)]
     for label, g, sdt, bias in variants:
         qt = random_nat8(K, N, gen, g, sdt, bias)
-        wd = qmm.dequant_nat8_bf16(qt)               # library yardstick only
+        wd = qmm.dequant_bf16(qt)                     # library yardstick only
         if bias:
             wd = wd + qt.bias.to(torch.bfloat16).repeat_interleave(g, 0)
         sbytes = qt.scale.numel() * qt.scale.element_size() * (2 if bias else 1)
@@ -649,6 +683,104 @@ def check_train_kernels(ck, timer, gen):
             ck.failures.append(f"dx through {label}: rel_err {err:.3e}")
 
 
+def random_permuted(layout, K, N, gen):
+    """Random bytes in a permuted layout (sizing shapes): planes per-16
+    with zero 4 (Q3_K-like), row-pair and u-order int8 per-32."""
+    from ggml_imax_tpu_torch.quant.device import QTensor
+    from ggml_imax_tpu_torch.quant.formats import GGMLType
+    g = 16 if layout == "planes" else 32
+    if layout == "int8":
+        q = torch.randint(-127, 128, (K, N), dtype=torch.int8, generator=gen,
+                          device="cuda")
+    else:
+        q = torch.randint(0, 256, (K // 2, N), dtype=torch.uint8,
+                          generator=gen, device="cuda")
+    s = torch.randn((K // g, N), generator=gen, device="cuda").abs_() * 0.005
+    kind, q4l, zero, t = {"planes": ("nib4", 0, 4, GGMLType.Q3_K),
+                          "rowpair": ("nib4", 1, 8, GGMLType.Q4_0),
+                          "int8": ("int8", 2, 0, GGMLType.Q8_0)}[layout]
+    return QTensor(kind, q, s, None, K, N, t, zero=zero, interleaved_bk=512,
+                   q4_layout=q4l)
+
+
+def time_permuted(ck, timer, gen, name, label, qt, ms=(1, 512)):
+    """One permuted-layout kernel against its plain version at each M, with
+    its time, the plain version's, bf16 torch.matmul on the weight
+    dequantized beforehand (a yardstick the port never calls) and the
+    bound."""
+    from ggml_imax_tpu_torch.ops import qmm
+    from ggml_imax_tpu_torch.ops.qmatmul import dequantize
+    kern, plain = getattr(qmm, name), getattr(qmm, name + "_plain")
+    wd = dequantize(qt, torch.bfloat16)
+    wbytes = sum(t.numel() * t.element_size()
+                 for t in (qt.q, qt.scale, qt.bias) if t is not None)
+    for M in ms:
+        x = torch.randn(M, qt.k, generator=gen, device="cuda")
+        xb = x.to(torch.bfloat16)
+        ck.record(name, f"{label} M={M} K={qt.k} N={qt.n}", kern(x, qt),
+                  plain(x, qt), 1e-3, timer(lambda: kern(x, qt)),
+                  timer(lambda: plain(x, qt), iters=3),
+                  timer(lambda: torch.matmul(xb, wd)),
+                  M * qt.k * 2 + wbytes + M * qt.n * 4, 2 * M * qt.k * qt.n,
+                  PEAK_BF16)
+    del wd
+
+
+def check_kquant_kernels(ck, timer, gen):
+    """GPT-2 117M's layer products attn_w (768 x 2304, tag 256) and out_w
+    (3072 x 768, tag 512) at M 1 (decode) and 512 (the prefill bucket):
+    the plane-split kernel on Q3_K and Q2_K weights (the port's codecs),
+    the row-pair kernel on Q4_0 and the u-order kernel on Q8_0. Then each
+    kernel at a 4096 x 16384 sizing shape of random bytes, on no path: the
+    117M products move 0.2-1.8 MB, so their times are launch-latency
+    sized."""
+    from ggml_imax_tpu_torch.ops import qmm
+    from ggml_imax_tpu_torch.quant.device import quantize_for_device
+    from ggml_imax_tpu_torch.quant.formats import GGMLType
+    E = GPT2_117M["n_embd"]
+    rng = np.random.default_rng(9)
+    repack = {"planes": qmm.repack_interleaved, "rowpair": qmm.repack_rowpair,
+              "int8": qmm.repack_int8_rows}
+    cases = [("planes_w4a16", "planes", GGMLType.Q3_K),
+             ("planes_w4a16", "planes", GGMLType.Q2_K),
+             ("rowpair_w4a16", "rowpair", GGMLType.Q4_0),
+             ("int8_rows_w8a16", "int8", GGMLType.Q8_0)]
+    for name, layout, wtype in cases:
+        for label, (K, N) in (("attn_w", (E, 3 * E)), ("out_w", (4 * E, E))):
+            w = (rng.standard_normal((K, N)) * 0.02).astype(np.float32)
+            qt = repack[layout](quantize_for_device(w, wtype),
+                                512 if K % 512 == 0 else 256)
+            time_permuted(ck, timer, gen, name, f"{wtype.name} {label}", qt)
+    for name, layout in (("planes_w4a16", "planes"),
+                         ("rowpair_w4a16", "rowpair"),
+                         ("int8_rows_w8a16", "int8")):
+        time_permuted(ck, timer, gen, name, f"sizing (on no path) {layout}",
+                      random_permuted(layout, 4096, 16384, gen))
+
+
+def legacy_repack(params, layout):
+    """The legacy-layout pass's params: every natural nib4 leaf through
+    repack_rowpair ("rowpair"), or every natural int8 leaf through
+    repack_int8_rows ("int8"), each with the largest of 512 and 256 that
+    divides its K, as params_repack shrinks its tag. A helper of this
+    script, not a package feature: the JAX package offers both repacks,
+    and its forward, get_rows and dequantize_xla take either layout."""
+    from ggml_imax_tpu_torch.ops import qmm
+    from ggml_imax_tpu_torch.quant.device import QTensor
+    fn, kind = {"rowpair": (qmm.repack_rowpair, "nib4"),
+                "int8": (qmm.repack_int8_rows, "int8")}[layout]
+
+    def walk(d):
+        if isinstance(d, dict):
+            return {k: walk(v) for k, v in d.items()}
+        if isinstance(d, list):
+            return [walk(v) for v in d]
+        if isinstance(d, QTensor) and d.kind == kind and d.interleaved_bk == 0:
+            return fn(d, 512 if d.k % 512 == 0 else 256)
+        return d
+    return walk(params)
+
+
 def check_small_model(failures, model, cfg, variants, label, n_prompt=40,
                       n_steps=4, tol=5e-2):
     """Kernels on the card against the plain versions on the CPU, through
@@ -703,6 +835,21 @@ def check_small_models(failures):
             gpt2.synthetic_params(cfg2, wtype, seed=5, device=dev)))
         variants.append((wtype.name, mk, {}))
     check_small_model(failures, gpt2, cfg2, variants, "GPT-2")
+    # the K-quant slice's GPT-2 (K-quants need n_embd % 256 == 0): every
+    # layer product on a permuted-layout kernel
+    cfg3 = gpt2.GPT2Config(n_vocab=1000, n_ctx=64, n_embd=256, n_head=4,
+                           n_layer=2)
+    variants = []
+    for label, wtype, layout in (("Q3_K", GGMLType.Q3_K, None),
+                                 ("Q2_K", GGMLType.Q2_K, None),
+                                 ("row-pair Q4_0", GGMLType.Q4_0, "rowpair"),
+                                 ("u-order Q8_0", GGMLType.Q8_0, "int8")):
+        def mk(dev, wtype=wtype, layout=layout):
+            p = gpt2.synthetic_params(cfg3, wtype, seed=5, device=dev)
+            return params_repack(p) if layout is None else \
+                legacy_repack(p, layout)
+        variants.append((label, mk, {}))
+    check_small_model(failures, gpt2, cfg3, variants, "GPT-2 n_embd 256")
 
 
 def recording(model, logs):
@@ -827,8 +974,8 @@ def profile_engine(eng, rng, reqs, steps=8):
     return busy_ms, walls
 
 
-def serve(model, cfg, params, n_ctx, failures):
-    """The engine phase: a warm-up, then N_REQUESTS requests of a PROMPT-token
+def serve(model, cfg, params, n_ctx, failures, n_requests=N_REQUESTS):
+    """The engine phase: a warm-up, then n_requests requests of a PROMPT-token
     prompt + N_PREDICT greedy tokens with the launch counters set to 0 just
     before and read just after. Returns (engine, rng, per-request numbers,
     launch counts)."""
@@ -849,7 +996,7 @@ def serve(model, cfg, params, n_ctx, failures):
         f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
     _build.reset_launches()
     reqs = []
-    for r in range(N_REQUESTS):
+    for r in range(n_requests):
         prompt = rng.integers(0, cfg.n_vocab, PROMPT)
         stamps = []
         t0 = time.perf_counter()
@@ -865,7 +1012,7 @@ def serve(model, cfg, params, n_ctx, failures):
         reqs.append({"ttft_ms": ttft, "decode_tok_s": tok_s})
     counts = dict(_build.LAUNCHES)
     log(f"  max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    log(f"  launches over {N_REQUESTS} requests: {counts}")
+    log(f"  launches over {n_requests} requests: {counts}")
     return eng, rng, reqs, counts
 
 
@@ -875,15 +1022,13 @@ def check_counts(counts, expect, failures):
             failures.append(f"{k}: {n} launches, expected {expect.get(k, 0)}")
 
 
-def gated_products_ms(cfg, params, busy_ms, walls):
-    """Device time (torch.profiler kernel sum) of the products the N % 128
-    gate leaves to dequantize + torch.matmul, for one decode step (m = 1)
-    and one prefill (M = 512): every layer's attn_w, proj_w and out_w, and
-    the tied LM head; with their share of the step's device busy time and
-    of its unprofiled wall time."""
+def gated_products_ms(ws, busy_ms, walls):
+    """Device time (torch.profiler kernel sum) of the products ws that the
+    N % 128 gate leaves to dequantize + torch.matmul (GPT-2 XL: every
+    layer's attn_w, proj_w and out_w, and the tied LM head; 117M: the head),
+    for one decode step (m = 1) and one prefill (M = 512); with their share
+    of the step's device busy time and of its unprofiled wall time."""
     from ggml_imax_tpu_torch.ops.qmatmul import qmatmul
-    ws = [w for lp in params["layers"]
-          for w in (lp["attn_w"], lp["proj_w"], lp["out_w"])] + [params["wte"]]
     if not all(w.n % 128 for w in ws):
         raise SystemExit("chip_smoke FAILED: a gated weight passed the gate")
     out = {}
@@ -894,7 +1039,9 @@ def gated_products_ms(cfg, params, busy_ms, walls):
         dev = _device_ms(run, 2)
         out[label] = sum(dev.values()) if dev else None
         if out[label] is None:
-            log(f"  gated products per {label}: no device time (not measured)")
+            ev = out[f"{label} (CUDA events)"] = Timer()(lambda: run(0), iters=5)
+            log(f"  gated products per {label}: no device time in the trace "
+                f"(not measured); CUDA events over the products: {ev:.3f} ms")
             continue
         share = "" if busy_ms.get(label) is None else \
             f" = {100 * out[label] / busy_ms[label]:.1f}% of its device busy time"
@@ -952,14 +1099,18 @@ def patched(pairs):
 
 
 def plain_on_card():
-    """Patches pointing every kernel entry of the GPT-J paths at its plain
-    version, so that the wrappers run the plain versions on CUDA tensors
-    (a check of the whole path only; the port never does this)."""
+    """Patches pointing every kernel entry of the GPT-J and GPT-2 117M
+    K-quant paths at its plain version, so that the wrappers run the plain
+    versions on CUDA tensors (a check of the whole path only; the port
+    never does this)."""
     from ggml_imax_tpu_torch.ops import decode_attention as da
     from ggml_imax_tpu_torch.ops import flash_attention as fa
     from ggml_imax_tpu_torch.ops import qmm
     return [(qmm, "w4a16_gemm", qmm.w4a16_gemm_plain),
             (qmm, "w4a8_gemv", qmm.w4a8_gemv_plain),
+            (qmm, "planes_w4a16", qmm.planes_w4a16_plain),
+            (qmm, "rowpair_w4a16", qmm.rowpair_w4a16_plain),
+            (qmm, "int8_rows_w8a16", qmm.int8_rows_w8a16_plain),
             (fa, "flash_attention_kernel", fa.flash_attention_plain),
             (da, "decode_attention_kernel", da.decode_attention_plain),
             (da, "decode_attention_cells_kernel", da.decode_attention_plain),
@@ -1019,21 +1170,27 @@ def short_serving(cfg, params, fused, patches=()):
     return [res[r] for r in rids], logs, counts
 
 
-def engine_greedy(cfg, params, fused, patches=(), n=8):
-    """Engine(n_ctx=512) at GPT-J-6B width: a 40-token prompt and n greedy
-    tokens (n - 1 decode steps). Returns (tokens, logits per forward, launch
-    counts of the decode steps and the prefill)."""
+def engine_greedy(cfg, params, fused, patches=(), n=8, model=None,
+                  n_prompt=8, n_ctx=512, feed=None):
+    """Engine(n_ctx) of `model` (GPT-J by default): an n_prompt-token prompt
+    and n greedy tokens (n - 1 decode steps); feed: the tokens to feed the
+    decode steps instead of its own picks (a teacher-forced pass). Returns
+    (tokens picked, logits per forward, launch counts of the decode steps
+    and the prefill)."""
     from ggml_imax_tpu_torch import _build
     from ggml_imax_tpu_torch.models import gptj
     from ggml_imax_tpu_torch.runtime.engine import Engine
-    prompt = list(np.random.default_rng(7).integers(0, cfg.n_vocab - 1, 8))
+    prompt = list(np.random.default_rng(7).integers(0, cfg.n_vocab - 1,
+                                                    n_prompt))
     with patched(patches):
-        eng = Engine(gptj, cfg, params, n_ctx=512, fused_kv_update=fused)
+        eng = Engine(model or gptj, cfg, params, n_ctx=n_ctx,
+                     fused_kv_update=fused)
         _build.reset_launches()
         lg, cache = eng.prefill(eng.new_cache(), np.asarray([prompt]))
         toks, logs = [int(lg[0].argmax())], [torch.from_numpy(lg)]
         for i in range(n - 1):
-            lg, cache = eng.decode_step(cache, np.asarray(toks[-1:]),
+            fed = toks[-1] if feed is None else feed[i]
+            lg, cache = eng.decode_step(cache, np.asarray([fed]),
                                         len(prompt) + i)
             toks.append(int(lg[0].argmax()))
             logs.append(torch.from_numpy(lg))
@@ -1041,11 +1198,35 @@ def engine_greedy(cfg, params, fused, patches=(), n=8):
     return toks, logs, counts
 
 
-def check_route(label, ref, got, failures, control=False):
-    """Hold one greedy run (tokens, logits, counts) to another at
-    ROUTE_TOL of ref's largest |logit|; a control run (a planted fault) must
-    fail that check."""
-    tol = ROUTE_TOL * logit_scale(ref[1])
+def check_forced(label, ref, got, failures, tol, control=False):
+    """Hold a teacher-forced pass (fed ref's tokens) to ref: every
+    forward's max |logit diff| within tol of ref's largest |logit|, and
+    the same pick at every forward except where ref's top-2 margin is
+    within twice that forward's diff (a near-tie either pass may break; a
+    random-weight model has many). A control (a planted fault) must fail."""
+    limit = tol * logit_scale(ref[1])
+    diffs = [float((a - b).abs().max()) for a, b in zip(ref[1], got[1])]
+    parted = [i for i, (a, b) in enumerate(zip(ref[0], got[0])) if a != b]
+    margins = {i: float(ref[1][i][0].topk(2).values.diff().abs()[0])
+               for i in parted}
+    ties = all(margins[i] <= 2 * diffs[i] for i in parted)
+    ok = max(diffs) <= limit and ties
+    log(f"  {label}: max |logit diff| per forward "
+        f"[{', '.join(f'{d:.3e}' for d in diffs)}] (limit {limit:.3e}, largest "
+        f"|logit| {logit_scale(ref[1]):.3f}), picks part at "
+        f"{[(i, round(margins[i], 5)) for i in parted]} (forward, top-2 "
+        f"margin) -> {'holds' if ok else 'fails'}")
+    if ok == control:
+        failures.append(f"{label}: the check {'holds' if ok else 'fails'} "
+                        f"(max diff {max(diffs):.3e}, limit {limit:.3e}, "
+                        f"parted {parted})")
+
+
+def check_route(label, ref, got, failures, control=False, tol=ROUTE_TOL):
+    """Hold one greedy run (tokens, logits, counts) to another at `tol`
+    (ROUTE_TOL by default) of ref's largest |logit|; a control run (a
+    planted fault) must fail that check."""
+    tol = tol * logit_scale(ref[1])
     ok, diffs, note = same_greedy(ref[1], got[1], ref[0], got[0], tol)
     log(f"  {label}: max |logit diff| per forward "
         f"[{', '.join(f'{d:.3e}' for d in diffs)}] (limit {tol:.3e}, largest "
@@ -1312,6 +1493,89 @@ def train_gpt2(failures):
     return summary, counts
 
 
+def swapped_planes():
+    """The K-quant route check's control: the plane-split kernel with the
+    low and high planes' scale (and bias) rows swapped, a fault that still
+    gives plausible numbers."""
+    from dataclasses import replace
+
+    from ggml_imax_tpu_torch.ops import qmm
+    real = qmm.planes_w4a16
+
+    def swap(t):
+        return None if t is None else \
+            t.reshape(-1, 2, t.shape[1]).flip(1).reshape(t.shape).contiguous()
+
+    def fault(x2, qt):
+        return real(x2, replace(qt, scale=swap(qt.scale), bias=swap(qt.bias)))
+    return [(qmm, "planes_w4a16", fault)]
+
+
+def kquant_gpt2(failures):
+    """Phase 8. GPT-2 117M at full width in Q3_K (N_REQUESTS requests), Q2_K,
+    row-pair Q4_0 and u-order Q8_0 (one request each): weights drawn on the
+    host (the reference's numpy stream and codecs), repacked, served by
+    Engine(n_ctx=1024) with exact launch counts; the Q3_K run profiled;
+    then each run's route check, kernels against plain versions on the
+    card, and the planted fault on Q3_K. Returns (summary, launch counts),
+    both by run."""
+    from ggml_imax_tpu_torch.models import gpt2
+    from ggml_imax_tpu_torch.ops.qmm import params_repack
+    from ggml_imax_tpu_torch.quant.formats import GGMLType
+    cfg = gpt2.GPT2Config(**GPT2_117M)
+    L = cfg.n_layer
+    products = N_PREDICT * 4 * L          # 64 forwards x 48 layer products
+    runs = [("q3_k", "Q3_K", GGMLType.Q3_K, None, N_REQUESTS),
+            ("q2_k", "Q2_K", GGMLType.Q2_K, None, 1),
+            ("rowpair_q4_0", "row-pair Q4_0", GGMLType.Q4_0, "rowpair", 1),
+            ("int8_rows_q8_0", "u-order Q8_0", GGMLType.Q8_0, "int8", 1)]
+    kernel_of = {None: "planes_w4a16", "rowpair": "rowpair_w4a16",
+                 "int8": "int8_rows_w8a16"}
+    summary, launches = {}, {}
+    for key, label, wtype, layout, n_req in runs:
+        log(f"  -- {label}")
+        t0 = time.time()
+        raw = gpt2.synthetic_params(cfg, wtype, seed=0)
+        params = params_repack(raw) if layout is None else \
+            legacy_repack(raw, layout)
+        del raw
+        torch.cuda.synchronize()
+        log(f"  weights drawn and quantized on the host, repacked in "
+            f"{time.time() - t0:.1f} s, "
+            f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
+        eng, rng, reqs, counts = serve(gpt2, cfg, params, cfg.n_ctx, failures,
+                                       n_requests=n_req)
+        check_counts(counts, {kernel_of[layout]: n_req * products,
+                              "flash_attention": n_req * L}, failures)
+        launches[f"gpt2_117m_{key}"] = counts
+        entry = {"ttft_ms": [r["ttft_ms"] for r in reqs],
+                 "decode_tok_s": [r["decode_tok_s"] for r in reqs],
+                 "max_memory_allocated_gib":
+                     torch.cuda.max_memory_allocated() / 2**30}
+        if key == "q3_k":
+            busy, walls = profile_engine(eng, rng, reqs)
+            entry.update(busy_ms=busy, wall_ms=walls,
+                         gated_head_ms=gated_products_ms([params["wte"]],
+                                                         busy, walls))
+        summary[key] = entry
+        del eng
+        greedy = lambda patches=(), feed=None: engine_greedy(
+            cfg, params, False, patches, model=gpt2, n_prompt=PROMPT,
+            n_ctx=cfg.n_ctx, feed=feed)
+        ref = greedy()
+        check_forced(f"GPT-2 117M {label}, kernels vs plain versions on the "
+                     "card", ref, greedy(plain_on_card(), ref[0]), failures,
+                     KQ_ROUTE_TOL)
+        if key == "q3_k":
+            check_forced("control: GPT-2 117M Q3_K, plane-split kernel with "
+                         "its low/high scale rows swapped", ref,
+                         greedy(swapped_planes(), ref[0]), failures,
+                         KQ_ROUTE_TOL, control=True)
+        del params
+        torch.cuda.empty_cache()
+    return summary, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1348,6 +1612,7 @@ def main() -> int:
     check_serving_kernels(ck, timer, gen)
     check_gpt2_kernels(ck, timer, gen)
     check_train_kernels(ck, timer, gen)
+    check_kquant_kernels(ck, timer, gen)
     del timer                                      # the 256 MB flush buffer
     torch.cuda.empty_cache()
     failures = ck.failures
@@ -1400,7 +1665,10 @@ def main() -> int:
                           "flash_attention": n_pre * L}, failures)
     if failures:
         raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
-    gated = gated_products_ms(cfg, params, *profile_engine(eng, rng, reqs))
+    gated = gated_products_ms(
+        [w for lp in params["layers"]
+         for w in (lp["attn_w"], lp["proj_w"], lp["out_w"])] + [params["wte"]],
+        *profile_engine(eng, rng, reqs))
     launches["gpt2"], engines["gpt2"] = counts, reqs
     del eng, params
     torch.cuda.empty_cache()
@@ -1418,6 +1686,15 @@ def main() -> int:
     log(f"# phase 7: GPT-2 117M training (F32, B {TRAIN['batch']}, T "
         f"{TRAIN['seq']}, AdamW)")
     engines["train"], launches["train"] = train_gpt2(failures)
+    if failures:
+        raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
+    torch.cuda.empty_cache()
+
+    # ---- 8. GPT-2 117M K-quants and the legacy layouts
+    log("# phase 8: GPT-2 117M Q3_K / Q2_K engine, row-pair Q4_0 and u-order "
+        "Q8_0 (synthetic weights quantized on the host)")
+    engines["gpt2_117m"], by_run = kquant_gpt2(failures)
+    launches.update(by_run)
     if failures:
         raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
 

@@ -30,7 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "ggml_imax_tpu_to
 SOURCES = ("w4a8_gemv.cu", "w4a16_gemm.cu", "decode_attention.cu",
            "flash_attention.cu", "nat8_gemv.cu", "nat8_gemm.cu",
            "decode_attention_cells.cu", "decode_attention_update.cu",
-           "flash_backward.cu")
+           "flash_backward.cu", "permuted_gemm.cu")
 HEADERS = ("decode_split.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -64,12 +64,19 @@ _SIGNATURES = {
     "ggml_flash_backward_dq": [_P] * 9 + [_I] * 6 + [_F, _F, _P],
     # the same with dk, dv in place of dq
     "ggml_flash_backward_dkv": [_P] * 10 + [_I] * 6 + [_F, _F, _P],
+    # x, q, scale, bias, out, M, K, N, bk, g, zero, scale_is_bf16, stream
+    "ggml_planes_w4a16": [_P] * 5 + [_I] * 7 + [_P],
+    # x, q, scale, bias, xs, out, M, K, N, bk, scale_is_bf16, stream
+    "ggml_rowpair_w4a16": [_P] * 6 + [_I] * 5 + [_P],
+    # x, q, scale, bias, xs, out, M, K, N, bk, g, scale_is_bf16, stream
+    "ggml_int8_rows_w8a16": [_P] * 6 + [_I] * 6 + [_P],
 }
 
 LAUNCHES = {"w4a8_gemv": 0, "w4a16_gemm": 0, "decode_attention": 0,
             "flash_attention": 0, "nat8_w8a8": 0, "nat8_w8a16": 0,
             "decode_attention_cells": 0, "decode_attention_update": 0,
-            "flash_backward_dq": 0, "flash_backward_dkv": 0}
+            "flash_backward_dq": 0, "flash_backward_dkv": 0,
+            "planes_w4a16": 0, "rowpair_w4a16": 0, "int8_rows_w8a16": 0}
 
 _lock = threading.Lock()
 _lib = None

@@ -5,9 +5,11 @@ head tied to ``wte`` unless ``lm_head`` is set.
 
 Per-layer weights stay in ``params["layers"]``, a Python list. Run
 ops.qmm.params_repack on the params before `forward` to reach the kernels:
-Q8_0 weights become nat8, Q4_0 natpair. As in the reference, only weights
-whose N is a multiple of 128 take them (at GPT-2 XL's n_embd 1600: fc_w);
-the others dequantize and multiply. Attention is flash for a multi-token
+Q8_0 weights become nat8, Q4_0 natpair, Q2_K and Q3_K block-interleaved
+planes. As in the reference, only weights whose N is a multiple of 128
+take them (at GPT-2 XL's n_embd 1600: fc_w; at 117M's 768 every layer
+weight); the others, the tied LM head among them, dequantize and
+multiply. Attention is flash for a multi-token
 step and attention_xla for one token (head_dim 64 is under the decode
 kernel's 128).
 """
@@ -65,9 +67,11 @@ def synthetic_params(cfg: GPT2Config, wtype: GGMLType = GGMLType.F32,
                      seed: int = 0, scale: float = 0.02, *, device=None):
     """Random weights at model geometry, drawn on the host with the same
     numpy stream as the reference's synthetic_params and quantized through
-    the port's bit-exact codecs (F32, Q4_0, Q8_0), so both packages build
-    identical weights from one seed."""
-    if wtype not in (GGMLType.F32, GGMLType.Q4_0, GGMLType.Q8_0):
+    the port's bit-exact codecs (F32, Q4_0, Q8_0, Q2_K, Q3_K), so both
+    packages build identical weights from one seed. The K-quants need
+    n_embd % 256 == 0 (GPT-2 117M's 768, not XL's 1600)."""
+    if wtype not in (GGMLType.F32, GGMLType.Q4_0, GGMLType.Q8_0, GGMLType.Q2_K,
+                     GGMLType.Q3_K):
         raise NotImplementedError(f"synthetic weights in {wtype.name}")
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)

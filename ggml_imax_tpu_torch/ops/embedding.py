@@ -1,32 +1,23 @@
 """Row gather from a (possibly quantized) embedding table (counterpart of
-ggml_imax_tpu/ops/embedding.py: natpair nib4, natural and nat8 int8,
-and dense tables)."""
+ggml_imax_tpu/ops/embedding.py: every nib4 and int8 layout, and dense
+tables)."""
 from __future__ import annotations
 
 import torch
 
 from ..quant.device import QTensor
-from .qmm import unpack_natpair
+from .qmm import natural_q
 
 
 def get_rows(qt: QTensor, ids, dtype=torch.bfloat16):
     """qt: k = row length (embedding dim), n = vocab rows; ids (...) int ->
-    (..., k) in `dtype`."""
+    (..., k) in `dtype`. Only the gathered columns are unpacked."""
     if qt.kind == "dense":
         return qt.q.T[ids].to(dtype)
     n_groups = qt.scale.shape[0]
-    if qt.kind == "nib4" and qt.q4_layout == 3:
-        cols = qt.q.T[ids]                               # (..., K/2)
-        lead = cols.shape[:-1]
-        q = unpack_natpair(cols.reshape(-1, qt.k // 2).T).T.reshape(*lead,
-                                                                    qt.k)
-    elif qt.kind == "int8" and qt.q4_layout in (0, 4):   # nat8 rows are natural
-        q = qt.q.T[ids]                                  # (..., K)
-        lead = q.shape[:-1]
-    else:
-        raise NotImplementedError(
-            f"get_rows: {qt.kind} layout {qt.q4_layout} (natpair nib4, "
-            "natural or nat8 int8, and dense tables)")
+    lead = ids.shape
+    flat = ids.reshape(-1)
+    q = natural_q(qt, qt.q[:, flat]).T.reshape(*lead, qt.k)
     s = qt.scale.T[ids]                                  # (..., n_groups)
     w = q.reshape(*lead, n_groups, qt.k // n_groups).to(dtype) \
         * s[..., None].to(dtype)

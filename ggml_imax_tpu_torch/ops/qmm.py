@@ -1,5 +1,5 @@
-"""Quantized matmul kernels over the natpair int4 and nat8 int8 layouts
-(counterpart of ggml_imax_tpu/ops/pallas_qmm.py, natpair and nat8 branches).
+"""Quantized matmul kernels over the repacked weight layouts (counterpart of
+ggml_imax_tpu/ops/pallas_qmm.py).
 
 natpair (``q4_layout`` 3): byte row i of the (K/2, N) weight packs natural
 elements 2i (low nibble) and 2i+1 (high nibble), each stored XOR 8 so that
@@ -10,7 +10,20 @@ nat8 (``q4_layout`` 4): the (K, N) int8 weight in natural row order, one
 scale (and optional bias) per g = 32 or 16 rows (Q8_0, Q5_0/1, Q5_K, Q6_K,
 IQ4_*). The repack only tags it.
 
-Four kernels, each with a plain PyTorch version beside it:
+The three permuted layouts cut K into tiles of bk = ``interleaved_bk``
+rows and reorder the rows inside each tile (NB = bk / group):
+
+- planes (``q4_layout`` 0, ``repack_interleaved``): the plane-split nib4
+  of any zero point and per-16 or per-32 scales (Q2_K, Q3_K). Byte row
+  r = j * NB + b of a tile holds element 32b + j of the tile in the low
+  nibble and 32b + 16 + j in the high one.
+- row-pair (``q4_layout`` 1, ``repack_rowpair``): per-32 nib4, row
+  u = e * NB + b holds element 32b + e; byte row i packs rows 2i (low) and
+  2i + 1 (high), XOR 8.
+- u-order int8 (``q4_layout`` 2, ``repack_int8_rows``): row u = e * NB + b
+  holds element g b + e.
+
+Seven kernels, each with a plain PyTorch version beside it:
 
 - `w4a8_gemv` (natpair, m == 1, decode): Q8_0 activations, per-block int32
   dots, f32 scale epilogue — csrc/w4a8_gemv.cu.
@@ -20,6 +33,9 @@ Four kernels, each with a plain PyTorch version beside it:
   csrc/nat8_gemv.cu.
 - `nat8_w8a16_gemm` (nat8, m > 1): as w4a16_gemm, weight bf16(q) * bf16(s)
   — csrc/nat8_gemm.cu.
+- `planes_w4a16`, `rowpair_w4a16`, `int8_rows_w8a16` (every m: these
+  layouts have no W8A8 path): bf16 activations times the weight read in
+  its stored layout — csrc/permuted_gemm.cu.
 
 A wrapper launches its kernel for a CUDA tensor (or raises) and runs the
 plain version only for a tensor on the CPU.
@@ -81,13 +97,68 @@ def repack_nat8(qt: QTensor, bk: int = DEFAULT_BK,
     return replace(qt, scale=scale, bias=bias, interleaved_bk=bk, q4_layout=4)
 
 
+def _check_tile(qt: QTensor, bk: int, kind: str):
+    if not (qt.kind == kind and qt.interleaved_bk == 0 and qt.lut is None):
+        raise ValueError(f"this repack takes natural {kind} weights")
+    if bk <= 0 or qt.k % bk:
+        raise ValueError(f"tag bk={bk} does not divide K={qt.k}")
+
+
+def repack_interleaved(qt: QTensor, bk: int = DEFAULT_BK) -> QTensor:
+    """Natural plane-split nib4 -> block-interleaved tiles of bk rows,
+    byte-identical to the reference's repack_interleaved_device: byte row
+    16b + j of a tile moves to j * NB + b. Scales and bias stay as they
+    are (per-16 or per-32, natural rows)."""
+    _check_tile(qt, bk, "nib4")
+    nb = bk // 32
+    q = qt.q.reshape(qt.k // bk, nb, 16, qt.n).transpose(1, 2) \
+        .reshape(qt.k // 2, qt.n).contiguous()
+    return replace(qt, q=q, interleaved_bk=bk)
+
+
+def repack_rowpair(qt: QTensor, bk: int = DEFAULT_BK) -> QTensor:
+    """Natural per-32 nib4 with zero 0 or 8 -> the row-pair layout,
+    byte-identical to the reference's repack_rowpair_device. Stored values
+    are q - 8 (XOR 8); with zero 0 the bias takes 8 * scale back."""
+    _check_tile(qt, bk, "nib4")
+    if qt.zero not in (0, 8) or qt.scale.shape[0] != qt.k // 32:
+        raise ValueError("the row-pair layout needs per-32 scales and zero "
+                         "0 or 8")
+    nb = bk // 32
+    g = qt.q.reshape(qt.k // 32, 16, qt.n)
+    vals = torch.cat([g & 0x0F, g >> 4], dim=1).reshape(qt.k, qt.n) ^ 8
+    # rows to u-order: (tile, b, e) -> u = e * NB + b
+    vt = vals.reshape(qt.k // bk, nb, 32, qt.n).transpose(1, 2) \
+        .reshape(qt.k // bk, bk, qt.n)
+    q = (vt[:, 0::2] | (vt[:, 1::2] << 4)).reshape(qt.k // 2, qt.n) \
+        .contiguous()
+    bias = qt.bias
+    if qt.zero == 0:
+        bias = 8.0 * qt.scale if bias is None else bias + 8.0 * qt.scale
+    return replace(qt, q=q, bias=bias, zero=8, interleaved_bk=bk,
+                   q4_layout=1)
+
+
+def repack_int8_rows(qt: QTensor, bk: int = DEFAULT_BK) -> QTensor:
+    """Natural int8 with per-16 or per-32 scales -> u-order rows, byte-
+    identical to the reference's repack_int8_rows_device."""
+    _check_tile(qt, bk, "int8")
+    g = qt.k // qt.scale.shape[0]
+    if g not in (16, 32) or bk % g:
+        raise ValueError(f"u-order int8 needs g 16 or 32 dividing bk, g={g}")
+    q = qt.q.reshape(qt.k // bk, bk // g, g, qt.n).transpose(1, 2) \
+        .reshape(qt.k, qt.n).contiguous()
+    return replace(qt, q=q, interleaved_bk=bk, q4_layout=2)
+
+
 def params_repack(params, bk: int = DEFAULT_BK,
                   scale_dtype: torch.dtype | None = None):
     """Repack the QTensors of a params tree for the kernels (the
-    counterpart of params_repack_device): natural per-32 nib4 -> natpair,
-    natural per-16/32 int8 -> nat8. Repacked, dense and codebook tensors
-    and int8 of other groups pass through; other nib4 raises (its
-    plane-split kernel is not ported)."""
+    counterpart of params_repack_device): natural per-32 nib4 with zero 0
+    or 8 -> natpair, other nib4 (per-16 scales, other zero points) ->
+    block-interleaved planes, natural per-16/32 int8 -> nat8. Repacked,
+    dense and codebook tensors and int8 of other groups pass through.
+    scale_dtype applies to natpair and nat8, as in the reference."""
     def conv(x):
         if not isinstance(x, QTensor):
             return x
@@ -109,9 +180,7 @@ def params_repack(params, bk: int = DEFAULT_BK,
             return replace(x)
         if x.scale.shape[0] == x.k // 32 and x.zero in (0, 8):
             return repack_natpair(x, bk_t, scale_dtype=scale_dtype)
-        raise NotImplementedError(
-            "plane-split nib4 (per-16 scales or zero point "
-            f"{x.zero}) needs the W4A16 noround kernel, not ported yet")
+        return repack_interleaved(x, bk_t)
 
     def walk(d):
         if isinstance(d, dict):
@@ -196,17 +265,25 @@ def w4a8_gemv(x8, dx, qt: QTensor, xs=None) -> torch.Tensor:
     return out
 
 
-def dequant_natpair_bf16(qt: QTensor) -> torch.Tensor:
-    """(K, N) bf16 weight rounded as the reference's W4A16 kernel rounds it:
-    bf16(q - 8) * bf16(s), the product rounded to bf16."""
-    s = qt.scale.to(torch.bfloat16).repeat_interleave(32, dim=0)
-    return unpack_natpair(qt.q).to(torch.bfloat16) * s
+def _expand(t: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """(K/g, N) scale or bias rows -> (K, N) bf16, natural row order."""
+    return t.to(torch.bfloat16).repeat_interleave(qt.k // t.shape[0], dim=0)
 
 
-def _a16_plain(x2, w_bf16, qt: QTensor) -> torch.Tensor:
-    """bf16(x) @ w with f32 sums, + (per-group sums of bf16(x)) @ bias."""
+def dequant_bf16(qt: QTensor) -> torch.Tensor:
+    """(K, N) bf16 weight in natural row order as the reference's A16
+    kernels round it before the matrix unit: bf16(q) * bf16(s), the product
+    rounded to bf16 (q the stored integer, q - 8 for natpair and row-pair;
+    the scale is cast to bf16 even when it is stored f32). No bias."""
+    return natural_q(qt).to(torch.bfloat16) * _expand(qt.scale, qt)
+
+
+def a16_gemm_plain(x2, qt: QTensor) -> torch.Tensor:
+    """Plain version of the natpair W4A16, nat8 W8A16, row-pair W4A16 and
+    u-order W8A16 kernels: x2 (M, K) -> (M, N) f32, bf16(x) @ dequant_bf16
+    with f32 sums, + the exact f32 term (per-group sums of bf16(x)) @ bias."""
     xb = x2.to(torch.bfloat16).float()
-    out = xb @ w_bf16.float()
+    out = xb @ dequant_bf16(qt).float()
     if qt.bias is not None:
         nb = qt.bias.shape[0]
         xs = xb.reshape(x2.shape[0], nb, qt.k // nb).sum(-1)
@@ -214,9 +291,7 @@ def _a16_plain(x2, w_bf16, qt: QTensor) -> torch.Tensor:
     return out
 
 
-def w4a16_gemm_plain(x2, qt: QTensor) -> torch.Tensor:
-    """Plain version of the W4A16 kernel: x2 (M, K) -> (M, N) f32."""
-    return _a16_plain(x2, dequant_natpair_bf16(qt), qt)
+w4a16_gemm_plain = a16_gemm_plain
 
 
 def w4a16_gemm(x2, qt: QTensor) -> torch.Tensor:
@@ -312,17 +387,7 @@ def nat8_w8a8_gemv(x8, dx, qt: QTensor, xs=None) -> torch.Tensor:
     return out
 
 
-def dequant_nat8_bf16(qt: QTensor) -> torch.Tensor:
-    """(K, N) bf16 weight rounded as the reference's W8A16 kernel rounds it:
-    bf16(q) * bf16(s), the product rounded to bf16 (the scale is cast to
-    bf16 even when it is stored f32)."""
-    s = qt.scale.to(torch.bfloat16).repeat_interleave(nat8_group(qt), dim=0)
-    return qt.q.to(torch.bfloat16) * s
-
-
-def nat8_w8a16_gemm_plain(x2, qt: QTensor) -> torch.Tensor:
-    """Plain version of the W8A16 kernel: x2 (M, K) -> (M, N) f32."""
-    return _a16_plain(x2, dequant_nat8_bf16(qt), qt)
+nat8_w8a16_gemm_plain = a16_gemm_plain
 
 
 def nat8_w8a16_gemm(x2, qt: QTensor) -> torch.Tensor:
@@ -368,4 +433,156 @@ def qmatmul_nat8(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
         out = nat8_w8a8_gemv(x8[:, 0], dx[:, 0], qt, xs)[None]
     else:
         out = nat8_w8a16_gemm(x2, qt)
+    return out.reshape(*lead, qt.n)
+
+
+# ---- the permuted layouts: planes, row-pair, u-order int8 ----
+
+def unpack_planes(q: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """(K/2, C) plane-split bytes of qt's layout (natural, or block-
+    interleaved by qt.interleaved_bk) -> (K, C) int8 values nib - zero in
+    natural row order. C may be any number of qt's columns."""
+    c, bk = q.shape[1], qt.interleaved_bk
+    if bk:
+        q = q.reshape(qt.k // bk, 16, bk // 32, c).transpose(1, 2)
+    g = q.reshape(qt.k // 32, 16, c)
+    return torch.cat([(g & 0x0F).to(torch.int8) - qt.zero,
+                      (g >> 4).to(torch.int8) - qt.zero], dim=1) \
+        .reshape(qt.k, c)
+
+
+def unpack_rowpair(q: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """(K/2, C) row-pair bytes -> (K, C) int8 values q - 8 in natural row
+    order: interleave each byte's two rows, then undo u = e * NB + b per
+    tile (the reference's _unpack_rowpair)."""
+    c, bk = q.shape[1], qt.interleaved_bk
+    u = unpack_natpair(q)                               # u-order rows
+    return u.reshape(qt.k // bk, 32, bk // 32, c).transpose(1, 2) \
+        .reshape(qt.k, c)
+
+
+def unorder_int8_rows(q: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """(K, C) u-order int8 rows -> natural row order."""
+    c, bk = q.shape[1], qt.interleaved_bk
+    g = qt.k // qt.scale.shape[0]
+    return q.reshape(qt.k // bk, g, bk // g, c).transpose(1, 2) \
+        .reshape(qt.k, c)
+
+
+def natural_q(qt: QTensor, q: torch.Tensor | None = None) -> torch.Tensor:
+    """The integer values of a nib4 or int8 QTensor in natural row order,
+    (K, C) int8 (nib4: nib - zero; natpair and row-pair: q - 8). q: the
+    stored bytes of some of qt's columns (default all): every layout
+    permutes rows within K tiles, never columns."""
+    q = qt.q if q is None else q
+    if qt.lut is not None or qt.kind not in ("nib4", "int8"):
+        raise NotImplementedError(f"{qt.kind} with lut")
+    if qt.kind == "int8":
+        if qt.q4_layout == 2:
+            return unorder_int8_rows(q, qt)
+        if qt.q4_layout in (0, 4):                 # nat8 rows are natural
+            return q
+    elif qt.q4_layout == 3:
+        return unpack_natpair(q)
+    elif qt.q4_layout == 1:
+        return unpack_rowpair(q, qt)
+    elif qt.q4_layout == 0:
+        return unpack_planes(q, qt)
+    raise NotImplementedError(f"{qt.kind} layout {qt.q4_layout}")
+
+
+def _check_permuted(qt: QTensor, kind: str, q4_layout: int, groups):
+    _check_layout(qt, kind, q4_layout)
+    bk = qt.interleaved_bk
+    if qt.lut is not None or bk <= 0 or qt.k % bk or bk % 32:
+        raise ValueError(f"K={qt.k} in tiles of bk={bk}: bk a multiple of "
+                         "32 dividing K, no codebook")
+    if qt.k // qt.scale.shape[0] not in groups or qt.k % qt.scale.shape[0]:
+        raise ValueError(f"scale rows {qt.scale.shape[0]} for K={qt.k}")
+
+
+def dequant_planes_bf16(qt: QTensor) -> torch.Tensor:
+    """(K, N) bf16 weight rounded as the reference's plane-split kernel
+    (_kernel_noround) rounds it: bf16(bf16(nib - zero) * bf16(s)), then
+    + bf16(bias) rounded to bf16 again. The bias is part of the weight
+    here, not an exact f32 term."""
+    w = dequant_bf16(qt)
+    return w if qt.bias is None else w + _expand(qt.bias, qt)
+
+
+def planes_w4a16_plain(x2, qt: QTensor) -> torch.Tensor:
+    """Plain version of the plane-split W4A16 kernel: x2 (M, K) -> (M, N)
+    f32, bf16(x) @ w with f32 sums."""
+    return x2.to(torch.bfloat16).float() @ dequant_planes_bf16(qt).float()
+
+
+rowpair_w4a16_plain = int8_rows_w8a16_plain = a16_gemm_plain
+
+
+def _permuted_gemm(name: str, x2, qt: QTensor, plain, has_xs: bool, *args):
+    """Checks shared by the three permuted-layout wrappers, then the plain
+    version on the CPU or the kernel's C entry `ggml_<name>` on the card.
+    args: the entry's trailing ints before scale_is_bf16."""
+    if x2.dim() != 2 or x2.shape[1] != qt.k:
+        raise ValueError(f"{name}: x {tuple(x2.shape)} for K={qt.k}")
+    if x2.device.type == "cpu":
+        return plain(x2, qt)
+    if qt.n % 16 or qt.q.data_ptr() % 16:
+        raise ValueError(f"{name}: N % 16 and a 16-byte aligned weight "
+                         "required")
+    xb = x2.to(torch.bfloat16).contiguous()
+    if xb.data_ptr() % 16:
+        raise ValueError(f"{name}: x must be 16-byte aligned in bf16")
+    m = x2.shape[0]
+    xs = None
+    if has_xs and qt.bias is not None:
+        g = qt.k // qt.bias.shape[0]
+        xs = xb.float().reshape(m, qt.k // g, g).sum(-1).contiguous()
+    out = torch.empty(m, qt.n, dtype=torch.float32, device=x2.device)
+    head = [xb.data_ptr(), qt.q.data_ptr(), qt.scale.data_ptr(),
+            _build.ptr(qt.bias)] + ([_build.ptr(xs)] if has_xs else [])
+    rc = getattr(_build.lib(), f"ggml_{name}")(
+        *head, out.data_ptr(), m, qt.k, qt.n, qt.interleaved_bk, *args,
+        int(qt.scale.dtype == torch.bfloat16), _build.stream_ptr(x2))
+    _build.check(rc, name)
+    _build.LAUNCHES[name] += 1
+    return out
+
+
+def planes_w4a16(x2, qt: QTensor) -> torch.Tensor:
+    """W4A16 over block-interleaved plane-split nib4 (per-16 or per-32
+    scales, any zero point, bias inside the bf16 weight): x2 (M, K), cast
+    to bf16 -> (M, N) f32."""
+    _check_permuted(qt, "nib4", 0, (16, 32))
+    return _permuted_gemm("planes_w4a16", x2, qt, planes_w4a16_plain, False,
+                          qt.k // qt.scale.shape[0], qt.zero)
+
+
+def rowpair_w4a16(x2, qt: QTensor) -> torch.Tensor:
+    """W4A16 over row-pair nib4 (per-32 scales, exact f32 bias term)."""
+    _check_permuted(qt, "nib4", 1, (32,))
+    return _permuted_gemm("rowpair_w4a16", x2, qt, rowpair_w4a16_plain, True)
+
+
+def int8_rows_w8a16(x2, qt: QTensor) -> torch.Tensor:
+    """W8A16 over u-order int8 rows (g 16 or 32, exact f32 bias term)."""
+    _check_permuted(qt, "int8", 2, (16, 32))
+    return _permuted_gemm("int8_rows_w8a16", x2, qt, int8_rows_w8a16_plain,
+                          True, qt.k // qt.scale.shape[0])
+
+
+def qmatmul_permuted(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """x (..., K) @ a permuted-layout W -> (..., N) f32: the wrapper of its
+    q4_layout at every m (the reference's qmatmul_pallas dispatch)."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, qt.k)
+    if qt.kind == "nib4" and qt.q4_layout == 0:
+        out = planes_w4a16(x2, qt)
+    elif qt.kind == "nib4" and qt.q4_layout == 1:
+        out = rowpair_w4a16(x2, qt)
+    elif qt.kind == "int8" and qt.q4_layout == 2:
+        out = int8_rows_w8a16(x2, qt)
+    else:
+        raise ValueError(f"no permuted-layout kernel for {qt.kind} layout "
+                         f"{qt.q4_layout}")
     return out.reshape(*lead, qt.n)

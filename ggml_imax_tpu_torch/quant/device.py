@@ -3,16 +3,20 @@ ggml_imax_tpu/quant/device.py), holding torch tensors.
 
 Layouts (K = contraction dim, N = output dim):
 
-- ``nib4``: (K/2, N) uint8. Natural layout (``q4_layout`` 0) is the
-  intra-block plane split: byte row 16b+j holds element 32b+j in the low
-  nibble and 32b+16+j in the high nibble. The natpair layout
-  (``q4_layout`` 3, ops/qmm.repack_natpair) packs elements (2i, 2i+1) of
-  byte row i, XOR 8, so a signed nibble read is q - 8.
-  w[k, n] = (nib - zero) * scale[k // 32, n] + bias[k // 32, n].
+- ``nib4``: (K/2, N) uint8. Natural layout (``q4_layout`` 0,
+  ``interleaved_bk`` 0) is the intra-block plane split: byte row 16b+j
+  holds element 32b+j in the low nibble and 32b+16+j in the high nibble.
+  w[k, n] = (nib - zero) * scale[k // g, n] + bias[k // g, n], with
+  g = K / scale rows (32, or 16 for Q2_K and Q3_K). The repacks of
+  ops/qmm.py: the block-interleaved plane split (``q4_layout`` 0 with
+  ``interleaved_bk`` set), the row-pair u-order layout (``q4_layout`` 1)
+  and natpair (``q4_layout`` 3), which packs elements (2i, 2i+1) of byte
+  row i, XOR 8, so a signed nibble read is q - 8.
 - ``int8``: (K, N) int8, w = q * scale[k // g, n] + bias[k // g, n], with
   g = K / scale rows (32, or 16 for the per-16 formats). Rows are in
   natural order; the nat8 layout (``q4_layout`` 4, ops/qmm.repack_nat8) is
-  the same bytes with a tag.
+  the same bytes with a tag, the u-order layout (``q4_layout`` 2) permutes
+  the rows of each K tile.
 - ``dense``: (K, N) float.
 """
 from __future__ import annotations
@@ -43,7 +47,10 @@ class QTensor:
     ggml_type: GGMLType
     zero: int = 0             # nib4 zero-point
     interleaved_bk: int = 0   # 0 = natural layout; else the repack's K tile
-    q4_layout: int = 0        # 0 = natural, 3 = natpair, 4 = nat8
+    q4_layout: int = 0        # 0 = plane split (natural, or block-
+                              # interleaved when interleaved_bk is set),
+                              # 1 = row-pair, 2 = u-order int8, 3 = natpair,
+                              # 4 = nat8
     name: str = ""
     n_stack: int = 0
     lut: Optional[torch.Tensor] = None
@@ -88,7 +95,8 @@ def _nib4_from_u8(vals: np.ndarray) -> np.ndarray:
 def to_device_format(raw: np.ndarray, t: GGMLType, shape_ne: tuple[int, ...],
                      *, device=None) -> QTensor:
     """Decode a ggml-encoded 2-D weight into the device layout (counterpart
-    of quant/device.to_device_format for F32, Q4_0 and Q8_0). shape_ne is
+    of quant/device.to_device_format for F32, Q4_0, Q8_0, Q2_K and Q3_K;
+    the K-quants as per-16 nib4). shape_ne is
     the ggml shape, row length K first; the tensors land on `device` (the
     card unless "cpu" is passed)."""
     dev = resolve_device(device)
@@ -98,12 +106,32 @@ def to_device_format(raw: np.ndarray, t: GGMLType, shape_ne: tuple[int, ...],
         w = codecs.dequantize(raw, t, shape=(n, k)).T
         return QTensor("dense", put(np.ascontiguousarray(w)), None, None, k,
                        n, t)
-    if t not in (GGMLType.Q4_0, GGMLType.Q8_0):
+    if t not in (GGMLType.Q4_0, GGMLType.Q8_0, GGMLType.Q2_K, GGMLType.Q3_K):
         raise NotImplementedError(f"no device layout for {t.name} yet")
     if k % FORMATS[t].block_size:
         raise ValueError(f"{t.name}: K={k} is not a whole number of blocks")
-    b = codecs.blocks_view(raw, t).reshape(n, k // 32)
-    d = np.ascontiguousarray(b["d"].T.astype(np.float32))     # (K/32, N)
+    b = codecs.blocks_view(raw, t).reshape(n, k // FORMATS[t].block_size)
+    f32 = np.float32
+    if t == GGMLType.Q2_K:
+        # per-16 scale d*sc and bias -dmin*m, rows (K/16, N); levels [0, 3]
+        # with zero 0: the bias carries only the format's own minimum
+        scale = b["d"].astype(f32)[..., None] * (b["scales"] & 0xF).astype(f32)
+        mn = b["dmin"].astype(f32)[..., None] * (b["scales"] >> 4).astype(f32)
+        q = (b["qs"][:, :, codecs._Q2_BYTE] >> codecs._Q2_SHIFT) & 3
+        return QTensor("nib4", put(_nib4_from_u8(q.reshape(n, k))),
+                       put(np.ascontiguousarray(scale.reshape(n, -1).T)),
+                       put(np.ascontiguousarray(-mn.reshape(n, -1).T)), k, n,
+                       t, zero=0)
+    if t == GGMLType.Q3_K:
+        # per-16 scale d*sc6, no bias; levels q + 4 in [0, 7] with zero 4
+        sc6 = codecs._unpack_q3k_scales(b["scales"].reshape(-1, 12))
+        scale = b["d"].astype(f32)[..., None] \
+            * sc6.reshape(n, -1, 16).astype(f32)
+        q = (codecs.q3k_levels(b) + 4).astype(np.uint8)
+        return QTensor("nib4", put(_nib4_from_u8(q.reshape(n, k))),
+                       put(np.ascontiguousarray(scale.reshape(n, -1).T)), None,
+                       k, n, t, zero=4)
+    d = np.ascontiguousarray(b["d"].T.astype(f32))            # (K/32, N)
     if t == GGMLType.Q4_0:
         qs = b["qs"]                                  # (N, K/32, 16)
         vals = np.concatenate([qs & 0x0F, qs >> 4], axis=2).reshape(n, k)

@@ -11,6 +11,7 @@ import enum
 from dataclasses import dataclass
 
 QK = 32      # block size of the "basic" formats
+QK_K = 256   # super-block size of the K-quant formats
 
 
 class GGMLType(enum.IntEnum):
@@ -60,4 +61,9 @@ FORMATS: dict[GGMLType, FormatInfo] = {
     GGMLType.Q4_0: FormatInfo("q4_0", QK, 2 + QK // 2, True),
     GGMLType.Q4_1: FormatInfo("q4_1", QK, 4 + QK // 2, True),
     GGMLType.Q8_0: FormatInfo("q8_0", QK, 2 + QK, True),
+    # scales, 2-bit quants, d, dmin
+    GGMLType.Q2_K: FormatInfo("q2_K", QK_K, QK_K // 16 + QK_K // 4 + 4, True),
+    # hmask, 2-bit quants, 12 bytes of 6-bit scales, d
+    GGMLType.Q3_K: FormatInfo("q3_K", QK_K, QK_K // 8 + QK_K // 4 + 12 + 2,
+                              True),
 }

@@ -437,3 +437,137 @@ def test_small_gpt2_training_step_on_card_matches_cpu(gen):
     assert abs(out["cuda"][0] - out["cpu"][0]) < 1e-3 * abs(out["cpu"][0])
     for g, w in zip(out["cuda"][1], out["cpu"][1]):
         assert rel(g, w) < 2e-2
+
+
+def permuted(layout, K, N, gen, bk, g=32, zero=8, bias=False,
+             scale_dtype=torch.float32):
+    """A random weight in one of the permuted layouts (planes, rowpair,
+    int8) with distinct scale rows, so a swapped low/high plane shows."""
+    kind, q4l = {"planes": ("nib4", 0), "rowpair": ("nib4", 1),
+                 "int8": ("int8", 2)}[layout]
+    if kind == "nib4":
+        q = torch.randint(0, 256, (K // 2, N), dtype=torch.uint8,
+                          generator=gen, device="cuda")
+    else:
+        q = torch.randint(-127, 128, (K, N), dtype=torch.int8, generator=gen,
+                          device="cuda")
+    s = torch.rand((K // g, N), generator=gen, device="cuda") * 0.01
+    b = (torch.rand((K // g, N), generator=gen, device="cuda") - 0.5) * 0.02 \
+        if bias else None
+    return QTensor(kind, q, s.to(scale_dtype), None if b is None
+                   else b.to(scale_dtype), K, N, GGMLType.Q2_K if g == 16
+                   else GGMLType.Q4_0, zero=zero, interleaved_bk=bk,
+                   q4_layout=q4l)
+
+
+KERNEL_OF = {"planes": "planes_w4a16", "rowpair": "rowpair_w4a16",
+             "int8": "int8_rows_w8a16"}
+
+
+def check_permuted(qt, layout, m, gen):
+    x = torch.randn(m, qt.k, generator=gen, device="cuda")
+    name = KERNEL_OF[layout]
+    before = _build.LAUNCHES[name]
+    got = getattr(qmm, name)(x, qt)
+    assert _build.LAUNCHES[name] == before + 1
+    ref = getattr(qmm, name + "_plain")(x, qt)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (m, qt.n)
+    assert rel(got, ref) < 1e-4
+    return x, got
+
+
+# Q3_K (per-16, zero 4), Q2_K (per-16, zero 0, bias) and a per-32 case
+@pytest.mark.parametrize("m", [1, 5, 64, 512, 600])
+@pytest.mark.parametrize("bk", [256, 512])
+@pytest.mark.parametrize("g,zero,bias", [(16, 4, False), (16, 0, True),
+                                         (32, 8, False)])
+def test_planes_kernel_matches_plain(gen, m, bk, g, zero, bias):
+    qt = permuted("planes", 1024, 640, gen, bk, g, zero, bias)
+    x, got = check_permuted(qt, "planes", m, gen)
+    if g == 16:
+        # the low and high planes take different scale rows: swapping them
+        # must show
+        s = qt.scale.reshape(-1, 2, qt.n).flip(1).reshape(qt.scale.shape)
+        swapped = qmm.planes_w4a16_plain(x, QTensor(**{**qt.__dict__,
+                                                       "scale": s}))
+        assert rel(got, swapped) > 1e-2
+
+
+@pytest.mark.parametrize("m", [1, 5, 64, 512, 600])
+@pytest.mark.parametrize("bk", [256, 512])
+@pytest.mark.parametrize("bias", [False, True])
+def test_rowpair_kernel_matches_plain(gen, m, bk, bias):
+    check_permuted(permuted("rowpair", 1024, 640, gen, bk, bias=bias),
+                   "rowpair", m, gen)
+
+
+@pytest.mark.parametrize("m", [1, 5, 64, 512, 600])
+@pytest.mark.parametrize("bk", [256, 512])
+@pytest.mark.parametrize("g,bias", [(32, False), (16, True), (16, False)])
+def test_int8_rows_kernel_matches_plain(gen, m, bk, g, bias):
+    check_permuted(permuted("int8", 1024, 640, gen, bk, g, 0, bias),
+                   "int8", m, gen)
+
+
+# GPT-2 117M's products: attn_w (K 768, tag 256) and out_w (K 3072, 512),
+# bf16 scales as a half-width variant
+@pytest.mark.parametrize("layout", ["planes", "rowpair", "int8"])
+@pytest.mark.parametrize("k,n,bk", [(768, 2304, 256), (3072, 768, 512)])
+@pytest.mark.parametrize("m", [1, 512])
+def test_permuted_kernels_at_path_shapes(gen, layout, k, n, bk, m):
+    g = 16 if layout != "rowpair" else 32
+    qt = permuted(layout, k, n, gen, bk, g, 4 if layout == "planes" else 8,
+                  bias=layout == "int8", scale_dtype=torch.bfloat16)
+    check_permuted(qt, layout, m, gen)
+
+
+def test_permuted_wrappers_refuse_what_the_kernel_does_not_take(gen):
+    qt = permuted("planes", 512, 200, gen, 256, 16, 4)       # N % 16 != 0
+    with pytest.raises(ValueError, match="N % 16"):
+        qmm.planes_w4a16(torch.randn(3, 512, device="cuda"), qt)
+    qt = permuted("int8", 512, 256, gen, 256, 16)
+    flat = torch.randn(3 * 512 + 1, generator=gen, device="cuda")
+    x = flat.to(torch.bfloat16)[1:].view(3, 512)              # 2-byte offset
+    before = _build.LAUNCHES["int8_rows_w8a16"]
+    with pytest.raises(ValueError, match="aligned"):
+        qmm.int8_rows_w8a16(x, qt)
+    assert _build.LAUNCHES["int8_rows_w8a16"] == before
+
+
+@pytest.mark.parametrize("route", ["planes", "rowpair", "int8"])
+def test_permuted_routes_carry_gradients(gen, route):
+    from ggml_imax_tpu_torch.ops.qmatmul import dequantize, qmatmul
+    qt = permuted(route, 512, 256, gen, 256, 16 if route == "planes" else 32,
+                  0 if route == "planes" else 8, bias=True)
+    x = torch.randn(64, 512, generator=gen, device="cuda").requires_grad_(True)
+    n0 = _build.LAUNCHES[KERNEL_OF[route]]
+    y = qmatmul(x, qt, out_dtype=torch.float32)
+    assert _build.LAUNCHES[KERNEL_OF[route]] == n0 + 1 and y.grad_fn is not None
+    (dx,) = torch.autograd.grad(torch.sin(y).sum(), x)
+    ref = torch.cos(y.detach()).bfloat16().float() \
+        @ dequantize(qt, torch.bfloat16).float().T
+    assert rel(dx, ref) < 1e-5
+
+
+@pytest.mark.parametrize("wtype", [GGMLType.Q3_K, GGMLType.Q2_K])
+def test_small_gpt2_kquants_on_card_match_cpu(gen, wtype):
+    cfg = gpt2.GPT2Config(n_vocab=1000, n_ctx=64, n_embd=256, n_head=4,
+                          n_layer=2)
+    prompt = np.random.default_rng(3).integers(0, 1000, 24)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        p = qmm.params_repack(gpt2.synthetic_params(cfg, wtype, seed=4,
+                                                    device=dev))
+        n0 = _build.LAUNCHES["planes_w4a16"]
+        cache = gpt2.init_cache(cfg, device=dev)
+        lg, cache = gpt2.forward(cfg, p, torch.as_tensor(prompt[None], device=dev),
+                                 torch.arange(24, device=dev)[None], cache, 0)
+        lg2, _ = gpt2.forward(cfg, p, torch.tensor([[7]], device=dev),
+                              torch.tensor([[24]], device=dev), cache, 24)
+        # 4 products a layer, 2 layers, 2 forwards; none on the CPU
+        assert _build.LAUNCHES["planes_w4a16"] - n0 == (16 if dev == "cuda"
+                                                         else 0)
+        outs[dev] = (lg.cpu(), lg2.cpu())
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert float((a - b).abs().max()) < 5e-2

@@ -1,4 +1,4 @@
-"""Port parity: the GPT-2 slice as a whole.
+"""Port parity: the GPT-2 slices as a whole.
 
 A small GPT-2 (n_embd 320, 5 heads of head_dim 64 as in GPT-2 XL, 2 layers,
 vocab 1000, n_ctx 64) in Q8_0 and in Q4_0: the JAX package's forward with
@@ -10,6 +10,11 @@ head dequantize. Logits within atol 2e-2 (seen: 7e-3; logits are ~1 in
 magnitude; the prefill attention is bf16 flash in the port and f32 XLA
 attention in the reference), argmax equal wherever the reference's top-2
 margin exceeds 0.1.
+The K-quant slice the same way at n_embd 256 (K-quants need K % 256 ==
+0), 4 heads of 64: in Q3_K and Q2_K every layer product (attn_w, proj_w,
+fc_w, out_w: N 768, 256, 1024, 256) takes the plane-split kernel, as at
+117M's n_embd 768; the tied head (N 1000) dequantizes. Same tolerances
+(seen: 5.6e-3 with Q3_K, 5.9e-3 with Q2_K).
 Also: synthetic_params byte-identical to the reference's, the Engine's
 greedy loop, the device default.
 """
@@ -34,7 +39,12 @@ from ggml_imax_tpu_torch.runtime.engine import Engine
 jqmatmul = importlib.import_module("ggml_imax_tpu.ops.qmatmul")
 
 CFG = dict(n_vocab=1000, n_ctx=64, n_embd=320, n_head=5, n_layer=2)
+KCFG = dict(CFG, n_embd=256, n_head=4)
 SEED, PROMPT, STEPS = 11, 16, 3
+
+
+def cfg_for(wtype):
+    return KCFG if wtype.endswith("_K") else CFG
 
 
 def to_np(t):
@@ -67,9 +77,9 @@ def assert_same_tree(t, j):
         np.testing.assert_array_equal(to_np(t), to_np(j))
 
 
-@pytest.mark.parametrize("wtype", ["F32", "Q4_0", "Q8_0"])
+@pytest.mark.parametrize("wtype", ["F32", "Q4_0", "Q8_0", "Q2_K", "Q3_K"])
 def test_synthetic_params_bit_exact(wtype):
-    cfg = dict(CFG, n_layer=1)
+    cfg = dict(cfg_for(wtype), n_layer=1)
     ref = jgpt2.synthetic_params(jgpt2.GPT2Config(**cfg), JType[wtype], seed=3)
     got = tgpt2.synthetic_params(tgpt2.GPT2Config(**cfg), GGMLType[wtype],
                                  seed=3, device="cpu")
@@ -77,7 +87,7 @@ def test_synthetic_params_bit_exact(wtype):
 
 
 def _jax_logits(wtype, prompt, feed):
-    cfg = jgpt2.GPT2Config(**CFG)
+    cfg = jgpt2.GPT2Config(**cfg_for(wtype))
     p = jpq.params_repack_device(jgpt2.prepare_fused(
         jgpt2.synthetic_params(cfg, JType[wtype], seed=SEED)))
     cache = jgpt2.init_cache(cfg, dtype=jnp.bfloat16)
@@ -98,7 +108,7 @@ def _jax_logits(wtype, prompt, feed):
 
 
 def _port_params(wtype):
-    cfg = tgpt2.GPT2Config(**CFG)
+    cfg = tgpt2.GPT2Config(**cfg_for(wtype))
     raw = tgpt2.synthetic_params(cfg, GGMLType[wtype], seed=SEED, device="cpu")
     return cfg, params_repack(tgpt2.prepare_fused(raw, cfg))
 
@@ -117,24 +127,27 @@ def _port_logits(wtype, prompt, feed):
     return out
 
 
-@pytest.mark.parametrize("wtype", ["Q8_0", "Q4_0"])
+@pytest.mark.parametrize("wtype", ["Q8_0", "Q4_0", "Q3_K", "Q2_K"])
 def test_slice_matches_reference_forward(wtype, monkeypatch):
+    cfg = cfg_for(wtype)
     rng = np.random.default_rng(0)
-    prompt = rng.integers(0, CFG["n_vocab"], PROMPT).astype(np.int32)
-    feed = rng.integers(0, CFG["n_vocab"], STEPS).astype(np.int32)
+    prompt = rng.integers(0, cfg["n_vocab"], PROMPT).astype(np.int32)
+    feed = rng.integers(0, cfg["n_vocab"], STEPS).astype(np.int32)
     # record which weights reach the kernel dispatch
     gated = []
-    for name in ("qmatmul_nat8", "qmatmul_natpair"):
+    for name in ("qmatmul_nat8", "qmatmul_natpair", "qmatmul_permuted"):
         real = getattr(tqmatmul, name)
         monkeypatch.setattr(tqmatmul, name, lambda x, qt, real=real:
                             gated.append((qt.k, qt.n)) or real(x, qt))
     ref = _jax_logits(wtype, prompt, feed)
     got = _port_logits(wtype, prompt, feed)
-    E = CFG["n_embd"]
-    assert gated == [(E, 4 * E)] * CFG["n_layer"] * (STEPS + 1)
+    E = cfg["n_embd"]
+    per_layer = [(E, 3 * E), (E, E), (E, 4 * E), (4 * E, E)] \
+        if wtype.endswith("_K") else [(E, 4 * E)]
+    assert gated == per_layer * cfg["n_layer"] * (STEPS + 1)
     assert len(ref) == len(got) == STEPS + 1
     for r, g in zip(ref, got):
-        assert g.shape == r.shape and r.shape[-1] == CFG["n_vocab"]
+        assert g.shape == r.shape and r.shape[-1] == cfg["n_vocab"]
         np.testing.assert_allclose(g, r, rtol=0, atol=2e-2)
         for rr, gg in zip(r.reshape(-1, r.shape[-1]), g.reshape(-1, g.shape[-1])):
             top2 = np.sort(rr)[-2:]

@@ -160,4 +160,10 @@ def test_port_imports_no_jax():
             "ggml_imax_tpu_torch.ops.decode_attention",
             "ggml_imax_tpu_torch.ops.sampling",
             "ggml_imax_tpu_torch.ops.flash_backward",
-            "ggml_imax_tpu_torch.optimize"} <= set(mods)
+            "ggml_imax_tpu_torch.optimize",
+            "ggml_imax_tpu_torch._build",
+            "ggml_imax_tpu_torch.quant.formats",
+            "ggml_imax_tpu_torch.quant.device",
+            "ggml_imax_tpu_torch.ops.qmm",
+            "ggml_imax_tpu_torch.ops.qmatmul",
+            "ggml_imax_tpu_torch.ops.embedding"} <= set(mods)
