@@ -23,8 +23,9 @@ Phases (any failure exits nonzero and prints no result line):
    W8A16 routes against the plain routes; GPT-2 117M K-quants: the
    plane-split W4A16 kernel on Q3_K and Q2_K weights, the row-pair W4A16
    on Q4_0 and the u-order W8A16 on Q8_0, at attn_w 768x2304 and out_w
-   3072x768, M 1 and 512, and a 4096x16384 sizing shape that is on no
-   path), with its time (CUDA
+   3072x768, M 1 and 8 (the GEMV route) and 512 (the tile route), each
+   with the route and K split it took, and a 4096x16384 sizing shape that
+   is on no path), with its time (CUDA
    events, L2 flushed before each launch), the plain version's time, one
    PyTorch library call computing the same function (a yardstick only: the
    port never calls it) and the least time the card could take (bound);
@@ -703,9 +704,14 @@ def random_permuted(layout, K, N, gen):
                    q4_layout=q4l)
 
 
-def time_permuted(ck, timer, gen, name, label, qt, ms=(1, 512)):
-    """One permuted-layout kernel against its plain version at each M, with
-    its time, the plain version's, bf16 torch.matmul on the weight
+PERMUTED_LAYOUT = {"planes_w4a16": "planes", "rowpair_w4a16": "rowpair",
+                   "int8_rows_w8a16": "int8"}
+
+
+def time_permuted(ck, timer, gen, name, label, qt, ms=(1, 8, 512)):
+    """One permuted-layout kernel against its plain version at each M (the
+    GEMV route at M 1 and 8, the tile route at 512), with its route and
+    split, its time, the plain version's, bf16 torch.matmul on the weight
     dequantized beforehand (a yardstick the port never calls) and the
     bound."""
     from ggml_imax_tpu_torch.ops import qmm
@@ -717,6 +723,10 @@ def time_permuted(ck, timer, gen, name, label, qt, ms=(1, 512)):
     for M in ms:
         x = torch.randn(M, qt.k, generator=gen, device="cuda")
         xb = x.to(torch.bfloat16)
+        route, split = qmm.permuted_plan(PERMUTED_LAYOUT[name], M, qt.k, qt.n,
+                                         qt.interleaved_bk,
+                                         qt.k // qt.scale.shape[0])
+        log(f"  {name:16s} {label} M={M}: route {route}, split {split}")
         ck.record(name, f"{label} M={M} K={qt.k} N={qt.n}", kern(x, qt),
                   plain(x, qt), 1e-3, timer(lambda: kern(x, qt)),
                   timer(lambda: plain(x, qt), iters=3),
@@ -728,7 +738,7 @@ def time_permuted(ck, timer, gen, name, label, qt, ms=(1, 512)):
 
 def check_kquant_kernels(ck, timer, gen):
     """GPT-2 117M's layer products attn_w (768 x 2304, tag 256) and out_w
-    (3072 x 768, tag 512) at M 1 (decode) and 512 (the prefill bucket):
+    (3072 x 768, tag 512) at M 1 (decode), 8 and 512 (the prefill bucket):
     the plane-split kernel on Q3_K and Q2_K weights (the port's codecs),
     the row-pair kernel on Q4_0 and the u-order kernel on Q8_0. Then each
     kernel at a 4096 x 16384 sizing shape of random bytes, on no path: the

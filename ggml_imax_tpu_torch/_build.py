@@ -64,12 +64,13 @@ _SIGNATURES = {
     "ggml_flash_backward_dq": [_P] * 9 + [_I] * 6 + [_F, _F, _P],
     # the same with dk, dv in place of dq
     "ggml_flash_backward_dkv": [_P] * 10 + [_I] * 6 + [_F, _F, _P],
-    # x, q, scale, bias, out, M, K, N, bk, g, zero, scale_is_bf16, stream
-    "ggml_planes_w4a16": [_P] * 5 + [_I] * 7 + [_P],
-    # x, q, scale, bias, xs, out, M, K, N, bk, scale_is_bf16, stream
-    "ggml_rowpair_w4a16": [_P] * 6 + [_I] * 5 + [_P],
-    # x, q, scale, bias, xs, out, M, K, N, bk, g, scale_is_bf16, stream
-    "ggml_int8_rows_w8a16": [_P] * 6 + [_I] * 6 + [_P],
+    # x, q, scale, bias, out, M, K, N, bk, g, zero, split, scale_is_bf16,
+    # stream
+    "ggml_planes_w4a16": [_P] * 5 + [_I] * 8 + [_P],
+    # x, q, scale, bias, xs, out, M, K, N, bk, split, scale_is_bf16, stream
+    "ggml_rowpair_w4a16": [_P] * 6 + [_I] * 6 + [_P],
+    # x, q, scale, bias, xs, out, M, K, N, bk, g, split, scale_is_bf16, stream
+    "ggml_int8_rows_w8a16": [_P] * 6 + [_I] * 7 + [_P],
 }
 
 LAUNCHES = {"w4a8_gemv": 0, "w4a16_gemm": 0, "decode_attention": 0,

@@ -35,7 +35,8 @@ Seven kernels, each with a plain PyTorch version beside it:
   — csrc/nat8_gemm.cu.
 - `planes_w4a16`, `rowpair_w4a16`, `int8_rows_w8a16` (every m: these
   layouts have no W8A8 path): bf16 activations times the weight read in
-  its stored layout — csrc/permuted_gemm.cu.
+  its stored layout, a GEMV route up to m = 8 and a tile route above,
+  K cut across blocks as `permuted_plan` says — csrc/permuted_gemm.cu.
 
 A wrapper launches its kernel for a CUDA tensor (or raises) and runs the
 plain version only for a tensor on the CPU.
@@ -518,31 +519,87 @@ def planes_w4a16_plain(x2, qt: QTensor) -> torch.Tensor:
 
 rowpair_w4a16_plain = int8_rows_w8a16_plain = a16_gemm_plain
 
+# The launch shapes of csrc/permuted_gemm.cu (kept equal to its constants):
+# the GEMV route up to M 8 in blocks of 64 columns, the tile route above in
+# 128 x 64 output tiles walking K in steps of 64. A product whose grid has
+# fewer blocks than the H100 has SMs cuts K across blocks, into at most 8
+# pieces: the pieces of an output tile form one thread-block cluster, and 8
+# is the portable cluster size (larger clusters co-schedule poorly when one
+# block fills an SM, as the GEMV at M 8 does).
+_PERMUTED_GEMV_MAX_M = 8
+_PERMUTED_COLS = 64
+_PERMUTED_TILE_M, _PERMUTED_TILE_K = 128, 64
+_PERMUTED_MAX_SPLIT = 8
+_SMS = 132
 
-def _permuted_gemm(name: str, x2, qt: QTensor, plain, has_xs: bool, *args):
+
+def permuted_units(layout: str, k: int, bk: int, g: int) -> int:
+    """The pieces of K the GEMV route deals out: a quant block of 32 rows
+    (planes), two blocks sharing their byte rows (row-pair with an even
+    NB = bk / 32; one block when NB is odd), one group of g rows (int8)."""
+    if layout == "planes":
+        return k // 32
+    if layout == "rowpair":
+        return k // 64 if (bk // 32) % 2 == 0 else k // 32
+    return k // g
+
+
+def permuted_plan(layout: str, m: int, k: int, n: int, bk: int,
+                  g: int) -> tuple[str, int]:
+    """(route, split) of a permuted-layout product: "gemv" for m <= 8,
+    "tile" above (the C entry takes the route from m by the same rule), and
+    the number of pieces K is cut into across blocks. A grid that already
+    has a block per SM is not split; a smaller one is split by the least
+    divisor of its K pieces (at most 8) that gives it one, or by the
+    largest such divisor."""
+    cols = -(-n // _PERMUTED_COLS)
+    if m <= _PERMUTED_GEMV_MAX_M:
+        route, blocks = "gemv", cols
+        units = permuted_units(layout, k, bk, g)
+    else:
+        route = "tile"
+        blocks = cols * -(-m // _PERMUTED_TILE_M)
+        units = -(-k // _PERMUTED_TILE_K)
+    if blocks >= _SMS:
+        return route, 1
+    splits = [s for s in range(1, min(units, _PERMUTED_MAX_SPLIT) + 1)
+              if units % s == 0]
+    return route, next((s for s in splits if blocks * s >= _SMS), splits[-1])
+
+
+def _permuted_gemm(name: str, layout: str, x2, qt: QTensor, plain,
+                   has_xs: bool, *args):
     """Checks shared by the three permuted-layout wrappers, then the plain
-    version on the CPU or the kernel's C entry `ggml_<name>` on the card.
-    args: the entry's trailing ints before scale_is_bf16."""
+    version on the CPU or the kernel's C entry `ggml_<name>` on the card,
+    cut as `permuted_plan` says. args: the entry's ints between bk and
+    split."""
     if x2.dim() != 2 or x2.shape[1] != qt.k:
         raise ValueError(f"{name}: x {tuple(x2.shape)} for K={qt.k}")
     if x2.device.type == "cpu":
         return plain(x2, qt)
-    if qt.n % 16 or qt.q.data_ptr() % 16:
-        raise ValueError(f"{name}: N % 16 and a 16-byte aligned weight "
-                         "required")
-    xb = x2.to(torch.bfloat16).contiguous()
-    if xb.data_ptr() % 16:
-        raise ValueError(f"{name}: x must be 16-byte aligned in bf16")
+    if qt.n % 16 or any(t.data_ptr() % 16 for t in (qt.q, qt.scale, qt.bias)
+                        if t is not None):
+        raise ValueError(f"{name}: N % 16 and a 16-byte aligned weight, "
+                         "scale and bias required")
     m = x2.shape[0]
+    g = qt.k // qt.scale.shape[0]
+    route, split = permuted_plan(layout, m, qt.k, qt.n, qt.interleaved_bk, g)
     xs = None
-    if has_xs and qt.bias is not None:
-        g = qt.k // qt.bias.shape[0]
-        xs = xb.float().reshape(m, qt.k // g, g).sum(-1).contiguous()
+    if route == "gemv":
+        # the GEMV rounds x to bf16 as it stages it, and sums its groups
+        xin = x2.float().contiguous()
+    else:
+        xin = x2.to(torch.bfloat16).contiguous()
+        if has_xs and qt.bias is not None:
+            xs = xin.float().reshape(m, qt.k // g, g).sum(-1).contiguous()
+    if xin.data_ptr() % 16:
+        raise ValueError(f"{name}: x must be 16-byte aligned in "
+                         f"{str(xin.dtype)[6:]}")
     out = torch.empty(m, qt.n, dtype=torch.float32, device=x2.device)
-    head = [xb.data_ptr(), qt.q.data_ptr(), qt.scale.data_ptr(),
+    head = [xin.data_ptr(), qt.q.data_ptr(), qt.scale.data_ptr(),
             _build.ptr(qt.bias)] + ([_build.ptr(xs)] if has_xs else [])
     rc = getattr(_build.lib(), f"ggml_{name}")(
-        *head, out.data_ptr(), m, qt.k, qt.n, qt.interleaved_bk, *args,
+        *head, out.data_ptr(), m, qt.k, qt.n, qt.interleaved_bk, *args, split,
         int(qt.scale.dtype == torch.bfloat16), _build.stream_ptr(x2))
     _build.check(rc, name)
     _build.LAUNCHES[name] += 1
@@ -554,21 +611,24 @@ def planes_w4a16(x2, qt: QTensor) -> torch.Tensor:
     scales, any zero point, bias inside the bf16 weight): x2 (M, K), cast
     to bf16 -> (M, N) f32."""
     _check_permuted(qt, "nib4", 0, (16, 32))
-    return _permuted_gemm("planes_w4a16", x2, qt, planes_w4a16_plain, False,
+    return _permuted_gemm("planes_w4a16", "planes", x2, qt,
+                          planes_w4a16_plain, False,
                           qt.k // qt.scale.shape[0], qt.zero)
 
 
 def rowpair_w4a16(x2, qt: QTensor) -> torch.Tensor:
     """W4A16 over row-pair nib4 (per-32 scales, exact f32 bias term)."""
     _check_permuted(qt, "nib4", 1, (32,))
-    return _permuted_gemm("rowpair_w4a16", x2, qt, rowpair_w4a16_plain, True)
+    return _permuted_gemm("rowpair_w4a16", "rowpair", x2, qt,
+                          rowpair_w4a16_plain, True)
 
 
 def int8_rows_w8a16(x2, qt: QTensor) -> torch.Tensor:
     """W8A16 over u-order int8 rows (g 16 or 32, exact f32 bias term)."""
     _check_permuted(qt, "int8", 2, (16, 32))
-    return _permuted_gemm("int8_rows_w8a16", x2, qt, int8_rows_w8a16_plain,
-                          True, qt.k // qt.scale.shape[0])
+    return _permuted_gemm("int8_rows_w8a16", "int8", x2, qt,
+                          int8_rows_w8a16_plain, True,
+                          qt.k // qt.scale.shape[0])
 
 
 def qmatmul_permuted(x: torch.Tensor, qt: QTensor) -> torch.Tensor:

@@ -522,17 +522,80 @@ def test_permuted_kernels_at_path_shapes(gen, layout, k, n, bk, m):
     check_permuted(qt, layout, m, gen)
 
 
+# (g, zero, bias, scale dtype) per layout: per-16 and per-32 scales, bias on
+# and off, f32 and bf16
+ROUTE_VARIANTS = {
+    "planes": [(16, 4, False, torch.float32), (16, 0, True, torch.bfloat16),
+               (32, 8, False, torch.bfloat16), (32, 8, True, torch.float32)],
+    "rowpair": [(32, 8, False, torch.float32), (32, 8, True, torch.bfloat16)],
+    "int8": [(32, 0, False, torch.float32), (16, 0, True, torch.bfloat16),
+             (16, 0, False, torch.bfloat16), (32, 0, True, torch.float32)],
+}
+
+
+# K 1536 takes every tag: bk 32 and 96 give odd NB (1, 3), 256 and 512 even;
+# M up to 8 takes the GEMV route, above it the tile route
+@pytest.mark.parametrize("layout", ["planes", "rowpair", "int8"])
+@pytest.mark.parametrize("m", [1, 2, 5, 8, 9, 64, 512])
+@pytest.mark.parametrize("bk", [32, 96, 256, 512])
+def test_permuted_routes_match_plain(gen, layout, m, bk):
+    for g, zero, bias, sdt in ROUTE_VARIANTS[layout]:
+        qt = permuted(layout, 1536, 640, gen, bk, g, zero, bias, sdt)
+        x, got = check_permuted(qt, layout, m, gen)
+        if layout == "planes" and g == 16:
+            s = qt.scale.reshape(-1, 2, qt.n).flip(1).reshape(qt.scale.shape)
+            swapped = qmm.planes_w4a16_plain(x, QTensor(**{**qt.__dict__,
+                                                           "scale": s}))
+            assert rel(got, swapped) > 1e-2
+
+
+# GPT-2 117M's products at M 1, 8 and 512: the plan's split, no split, 2
+# and the most pieces a cluster takes are each the same bits from run to
+# run, and each matches the plain version
+@pytest.mark.parametrize("layout", ["planes", "rowpair", "int8"])
+@pytest.mark.parametrize("k,n,bk", [(768, 2304, 256), (3072, 768, 512)])
+@pytest.mark.parametrize("m", [1, 8, 512])
+def test_permuted_split_is_deterministic(gen, monkeypatch, layout, k, n, bk,
+                                         m):
+    g = 32 if layout == "rowpair" else 16
+    qt = permuted(layout, k, n, gen, bk, g, 4 if layout == "planes" else 8,
+                  bias=True, scale_dtype=torch.bfloat16)
+    x = torch.randn(m, k, generator=gen, device="cuda")
+    name = KERNEL_OF[layout]
+    ref = getattr(qmm, name + "_plain")(x, qt)
+    plan = qmm.permuted_plan
+    route, split = plan(layout, m, k, n, bk, g)
+    assert route == ("gemv" if m <= 8 else "tile")
+    units = qmm.permuted_units(layout, k, bk, g) if m <= 8 else k // 64
+    most = max(s for s in range(1, 9) if units % s == 0)    # a cluster's blocks
+    outs = {}
+    for s in sorted({1, 2, split, most}):
+        monkeypatch.setattr(qmm, "permuted_plan",
+                            lambda *a, s=s: (plan(*a)[0], s))
+        runs = [getattr(qmm, name)(x, qt) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(runs[0], runs[1]), s
+        assert rel(runs[0], ref) < 1e-4, s
+        outs[s] = runs[0]
+    assert len(outs) > 1
+
+
 def test_permuted_wrappers_refuse_what_the_kernel_does_not_take(gen):
     qt = permuted("planes", 512, 200, gen, 256, 16, 4)       # N % 16 != 0
     with pytest.raises(ValueError, match="N % 16"):
         qmm.planes_w4a16(torch.randn(3, 512, device="cuda"), qt)
     qt = permuted("int8", 512, 256, gen, 256, 16)
-    flat = torch.randn(3 * 512 + 1, generator=gen, device="cuda")
-    x = flat.to(torch.bfloat16)[1:].view(3, 512)              # 2-byte offset
+    flat = torch.randn(12 * 512 + 1, generator=gen, device="cuda")
+    x = flat.to(torch.bfloat16)[1:].view(12, 512)             # 2-byte offset
     before = _build.LAUNCHES["int8_rows_w8a16"]
+    # the tile route (M > 8) reads x as it is, in bf16
     with pytest.raises(ValueError, match="aligned"):
         qmm.int8_rows_w8a16(x, qt)
     assert _build.LAUNCHES["int8_rows_w8a16"] == before
+    # the GEMV route (M <= 8) reads an f32 copy
+    got = qmm.int8_rows_w8a16(x[:3], qt)
+    assert _build.LAUNCHES["int8_rows_w8a16"] == before + 1
+    assert rel(got, qmm.int8_rows_w8a16_plain(x[:3], qt)) < 1e-4
 
 
 @pytest.mark.parametrize("route", ["planes", "rowpair", "int8"])
