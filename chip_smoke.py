@@ -12,7 +12,9 @@ Phases (any failure exits nonzero and prints no result line):
    from ggml_imax_tpu_torch/csrc (nvcc -Xptxas -v summary);
 2. kernels: each hand-written kernel against its plain PyTorch version on
    the card at the main paths' shapes (GPT-J: natpair W4A8/W4A16 (M 512,
-   the serving ubatches M 8 and 128), decode attention, flash; serving:
+   the serving ubatches M 8 and 128, each with the route and K split
+   it took, and its time at other K splits), decode attention, flash;
+   serving:
    cells decode attention at 8 rows over a 2048-cell arena, the fused
    KV-update kernel in flat mode at T 512 and in cells mode at 8 rows x
    2048, flash at a mixed ubatch's 128 rows over that q8_0 arena; GPT-2
@@ -39,7 +41,8 @@ Phases (any failure exits nonzero and prints no result line):
    natpair repack, Engine(n_ctx=512) serving 3 requests of a 448-token
    prompt + 64 greedy tokens, with the launch counts of that run; then the
    device busy share of a prefill and of decode steps (torch.profiler
-   kernel time against the unprofiled TTFT and step time);
+   kernel time against the unprofiled TTFT and step time), and W4A16's
+   share of the device time;
 5. GPT-2 XL engine: synthetic GPT-2 1558M Q8_0 drawn on the card,
    prepare_fused + nat8 repack, Engine(n_ctx=1024), the same 3 requests,
    launch counts and profile, and the device time of the products the
@@ -51,8 +54,9 @@ Phases (any failure exits nonzero and prints no result line):
    64-127-token prompts, 32 tokens each at temp 0.8 / top_k 40 / top_p
    0.95, step_chunk(8)), once to warm up and once timed: aggregate tok/s,
    p50 TTFT, ubatch counts, exact launch counts, peak memory, the device
-   busy share of a decode-only ubatch; then a short greedy serving pass
-   (two mixed ubatches, a fork, decode-only ubatches) held to the same pass
+   busy share of a decode-only ubatch and W4A16's share of it; then a
+   short greedy serving pass (two mixed ubatches, a fork, decode-only
+   ubatches) held to the same pass
    with every kernel's plain version on the card, and the fused KV-update
    routes on that pass and on Engine decode steps held to the default
    routes (equal tokens, logits within ROUTE_TOL); two planted faults of
@@ -313,6 +317,21 @@ def flash_case(ck, timer, gen, label, B, Tq, Tk, Hq, Hkv, Dh, kw, timed,
     ck.record("flash_attention", label, got, ref, 1e-2, **timing)
 
 
+def split_times(timer, qmm, x, qt):
+    """The W4A16 kernel's time at K splits 1, 2, 4, 5 and 8 in place of its
+    plan's (the readings natpair_plan's rule rests on)."""
+    plan = qmm.natpair_plan
+    route = plan(x.shape[0], qt.k, qt.n)[0]
+    units = qt.k // 32 if route == "small" else -(-qt.k // 64)
+    try:
+        for s in (1, 2, 4, 5, 8):
+            if units % s == 0:
+                qmm.natpair_plan = lambda *a, s=s: (route, s)
+                yield s, timer(lambda: qmm.w4a16_gemm(x, qt))
+    finally:
+        qmm.natpair_plan = plan
+
+
 def check_gptj_kernels(ck, timer, gen):
     from ggml_imax_tpu_torch.models.common import init_kv_cache, update_kv
     from ggml_imax_tpu_torch.ops import decode_attention as da
@@ -338,18 +357,23 @@ def check_gptj_kernels(ck, timer, gen):
                   K * N // 2 + sbytes + K + K // 32 * 4 + N * 4, 2 * K * N,
                   PEAK_INT8)
         # B: W4A16 GEMM at the prefill bucket M = 512, the serving
-        # decode-only ubatch M = 8 and a mixed serving ubatch's bucket 128
+        # decode-only ubatch M = 8 and a mixed serving ubatch's bucket 128,
+        # each with the route and K split it takes
         for M in (512, 8, 128):
             xm = torch.randn(M, K, generator=gen, device="cuda")
             got = qmm.w4a16_gemm(xm, qt)
             ref = qmm.w4a16_gemm_plain(xm, qt)
             xmb = xm.to(torch.bfloat16)
-            ck.record("w4a16_gemm", f"{label} M={M} K={K} N={N}", got, ref,
+            route, split = qmm.natpair_plan(M, K, N)
+            ck.record("w4a16_gemm", f"{label} M={M} K={K} N={N} {route}/"
+                      f"{split}", got, ref,
                       1e-3, timer(lambda: qmm.w4a16_gemm(xm, qt)),
                       timer(lambda: qmm.w4a16_gemm_plain(xm, qt), iters=3),
                       timer(lambda: torch.matmul(xmb, wd)),
                       M * K * 2 + K * N // 2 + sbytes + M * N * 4,
                       2 * M * K * N, PEAK_BF16)
+            log(f"  {'':16s} {label} M={M} by K split: " + ", ".join(
+                f"{s} {ms:.4f} ms" for s, ms in split_times(timer, qmm, xm, qt)))
         del qt, wd
 
     # C: decode attention over one layer of a 512-row arena, bf16 and q8_0
@@ -952,6 +976,19 @@ def _device_ms(fn, reps):
             and ev.self_device_time_total > 0}
 
 
+def w4a16_share(dev, busy, label):
+    """Log the device time of csrc/w4a16_gemm.cu's two routes in a profile
+    (kernel name -> ms) against the device busy time; None where the
+    profile has none."""
+    ms = sum(t for k, t in dev.items()
+             if "w4a16_small_m" in k or "w4a16_tile" in k)
+    if not ms:
+        return None
+    log(f"  {label}: W4A16 (w4a16_gemm.cu) {ms:.3f} ms of {busy:.3f} ms "
+        f"device busy ({100 * ms / busy:.1f}%)")
+    return ms
+
+
 def profile_engine(eng, rng, reqs, steps=8):
     """Device busy share of a prefill and of decode steps: kernel time in a
     torch.profiler trace against the unprofiled TTFT and step time. Returns
@@ -981,6 +1018,7 @@ def profile_engine(eng, rng, reqs, steps=8):
             f"{100 * (1 - busy / wall):.1f}%")
         for key, ms in sorted(dev.items(), key=lambda kv: -kv[1])[:8]:
             log(f"    {ms:9.4f} ms  {key[:90]}")
+        w4a16_share(dev, busy, f"profiled {label}")
     return busy_ms, walls
 
 
@@ -1320,6 +1358,8 @@ def serve_gptj(failures):
             f"idle {100 * (1 - busy / step_ms):.1f}%")
         for key, ms in sorted(dev.items(), key=lambda kv: -kv[1])[:8]:
             log(f"    {ms:9.4f} ms  {key[:90]}")
+        summary["decode_ubatch_w4a16_ms"] = w4a16_share(
+            dev, busy, "profiled decode-only ubatch")
     else:
         log("  profiled decode-only ubatch: no device time (not measured)")
 

@@ -27,8 +27,10 @@ Seven kernels, each with a plain PyTorch version beside it:
 
 - `w4a8_gemv` (natpair, m == 1, decode): Q8_0 activations, per-block int32
   dots, f32 scale epilogue — csrc/w4a8_gemv.cu.
-- `w4a16_gemm` (natpair, m > 1, prefill): bf16 activations times
-  bf16-rounded dequantized weights, f32 accumulation — csrc/w4a16_gemm.cu.
+- `w4a16_gemm` (natpair, m > 1): bf16 activations times bf16-rounded
+  dequantized weights, f32 accumulation, a small-M route up to m = 8 and a
+  tile route above, K cut across blocks as `natpair_plan` says —
+  csrc/w4a16_gemm.cu.
 - `nat8_w8a8_gemv` (nat8, m == 1): the same W8A8 math per g-row group —
   csrc/nat8_gemv.cu.
 - `nat8_w8a16_gemm` (nat8, m > 1): as w4a16_gemm, weight bf16(q) * bf16(s)
@@ -51,6 +53,8 @@ from .. import _build
 from ..quant.device import QTensor
 
 DEFAULT_BK = 512
+# streaming multiprocessors of the H100, which the K splits fill
+_SMS = 132
 # W4A8 only at a true GEMV, as the reference dispatches
 # (ggml_imax_tpu/ops/pallas_qmm.py _W4A8_MAX_M)
 _W4A8_MAX_M = 1
@@ -295,26 +299,81 @@ def a16_gemm_plain(x2, qt: QTensor) -> torch.Tensor:
 w4a16_gemm_plain = a16_gemm_plain
 
 
+# The launch shapes of csrc/w4a16_gemm.cu (kept equal to its constants): the
+# small-M route up to M 8, in blocks of 128 columns, deals K out in quant
+# blocks of 32 rows; the tile route above, in 128 x 256 tiles, walks K in
+# steps of 64, one block filling an SM. Either cuts K across blocks into at
+# most 8 pieces: the pieces of an output tile form one thread-block cluster.
+_NATPAIR_SMALL_MAX_M = 8
+_NATPAIR_COLS = 128
+_NATPAIR_TILE_M, _NATPAIR_TILE_N, _NATPAIR_TILE_K = 128, 256, 64
+_NATPAIR_MAX_SPLIT = 8
+# Tile route (H100 readings of chip_smoke-style timings): clusters of more
+# than 5 such blocks co-schedule in two waves, and a cluster's sum of its
+# partial tiles costs about as much as 4 K steps (GPT-J's qkvf_w at M 512
+# is 3-4% faster cut in 2, its LM head 2-3% slower).
+_NATPAIR_TILE_MAX_SPLIT = 5
+_NATPAIR_TILE_SUM_STEPS = 4
+
+
+def natpair_plan(m: int, k: int, n: int) -> tuple[str, int]:
+    """(route, split) of a natpair W4A16 product: "small" for m <= 8,
+    "tile" above (the C entry takes the route from m by the same rule), and
+    the number of pieces K is cut into across blocks, a divisor of K's
+    pieces. The small-M route (two blocks an SM, bound by bytes) takes the
+    least split that gives the 132 SMs a block each, or the largest when
+    none does. The tile route (one block an SM) takes the split with the
+    least waves x (steps a block + the cluster sum's cost), the least such
+    split on a tie."""
+    if m <= _NATPAIR_SMALL_MAX_M:
+        blocks, units = -(-n // _NATPAIR_COLS), k // 32
+        if blocks >= _SMS:
+            return "small", 1
+        splits = [s for s in range(1, min(units, _NATPAIR_MAX_SPLIT) + 1)
+                  if units % s == 0]
+        return "small", next((s for s in splits if blocks * s >= _SMS),
+                             splits[-1])
+    blocks = -(-n // _NATPAIR_TILE_N) * -(-m // _NATPAIR_TILE_M)
+    units = -(-k // _NATPAIR_TILE_K)
+    splits = [s for s in range(1, min(units, _NATPAIR_TILE_MAX_SPLIT) + 1)
+              if units % s == 0]
+    return "tile", min(splits, key=lambda s: (
+        -(-blocks * s // _SMS)
+        * (units // s + (_NATPAIR_TILE_SUM_STEPS if s > 1 else 0)), s))
+
+
 def w4a16_gemm(x2, qt: QTensor) -> torch.Tensor:
-    """W4A16 matmul: x2 (M, K), cast to bf16, times natpair weights ->
-    (M, N) f32."""
+    """W4A16 matmul: x2 (M, K), rounded to bf16, times natpair weights ->
+    (M, N) f32, cut as `natpair_plan` says."""
     _check_layout(qt, "nib4", 3)
     if x2.dim() != 2 or x2.shape[1] != qt.k:
         raise ValueError(f"w4a16_gemm: x {tuple(x2.shape)} for K={qt.k}")
     if x2.device.type == "cpu":
         return w4a16_gemm_plain(x2, qt)
-    if qt.n % 8:
-        raise ValueError("w4a16_gemm: N % 8 required")
-    xb = x2.to(torch.bfloat16).contiguous()
+    if qt.n % _NATPAIR_COLS or qt.k % 32 or any(
+            t.data_ptr() % 16 for t in (qt.q, qt.scale, qt.bias)
+            if t is not None):
+        raise ValueError("w4a16_gemm: N % 128, K % 32 and a 16-byte aligned "
+                         "weight, scale and bias required")
+    m = x2.shape[0]
+    route, split = natpair_plan(m, qt.k, qt.n)
     xs = None
-    if qt.bias is not None:
-        xs = xb.float().reshape(x2.shape[0], qt.k // 32, 32).sum(-1).contiguous()
-    out = torch.empty(x2.shape[0], qt.n, dtype=torch.float32, device=x2.device)
+    if route == "small":
+        # the small-M route rounds x to bf16 as it loads it, and sums its
+        # groups for the bias term itself
+        xin = x2.float().contiguous()
+    else:
+        xin = x2.to(torch.bfloat16).contiguous()
+        if qt.bias is not None:
+            xs = xin.float().reshape(m, qt.k // 32, 32).sum(-1).contiguous()
+    if xin.data_ptr() % 16:
+        raise ValueError(f"w4a16_gemm: x must be 16-byte aligned in "
+                         f"{str(xin.dtype)[6:]}")
+    out = torch.empty(m, qt.n, dtype=torch.float32, device=x2.device)
     rc = _build.lib().ggml_w4a16_gemm(
-        xb.data_ptr(), qt.q.data_ptr(), qt.scale.data_ptr(),
-        _build.ptr(qt.bias), _build.ptr(xs), out.data_ptr(), x2.shape[0],
-        qt.k, qt.n, int(qt.scale.dtype == torch.bfloat16),
-        _build.stream_ptr(x2))
+        xin.data_ptr(), qt.q.data_ptr(), qt.scale.data_ptr(),
+        _build.ptr(qt.bias), _build.ptr(xs), out.data_ptr(), m, qt.k, qt.n,
+        split, int(qt.scale.dtype == torch.bfloat16), _build.stream_ptr(x2))
     _build.check(rc, "w4a16_gemm")
     _build.LAUNCHES["w4a16_gemm"] += 1
     return out
@@ -530,7 +589,6 @@ _PERMUTED_GEMV_MAX_M = 8
 _PERMUTED_COLS = 64
 _PERMUTED_TILE_M, _PERMUTED_TILE_K = 128, 64
 _PERMUTED_MAX_SPLIT = 8
-_SMS = 132
 
 
 def permuted_units(layout: str, k: int, bk: int, g: int) -> int:

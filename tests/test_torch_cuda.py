@@ -77,6 +77,90 @@ def test_w4a16_kernel_matches_plain(gen, m, bias):
     assert rel(got, ref) < 1e-4
 
 
+def check_w4a16(qt, x, launches=1):
+    """`launches` wrapper calls, each counted, each giving the same bits,
+    against the plain version."""
+    before = _build.LAUNCHES["w4a16_gemm"]
+    runs = [qmm.w4a16_gemm(x, qt) for _ in range(launches)]
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["w4a16_gemm"] == before + launches
+    ref = qmm.w4a16_gemm_plain(x, qt)
+    assert runs[0].shape == ref.shape == (x.shape[0], qt.n)
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    assert rel(runs[0], ref) < 1e-4
+    return runs[0]
+
+
+# M up to 8 takes the small-M route, above it the tile route (a ragged
+# 128-row tile at 100 and 600; N 640 leaves its last 256-column tile half
+# full); K 1056 leaves the tile route's last K step of 64 half full
+@pytest.mark.parametrize("m", [2, 5, 8, 9, 64, 100, 128, 512, 600])
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("k", [1536, 1056])
+def test_w4a16_routes_match_plain(gen, m, scale_dtype, bias, k):
+    qt = natpair(k, 640, gen, scale_dtype, bias)
+    x = torch.randn(m, k, generator=gen, device="cuda")
+    assert qmm.natpair_plan(m, k, 640)[0] == ("small" if m <= 8 else "tile")
+    check_w4a16(qt, x, launches=2)
+
+
+# Each route at splits 1, 2, the plan's and the most a cluster takes: the
+# same bits on every launch, each against the plain version. GPT-J-6B's
+# of_w at M 8 and 128 (the plan's 5 pieces), a long K on 2 column blocks
+# (K 20480, N 256: split 8 at M 8), K 1056 (17 tile steps: no divisor
+# but 1, so 2 pieces of 8 and 9 steps)
+@pytest.mark.parametrize("k,n,m", [(20480, 4096, 8), (20480, 4096, 128),
+                                   (20480, 256, 8), (20480, 256, 3),
+                                   (4096, 256, 64), (4096, 384, 512),
+                                   (1056, 384, 9)])
+@pytest.mark.parametrize("scale_dtype,bias", [(torch.float32, False),
+                                              (torch.bfloat16, True)])
+def test_w4a16_split_is_deterministic(gen, monkeypatch, k, n, m, scale_dtype,
+                                      bias):
+    qt = natpair(k, n, gen, scale_dtype, bias)
+    x = torch.randn(m, k, generator=gen, device="cuda")
+    plan = qmm.natpair_plan
+    route, split = plan(m, k, n)
+    units = k // 32 if route == "small" else -(-k // 64)
+    most = max(s for s in range(1, 9) if units % s == 0)    # a cluster's blocks
+    outs = {}
+    for s in sorted({1, 2, split, most}):
+        monkeypatch.setattr(qmm, "natpair_plan", lambda *a, s=s: (route, s))
+        outs[s] = check_w4a16(qt, x, launches=2)
+    assert len(outs) > 1
+    if (k, n) == (20480, 256) and m == 8:
+        assert split == most == 8
+
+
+def test_w4a16_refuses_what_the_kernel_does_not_take(gen):
+    qt = natpair(512, 192, gen)                                # N % 128 != 0
+    with pytest.raises(ValueError, match="N % 128"):
+        qmm.w4a16_gemm(torch.randn(3, 512, device="cuda"), qt)
+    qt = natpair(512, 256, gen, bias=True)
+    before = _build.LAUNCHES["w4a16_gemm"]
+    flat = torch.randn(12 * 512 + 1, generator=gen, device="cuda")
+    # the tile route (M > 8) reads bf16 x as it is: a 2-byte offset
+    xb = flat.to(torch.bfloat16)[1:].view(12, 512)
+    with pytest.raises(ValueError, match="aligned"):
+        qmm.w4a16_gemm(xb, qt)
+    # the small-M route reads f32 x as it is: a 4-byte offset
+    xf = flat[1:].view(12, 512)
+    with pytest.raises(ValueError, match="aligned"):
+        qmm.w4a16_gemm(xf[:5], qt)
+    # a weight 1 byte off its 16-byte alignment
+    qbuf = torch.empty(256 * 256 + 1, dtype=torch.uint8, device="cuda")
+    q = qbuf[1:].view(256, 256)
+    q.copy_(qt.q)
+    with pytest.raises(ValueError, match="aligned"):
+        qmm.w4a16_gemm(xf[:5].contiguous(), QTensor(**{**qt.__dict__, "q": q}))
+    assert _build.LAUNCHES["w4a16_gemm"] == before
+    # each route takes what the other refused once it is copied: the small-M
+    # route copies bf16 x to f32, the tile route f32 x to bf16
+    check_w4a16(qt, xb[:5])
+    check_w4a16(qt, xf)
+
+
 @pytest.mark.parametrize("kv", [torch.bfloat16, "q8_0"])
 @pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
 def test_decode_attention_kernel_matches_plain(gen, kv, hq, hkv):
