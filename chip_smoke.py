@@ -18,7 +18,10 @@ Phases (any failure exits nonzero and prints no result line):
    cells decode attention at 8 rows over a 2048-cell arena, the fused
    KV-update kernel in flat mode at T 512 and in cells mode at 8 rows x
    2048, flash at a mixed ubatch's 128 rows over that q8_0 arena; GPT-2
-   XL: nat8 W8A8/W8A16 on fc_w, flash at D = 64; GPT-2 117M training:
+   XL: nat8 W8A8 on fc_w, W8A16 on fc_w at M 512, 5, 8 and 128 (per-32
+   f32 scales, and per-16 bf16 scales with a bias), each with the route
+   and K split it took and its time at other K splits, flash at D = 64;
+   GPT-2 117M training:
    flash with lse and the dQ and dK/dV backward kernels at B 8, T 512, 12
    heads of 64, the backward kernels also at D 256 and on a ragged GQA +
    softcap + ALiBi case with a fully masked row; dx through the W4A16 and
@@ -45,9 +48,10 @@ Phases (any failure exits nonzero and prints no result line):
    share of the device time;
 5. GPT-2 XL engine: synthetic GPT-2 1558M Q8_0 drawn on the card,
    prepare_fused + nat8 repack, Engine(n_ctx=1024), the same 3 requests,
-   launch counts and profile, and the device time of the products the
-   reference's N % 128 gate leaves to dequantize + matmul (attn_w, proj_w,
-   out_w, the tied LM head) against the step's device time;
+   launch counts and profile (with nat8 W8A16's share of the prefill's
+   device time), and the device time of the products the reference's
+   N % 128 gate leaves to dequantize + matmul (attn_w, proj_w, out_w, the
+   tied LM head) against the step's device time;
 6. GPT-J serving: synthetic GPT-J-6B Q4_0, BatchedEngine(n_ctx=2048, q8_0
    KV arena, on-device sampling) under the workload of the reference's
    `examples/serve.py --bench` (8 requests arriving every 4 engine steps,
@@ -317,19 +321,20 @@ def flash_case(ck, timer, gen, label, B, Tq, Tk, Hq, Hkv, Dh, kw, timed,
     ck.record("flash_attention", label, got, ref, 1e-2, **timing)
 
 
-def split_times(timer, qmm, x, qt):
-    """The W4A16 kernel's time at K splits 1, 2, 4, 5 and 8 in place of its
-    plan's (the readings natpair_plan's rule rests on)."""
-    plan = qmm.natpair_plan
-    route = plan(x.shape[0], qt.k, qt.n)[0]
+def split_times(timer, qmm, x, qt, plan="natpair_plan", fn="w4a16_gemm"):
+    """The kernel's time (wrapper `fn`, its plan `plan`) at K splits 1, 2,
+    4, 5 and 8 in place of its plan's (the readings the plan's rule rests
+    on)."""
+    planner = getattr(qmm, plan)
+    route = planner(x.shape[0], qt.k, qt.n)[0]
     units = qt.k // 32 if route == "small" else -(-qt.k // 64)
     try:
         for s in (1, 2, 4, 5, 8):
             if units % s == 0:
-                qmm.natpair_plan = lambda *a, s=s: (route, s)
-                yield s, timer(lambda: qmm.w4a16_gemm(x, qt))
+                setattr(qmm, plan, lambda *a, s=s: (route, s))
+                yield s, timer(lambda: getattr(qmm, fn)(x, qt))
     finally:
-        qmm.natpair_plan = plan
+        setattr(qmm, plan, planner)
 
 
 def check_gptj_kernels(ck, timer, gen):
@@ -590,18 +595,25 @@ def check_gpt2_kernels(ck, timer, gen):
                   timer(lambda: torch.matmul(xb, wd), iters=50),
                   K * N + sbytes + K + K // g * 4 * (2 if bias else 1) + N * 4,
                   2 * K * N, PEAK_INT8)
-        # W8A16 at the prefill bucket M = 512, and a ragged M
-        for M in (512, 5):
+        # W8A16 at the prefill bucket M = 512, the Engine's smallest bucket
+        # M = 8, a ragged M = 5 and the bucket M = 128, each with the route
+        # and K split it takes, and its time at other K splits
+        for M in (512, 5, 8, 128):
             xm = torch.randn(M, K, generator=gen, device="cuda")
             got = qmm.nat8_w8a16_gemm(xm, qt)
             ref = qmm.nat8_w8a16_gemm_plain(xm, qt)
             xmb = xm.to(torch.bfloat16)
-            ck.record("nat8_w8a16", f"{label} M={M} K={K} N={N}", got, ref, 1e-3,
+            route, split = qmm.nat8_plan(M, K, N)
+            ck.record("nat8_w8a16", f"{label} M={M} K={K} N={N} {route}/"
+                      f"{split}", got, ref, 1e-3,
                       timer(lambda: qmm.nat8_w8a16_gemm(xm, qt)),
                       timer(lambda: qmm.nat8_w8a16_gemm_plain(xm, qt), iters=3),
                       timer(lambda: torch.matmul(xmb, wd)),
                       M * K * 2 + K * N + sbytes + M * N * 4, 2 * M * K * N,
                       PEAK_BF16)
+            log(f"  {'':16s} {label} M={M} by K split: " + ", ".join(
+                f"{s} {ms:.4f} ms" for s, ms in split_times(
+                    timer, qmm, xm, qt, "nat8_plan", "nat8_w8a16_gemm")))
         del qt, wd
     H, D = GPT2_XL["n_head"], GPT2_XL["n_embd"] // GPT2_XL["n_head"]
     flash_case(ck, timer, gen, f"gpt2 B=1 Tq=512 Tk=1024 H={H} D={D}", 1, 512,
@@ -976,16 +988,20 @@ def _device_ms(fn, reps):
             and ev.self_device_time_total > 0}
 
 
-def w4a16_share(dev, busy, label):
-    """Log the device time of csrc/w4a16_gemm.cu's two routes in a profile
-    (kernel name -> ms) against the device busy time; None where the
-    profile has none."""
-    ms = sum(t for k, t in dev.items()
-             if "w4a16_small_m" in k or "w4a16_tile" in k)
+# kernel file -> the kernel names of its routes in a profile
+SHARES = {"W4A16 (w4a16_gemm.cu)": ("w4a16_small_m", "w4a16_tile"),
+          "nat8 W8A16 (nat8_gemm.cu)": ("nat8_small_m", "nat8_tile")}
+
+
+def kernel_share(dev, busy, label, what="W4A16 (w4a16_gemm.cu)"):
+    """Log the device time of one kernel file's routes (SHARES[what]) in a
+    profile (kernel name -> ms) against the device busy time; None where
+    the profile has none."""
+    ms = sum(t for k, t in dev.items() if any(n in k for n in SHARES[what]))
     if not ms:
         return None
-    log(f"  {label}: W4A16 (w4a16_gemm.cu) {ms:.3f} ms of {busy:.3f} ms "
-        f"device busy ({100 * ms / busy:.1f}%)")
+    log(f"  {label}: {what} {ms:.3f} ms of {busy:.3f} ms device busy "
+        f"({100 * ms / busy:.1f}%)")
     return ms
 
 
@@ -1018,7 +1034,8 @@ def profile_engine(eng, rng, reqs, steps=8):
             f"{100 * (1 - busy / wall):.1f}%")
         for key, ms in sorted(dev.items(), key=lambda kv: -kv[1])[:8]:
             log(f"    {ms:9.4f} ms  {key[:90]}")
-        w4a16_share(dev, busy, f"profiled {label}")
+        for what in SHARES:
+            kernel_share(dev, busy, f"profiled {label}", what)
     return busy_ms, walls
 
 
@@ -1358,7 +1375,7 @@ def serve_gptj(failures):
             f"idle {100 * (1 - busy / step_ms):.1f}%")
         for key, ms in sorted(dev.items(), key=lambda kv: -kv[1])[:8]:
             log(f"    {ms:9.4f} ms  {key[:90]}")
-        summary["decode_ubatch_w4a16_ms"] = w4a16_share(
+        summary["decode_ubatch_w4a16_ms"] = kernel_share(
             dev, busy, "profiled decode-only ubatch")
     else:
         log("  profiled decode-only ubatch: no device time (not measured)")

@@ -33,8 +33,8 @@ Seven kernels, each with a plain PyTorch version beside it:
   csrc/w4a16_gemm.cu.
 - `nat8_w8a8_gemv` (nat8, m == 1): the same W8A8 math per g-row group —
   csrc/nat8_gemv.cu.
-- `nat8_w8a16_gemm` (nat8, m > 1): as w4a16_gemm, weight bf16(q) * bf16(s)
-  — csrc/nat8_gemm.cu.
+- `nat8_w8a16_gemm` (nat8, m > 1): as w4a16_gemm, weight bf16(q) * bf16(s),
+  the two routes and the K split as `nat8_plan` says — csrc/nat8_gemm.cu.
 - `planes_w4a16`, `rowpair_w4a16`, `int8_rows_w8a16` (every m: these
   layouts have no W8A8 path): bf16 activations times the weight read in
   its stored layout, a GEMV route up to m = 8 and a tile route above,
@@ -299,47 +299,75 @@ def a16_gemm_plain(x2, qt: QTensor) -> torch.Tensor:
 w4a16_gemm_plain = a16_gemm_plain
 
 
-# The launch shapes of csrc/w4a16_gemm.cu (kept equal to its constants): the
-# small-M route up to M 8, in blocks of 128 columns, deals K out in quant
-# blocks of 32 rows; the tile route above, in 128 x 256 tiles, walks K in
-# steps of 64, one block filling an SM. Either cuts K across blocks into at
-# most 8 pieces: the pieces of an output tile form one thread-block cluster.
-_NATPAIR_SMALL_MAX_M = 8
-_NATPAIR_COLS = 128
-_NATPAIR_TILE_M, _NATPAIR_TILE_N, _NATPAIR_TILE_K = 128, 256, 64
-_NATPAIR_MAX_SPLIT = 8
-# Tile route (H100 readings of chip_smoke-style timings): clusters of more
-# than 5 such blocks co-schedule in two waves, and a cluster's sum of its
-# partial tiles costs about as much as 4 K steps (GPT-J's qkvf_w at M 512
-# is 3-4% faster cut in 2, its LM head 2-3% slower).
-_NATPAIR_TILE_MAX_SPLIT = 5
-_NATPAIR_TILE_SUM_STEPS = 4
+# The launch shapes of csrc/w4a16_gemm.cu and csrc/nat8_gemm.cu (kept equal
+# to their constants): the small-M route up to M 8, in blocks of 128
+# columns, deals K out in pieces of 32 rows; the tile route above, in
+# 128 x 256 tiles, walks K in steps of 64, one block filling an SM. Either
+# cuts K across blocks into at most 8 pieces: the pieces of an output tile
+# form one thread-block cluster.
+_A16_SMALL_MAX_M = 8
+_A16_COLS = 128
+_A16_TILE_M, _A16_TILE_N, _A16_TILE_K = 128, 256, 64
+_A16_MAX_SPLIT = 8
+# The tile routes (H100 readings of chip_smoke-style timings of W4A16):
+# clusters of more than 5 such blocks co-schedule in two waves, and a
+# cluster's sum of its partial tiles costs about as much as 4 K steps
+# (GPT-J's qkvf_w at M 512 is 3-4% faster cut in 2, its LM head 2-3%
+# slower).
+_A16_TILE_MAX_SPLIT = 5
+_A16_TILE_SUM_STEPS = 4
+
+
+def _k_splits(units: int, most: int) -> list[int]:
+    return [s for s in range(1, min(units, most) + 1) if units % s == 0]
+
+
+def _tile_split(m: int, k: int, n: int) -> int:
+    """K split of an A16 tile route with the launch shapes above (one block
+    an SM): the least waves x (steps a block + the cluster sum's cost in
+    steps), at most 5 pieces, the least such split on a tie."""
+    blocks = -(-n // _A16_TILE_N) * -(-m // _A16_TILE_M)
+    units = -(-k // _A16_TILE_K)
+    return min(_k_splits(units, _A16_TILE_MAX_SPLIT), key=lambda s: (
+        -(-blocks * s // _SMS)
+        * (units // s + (_A16_TILE_SUM_STEPS if s > 1 else 0)), s))
 
 
 def natpair_plan(m: int, k: int, n: int) -> tuple[str, int]:
-    """(route, split) of a natpair W4A16 product: "small" for m <= 8,
-    "tile" above (the C entry takes the route from m by the same rule), and
-    the number of pieces K is cut into across blocks, a divisor of K's
-    pieces. The small-M route (two blocks an SM, bound by bytes) takes the
-    least split that gives the 132 SMs a block each, or the largest when
-    none does. The tile route (one block an SM) takes the split with the
-    least waves x (steps a block + the cluster sum's cost), the least such
-    split on a tie."""
-    if m <= _NATPAIR_SMALL_MAX_M:
-        blocks, units = -(-n // _NATPAIR_COLS), k // 32
+    """(route, split) of a natpair W4A16 product (csrc/w4a16_gemm.cu):
+    "small" for m <= 8, "tile" above (the C entry takes the route from m by
+    the same rule), and the number of pieces K is cut into across blocks, a
+    divisor of K's pieces. The small-M route (two blocks an SM, bound by
+    bytes) takes the least split that gives the 132 SMs a block each, or
+    the largest when none does; the tile route as `_tile_split` says."""
+    if m <= _A16_SMALL_MAX_M:
+        blocks, units = -(-n // _A16_COLS), k // 32
         if blocks >= _SMS:
             return "small", 1
-        splits = [s for s in range(1, min(units, _NATPAIR_MAX_SPLIT) + 1)
-                  if units % s == 0]
+        splits = _k_splits(units, _A16_MAX_SPLIT)
         return "small", next((s for s in splits if blocks * s >= _SMS),
                              splits[-1])
-    blocks = -(-n // _NATPAIR_TILE_N) * -(-m // _NATPAIR_TILE_M)
-    units = -(-k // _NATPAIR_TILE_K)
-    splits = [s for s in range(1, min(units, _NATPAIR_TILE_MAX_SPLIT) + 1)
-              if units % s == 0]
-    return "tile", min(splits, key=lambda s: (
-        -(-blocks * s // _SMS)
-        * (units // s + (_NATPAIR_TILE_SUM_STEPS if s > 1 else 0)), s))
+    return "tile", _tile_split(m, k, n)
+
+
+# csrc/nat8_gemm.cu's small-M blocks (8 warps, over 128 registers a thread)
+# fill an SM each, so a split past one wave of them costs a second wave.
+
+
+def nat8_plan(m: int, k: int, n: int) -> tuple[str, int]:
+    """(route, split) of a nat8 W8A16 product (csrc/nat8_gemm.cu): "small"
+    for m <= 8, "tile" above (the C entry takes the route from m by the
+    same rule), and the number of pieces K is cut into across blocks, a
+    divisor of K's pieces (32 rows on the small-M route, each one or two
+    groups). The small-M route (one block an SM, bound by bytes) takes the
+    largest split whose blocks fit one wave, 1 when the column blocks
+    alone fill it; the tile route as `_tile_split` says."""
+    if m <= _A16_SMALL_MAX_M:
+        blocks = -(-n // _A16_COLS)
+        fit = [s for s in _k_splits(k // 32, _A16_MAX_SPLIT)
+               if blocks * s <= _SMS]
+        return "small", fit[-1] if fit else 1
+    return "tile", _tile_split(m, k, n)
 
 
 def w4a16_gemm(x2, qt: QTensor) -> torch.Tensor:
@@ -350,7 +378,7 @@ def w4a16_gemm(x2, qt: QTensor) -> torch.Tensor:
         raise ValueError(f"w4a16_gemm: x {tuple(x2.shape)} for K={qt.k}")
     if x2.device.type == "cpu":
         return w4a16_gemm_plain(x2, qt)
-    if qt.n % _NATPAIR_COLS or qt.k % 32 or any(
+    if qt.n % _A16_COLS or qt.k % 32 or any(
             t.data_ptr() % 16 for t in (qt.q, qt.scale, qt.bias)
             if t is not None):
         raise ValueError("w4a16_gemm: N % 128, K % 32 and a 16-byte aligned "
@@ -451,8 +479,8 @@ nat8_w8a16_gemm_plain = a16_gemm_plain
 
 
 def nat8_w8a16_gemm(x2, qt: QTensor) -> torch.Tensor:
-    """W8A16 matmul: x2 (M, K), cast to bf16, times nat8 weights -> (M, N)
-    f32."""
+    """W8A16 matmul: x2 (M, K), rounded to bf16, times nat8 weights ->
+    (M, N) f32, cut as `nat8_plan` says."""
     _check_nat8(qt)
     if x2.dim() != 2 or x2.shape[1] != qt.k:
         raise ValueError(f"nat8_w8a16_gemm: x {tuple(x2.shape)} for K={qt.k}")
@@ -460,19 +488,24 @@ def nat8_w8a16_gemm(x2, qt: QTensor) -> torch.Tensor:
         return nat8_w8a16_gemm_plain(x2, qt)
     if qt.k % 32:
         raise ValueError("nat8_w8a16_gemm: K % 32 required")
-    g = nat8_group(qt)
-    xb = x2.to(torch.bfloat16).contiguous()
-    if xb.data_ptr() % 16:
-        raise ValueError("nat8_w8a16_gemm: x must be 16-byte aligned in bf16")
+    if x2.data_ptr() % 16:
+        raise ValueError("nat8_w8a16_gemm: x must be 16-byte aligned")
+    g, m = nat8_group(qt), x2.shape[0]
+    route, split = nat8_plan(m, qt.k, qt.n)
     xs = None
-    if qt.bias is not None:
-        xs = xb.float().reshape(x2.shape[0], qt.k // g, g).sum(-1).contiguous()
-    out = torch.empty(x2.shape[0], qt.n, dtype=torch.float32, device=x2.device)
+    if route == "small":
+        # the small-M route rounds x to bf16 as it loads it, and sums its
+        # groups for the bias term itself
+        xin = x2.float().contiguous()
+    else:
+        xin = x2.to(torch.bfloat16).contiguous()
+        if qt.bias is not None:
+            xs = xin.float().reshape(m, qt.k // g, g).sum(-1).contiguous()
+    out = torch.empty(m, qt.n, dtype=torch.float32, device=x2.device)
     rc = _build.lib().ggml_nat8_gemm(
-        xb.data_ptr(), qt.q.data_ptr(), qt.scale.data_ptr(),
-        _build.ptr(qt.bias), _build.ptr(xs), out.data_ptr(), x2.shape[0],
-        qt.k, qt.n, g, int(qt.scale.dtype == torch.bfloat16),
-        _build.stream_ptr(x2))
+        xin.data_ptr(), qt.q.data_ptr(), qt.scale.data_ptr(),
+        _build.ptr(qt.bias), _build.ptr(xs), out.data_ptr(), m, qt.k, qt.n,
+        g, split, int(qt.scale.dtype == torch.bfloat16), _build.stream_ptr(x2))
     _build.check(rc, "nat8_w8a16")
     _build.LAUNCHES["nat8_w8a16"] += 1
     return out

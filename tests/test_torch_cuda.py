@@ -268,6 +268,82 @@ def test_nat8_w8a16_refuses_misaligned_x(gen):
     assert _build.LAUNCHES["nat8_w8a16"] == before
 
 
+def check_nat8(qt, x, launches=2):
+    """`launches` wrapper calls, each counted, each giving the same bits,
+    against the plain version."""
+    before = _build.LAUNCHES["nat8_w8a16"]
+    runs = [qmm.nat8_w8a16_gemm(x, qt) for _ in range(launches)]
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["nat8_w8a16"] == before + launches
+    ref = qmm.nat8_w8a16_gemm_plain(x, qt)
+    assert runs[0].shape == ref.shape == (x.shape[0], qt.n)
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    assert rel(runs[0], ref) < 1e-4
+    return runs[0]
+
+
+# M up to 8 takes the small-M route, above it the tile route (ragged
+# 128-row tiles at 9 and 100); N 200 loads value by value (N % 16 != 0),
+# N 640 leaves the last 256-column tile half full, N 6400 is GPT-2 XL's
+# fc_w; K 1568 leaves the tile route's last K step of 64 half full
+@pytest.mark.parametrize("m", [2, 5, 8, 9, 100, 512])
+@pytest.mark.parametrize("g,bias", [(32, False), (32, True), (16, False),
+                                    (16, True)])
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1600, 1568])
+@pytest.mark.parametrize("n", [200, 640, 6400])
+def test_nat8_routes_match_plain(gen, m, g, bias, scale_dtype, k, n):
+    qt = nat8(k, n, gen, g, scale_dtype, bias)
+    x = torch.randn(m, k, generator=gen, device="cuda")
+    assert qmm.nat8_plan(m, k, n)[0] == ("small" if m <= 8 else "tile")
+    check_nat8(qt, x)
+
+
+# Each route at every split a cluster takes that divides K's pieces: the
+# same bits on every launch, each against the plain version. GPT-2 XL's
+# fc_w at M 8 (small: 50 pieces, splits 1, 2, 5), M 128 and 512 (tile: 25
+# steps, 1 and 5); K 3072 (small: 96 pieces, tile: 48 steps, each 1, 2,
+# 3, 4, 6, 8) on a ragged N; K 1568 (small: 49 pieces, 1 and 7)
+@pytest.mark.parametrize("k,n,m", [(1600, 6400, 8), (1600, 6400, 128),
+                                   (1600, 6400, 512), (3072, 200, 5),
+                                   (3072, 640, 100), (1568, 640, 3)])
+@pytest.mark.parametrize("scale_dtype,g,bias", [(torch.float32, 32, False),
+                                                (torch.bfloat16, 16, True)])
+def test_nat8_split_is_deterministic(gen, monkeypatch, k, n, m, scale_dtype,
+                                     g, bias):
+    qt = nat8(k, n, gen, g, scale_dtype, bias)
+    x = torch.randn(m, k, generator=gen, device="cuda")
+    route, split = qmm.nat8_plan(m, k, n)
+    units = k // 32 if route == "small" else -(-k // 64)
+    splits = [s for s in range(1, 9) if units % s == 0]
+    assert split in splits and len(splits) > 1
+    for s in splits:
+        monkeypatch.setattr(qmm, "nat8_plan", lambda *a, s=s: (route, s))
+        check_nat8(qt, x)
+
+
+def test_nat8_routes_refuse_misaligned_x(gen):
+    qt = nat8(1600, 640, gen, 16, torch.bfloat16, True)
+    flat = torch.randn(12 * 1600 + 1, generator=gen, device="cuda")
+    before = _build.LAUNCHES["nat8_w8a16"]
+    # f32 x at a 4-byte offset, on the small-M and the tile route
+    xf = flat[1:].view(12, 1600)
+    for x in (xf[:5], xf):
+        with pytest.raises(ValueError, match="aligned"):
+            qmm.nat8_w8a16_gemm(x, qt)
+    # bf16 x at a 2-byte offset, on the tile route
+    xb = flat.to(torch.bfloat16)[1:].view(12, 1600)
+    with pytest.raises(ValueError, match="aligned"):
+        qmm.nat8_w8a16_gemm(xb, qt)
+    assert _build.LAUNCHES["nat8_w8a16"] == before
+    # aligned copies are taken, and bf16 x gives the same product as its
+    # f32 copy on either route
+    check_nat8(qt, xf.clone())
+    for rows in (5, 12):
+        xbm = xb[:rows].clone()
+        assert torch.equal(check_nat8(qt, xbm), check_nat8(qt, xbm.float()))
+
+
 def test_gpt2_device_weights_are_q8_0(gen):
     cfg = gpt2.GPT2Config(n_vocab=1000, n_ctx=64, n_embd=320, n_head=5,
                           n_layer=2)
