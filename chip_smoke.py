@@ -22,10 +22,11 @@ Phases (any failure exits nonzero and prints no result line):
    f32 scales, and per-16 bf16 scales with a bias), each with the route
    and K split it took and its time at other K splits, flash at D = 64;
    GPT-2 117M training:
-   flash with lse and the dQ and dK/dV backward kernels at B 8, T 512, 12
-   heads of 64, the backward kernels also at D 256 and on a ragged GQA +
-   softcap + ALiBi case with a fully masked row; dx through the W4A16 and
-   W8A16 routes against the plain routes; GPT-2 117M K-quants: the
+   flash with lse and the backward's tile map, dQ and dK/dV kernels at B 8,
+   T 512, 12 heads of 64 (causal, and a sliding window of 128), with the
+   share of tiles computed, the backward kernels also at D 256 and on a
+   ragged GQA + softcap + ALiBi case with a fully masked row; dx through the
+   W4A16 and W8A16 routes against the plain routes; GPT-2 117M K-quants: the
    plane-split W4A16 kernel on Q3_K and Q2_K weights, the row-pair W4A16
    on Q4_0 and the u-order W8A16 on Q8_0, at attn_w 768x2304 and out_w
    3072x768, M 1 and 8 (the GEMV route) and 512 (the tile route), each
@@ -70,11 +71,12 @@ Phases (any failure exits nonzero and prints no result line):
    log_softmax, AdamW (alpha 1e-4) through optimize.opt: 2 warm-up steps,
    then 10 timed ones through opt_resume (ms/step, train tok/s, the loss
    must fall, exact launch counts: 12 flash forwards and 12 of each
-   backward kernel a step, nothing else), the device busy share of one
-   profiled step with the flash kernels' and the KV arena's CopySlices
-   share; then one step's loss and gradients with the kernels held to the
-   same step with every plain version on the card (TRAIN_TOL), and a
-   planted fault (dK without its scale) that must fail that check;
+   backward kernel (tile map, dQ, dK/dV) a step, nothing else), the device
+   busy share of one profiled step with the flash kernels' and the KV
+   arena's CopySlices share and each backward kernel's time a launch;
+   then one step's loss and gradients with the kernels held to the same
+   step with every plain version on the card (TRAIN_TOL), and a planted
+   fault (dK without its scale) that must fail that check;
 8. GPT-2 117M K-quants: synthetic GPT2Config() weights drawn on the host
    in Q3_K (the reference's numpy stream and codecs), params_repack (every
    layer weight to the plane-split layout), Engine(n_ctx=1024) serving the
@@ -97,6 +99,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -168,6 +171,10 @@ KERNELS = {
                           "ggml_imax_tpu/ops/flash_backward.py:67"),
     "flash_backward_dkv": ("flash_backward.cu",
                            "ggml_imax_tpu/ops/flash_backward.py:97"),
+    # the tile map the two backward kernels share: no TPU kernel of its own
+    "flash_backward_tiles": ("flash_backward.cu",
+                             "none (a helper of ggml_imax_tpu/ops/"
+                             "flash_backward.py:67 and :97)"),
     "planes_w4a16": ("permuted_gemm.cu", "ggml_imax_tpu/ops/pallas_qmm.py:249"),
     "rowpair_w4a16": ("permuted_gemm.cu",
                       "ggml_imax_tpu/ops/pallas_qmm.py:287"),
@@ -187,17 +194,25 @@ def bound(nbytes: float, ops: float, peak: float):
 
 class Timer:
     """Mean ms per call from CUDA events; a 256 MB buffer is rewritten
-    before each call so the weights come from device memory, not L2."""
+    before each call so the weights come from device memory, not L2. With
+    lead, a spin of ~2 ms on the card follows the rewrite, so the host has
+    queued every launch of the call before its start event: the reading is
+    the device's time, not the host's (an autograd backward's host work can
+    outlast its kernels)."""
+
+    LEAD_CYCLES = 4_000_000
 
     def __init__(self):
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
-    def __call__(self, fn, iters=20, warmup=3):
+    def __call__(self, fn, iters=20, warmup=3, lead=False):
         for _ in range(warmup):
             fn()
         evs = []
         for _ in range(iters):
             self.flush.zero_()
+            if lead:
+                torch.cuda._sleep(self.LEAD_CYCLES)
             s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             s.record()
             fn()
@@ -621,13 +636,21 @@ def check_gpt2_kernels(ck, timer, gen):
 
 
 def backward_case(ck, timer, gen, label, B, Tq, Tk, Hq, Hkv, Dh, kw,
-                  masked_row=None, mask=None):
-    """The flash backward kernels (dQ; dK/dV) against the plain backward on
-    one case, from the forward kernel's out and lse; each timed beside the
-    plain backward (one time for both), its bound, and the backward of bf16
+                  masked_row=None, mask=None, window=None):
+    """The flash backward kernels (tile map; dQ; dK/dV) against their plain
+    versions on one case, from the forward kernel's out and lse; each timed
+    beside its plain version (the backward: one time for both gradients),
+    its bound, and for dQ and dK/dV the backward of bf16
     scaled_dot_product_attention with the same additive mask (one time for
-    the pair; a yardstick the port never calls). mask: an additive
-    (B, 1, Tq, Tk) mask instead of the causal one."""
+    the pair; a yardstick the port never calls). The kernels and SDPA's
+    backward are timed with the timer's lead (device time); SDPA's also
+    without it. A kernel's bound counts what it must move: q/k/v/dO, lse
+    and D_i, the slopes, the tile map and the mask of the mixed tiles only
+    (it reads no other), its outputs; and the products of the (i, j) pairs
+    of the tiles it computes. Logs each kernel's computed share and its
+    bound over every (i, j) pair with the whole mask read, for comparison.
+    mask: an additive (B, 1, Tq, Tk) mask instead of the causal one;
+    window: keep only the last `window` keys of each query."""
     from ggml_imax_tpu_torch.ops import flash_attention as fa
     from ggml_imax_tpu_torch.ops import flash_backward as fb
     q = torch.randn(B, Tq, Hq, Dh, generator=gen, device="cuda")
@@ -638,7 +661,8 @@ def backward_case(ck, timer, gen, label, B, Tq, Tk, Hq, Hkv, Dh, kw,
         kj = torch.arange(Tk, device="cuda")[None]
         fill = (kj - qi).float() if kw.get("max_bias") else \
             torch.zeros(Tq, Tk, device="cuda")
-        mask = torch.where(kj <= qi, fill, float("-inf"))[None, None] \
+        vis = kj <= qi if window is None else (kj <= qi) & (kj > qi - window)
+        mask = torch.where(vis, fill, float("-inf"))[None, None] \
             .expand(B, 1, Tq, Tk).clone()
     if masked_row is not None:
         mask[:, :, masked_row] = float("-inf")
@@ -647,45 +671,76 @@ def backward_case(ck, timer, gen, label, B, Tq, Tk, Hq, Hkv, Dh, kw,
     out, lse = fa.flash_attention_kernel(*prep, scale, cap, True)
     do = torch.randn(out.shape, generator=gen, device="cuda")
     di = (do * out).sum(-1).transpose(1, 2).contiguous()
-    args = (*prep[:3], do.to(torch.bfloat16), *prep[3:], lse, di, scale, cap)
+    m3, slopes = prep[3], prep[4]
+    tiles = fb.backward_tile_map(m3)
+    args = (*prep[:3], do.to(torch.bfloat16), m3, slopes, lse, di, scale,
+            cap, tiles)
     dq = fb.flash_backward_dq(*args)
     dk, dv = fb.flash_backward_dkv(*args)
-    rq, rk, rv = fb.flash_attention_bwd_plain(*args)
-    plain_ms = timer(lambda: fb.flash_attention_bwd_plain(*args), iters=5)
-    lib_ms = None
+    rq, rk, rv = fb.flash_attention_bwd_plain(*args[:10])
+    plain_ms = timer(lambda: fb.flash_attention_bwd_plain(*args[:10]), iters=5)
+    lib_ms = lib_host_ms = None
     if not cap:      # SDPA has no softcap
         # (B, H, T, D) bf16, k/v repeated over the GQA group
         rep = Hq // Hkv
         lq, lk, lv = (t.to(torch.bfloat16).transpose(1, 2).repeat_interleave(
             r, dim=1).contiguous().requires_grad_(True)
                       for t, r in ((q, 1), (k, rep), (v, rep)))
-        lmask = prep[3][:, None].to(torch.bfloat16)
-        if prep[4] is not None:
-            lmask = lmask * prep[4].reshape(1, Hq, 1, 1).to(torch.bfloat16)
+        lmask = m3[:, None].to(torch.bfloat16)
+        if slopes is not None:
+            lmask = lmask * slopes.reshape(1, Hq, 1, 1).to(torch.bfloat16)
         lo = torch.nn.functional.scaled_dot_product_attention(
             lq, lk, lv, attn_mask=lmask, scale=scale)
         ldo = do.to(torch.bfloat16).transpose(1, 2)
-        lib_ms = timer(lambda: torch.autograd.grad(
-            lo, (lq, lk, lv), ldo, retain_graph=True), iters=10)
+
+        def sdpa_backward():
+            torch.autograd.grad(lo, (lq, lk, lv), ldo, retain_graph=True)
+        lib_ms = timer(sdpa_backward, iters=10, lead=True)
+        lib_host_ms = timer(sdpa_backward, iters=10)
     bf, f4 = 2, 4
-    ins = (2 * B * Tq * Hq + 2 * B * Tk * Hkv) * Dh * bf \
-        + 2 * B * Hq * Tq * f4 + B * Tq * Tk * f4
-    flops = 2 * B * Hq * Tq * Tk * Dh
+    qkv = (2 * B * Tq * Hq + 2 * B * Tk * Hkv) * Dh * bf + 2 * B * Hq * Tq * f4
+    mixed = (tiles == fb.TILE_MIXED).repeat_interleave(fb.TILE, 1) \
+        .repeat_interleave(fb.TILE, 2)[:, :Tq, :Tk]
+    ins = qkv + (0 if slopes is None else Hq * f4) + tiles.numel() \
+        + int(mixed.sum()) * f4
+    outs = {"dq": B * Tq * Hq * Dh * f4, "dkv": 2 * B * Tk * Hkv * Dh * f4}
+    # the (i, j) pairs of the tiles each kernel computes, and their products
+    pairs = {name: int((~fb.skipped_plain(tiles, lse, slopes, Tk, rows)).sum())
+             for name, rows in (("dq", fb.TILE), ("dkv", fb.dkv_rows(Dh)))}
+    flops = {"dq": 3 * 2 * Dh * pairs["dq"], "dkv": 4 * 2 * Dh * pairs["dkv"]}
+    every = B * Hq * Tq * Tk
     shape = f"{label} B={B} Tq={Tq} Tk={Tk} H={Hq}:{Hkv} D={Dh}"
+    log(f"  {shape}: the computed tiles hold {100 * pairs['dq'] / every:.1f}%"
+        f" (dQ) and {100 * pairs['dkv'] / every:.1f}% (dK/dV) of the "
+        f"(i, j) pairs; the mixed tiles "
+        f"{100 * float(mixed.float().mean()):.1f}% of the mask")
+    ck.record("flash_backward_tiles", shape + " tile map", tiles,
+              fb.backward_tile_map_plain(m3), 0.0,
+              timer(lambda: fb.backward_tile_map(m3), iters=20, lead=True),
+              timer(lambda: fb.backward_tile_map_plain(m3), iters=5), None,
+              B * Tq * Tk * f4 + tiles.numel(), 0, PEAK_BF16)
     ck.record("flash_backward_dq", shape, dq, rq, 1e-2,
-              timer(lambda: fb.flash_backward_dq(*args), iters=20), plain_ms,
-              lib_ms, ins + B * Tq * Hq * Dh * f4, 3 * flops, PEAK_BF16)
+              timer(lambda: fb.flash_backward_dq(*args), iters=20, lead=True),
+              plain_ms, lib_ms, ins + outs["dq"], flops["dq"], PEAK_BF16)
     ck.record("flash_backward_dkv", shape + " dK", dk, rk, 1e-2,
-              timer(lambda: fb.flash_backward_dkv(*args), iters=20), plain_ms,
-              lib_ms, ins + 2 * B * Tk * Hkv * Dh * f4, 4 * flops, PEAK_BF16)
+              timer(lambda: fb.flash_backward_dkv(*args), iters=20, lead=True),
+              plain_ms, lib_ms, ins + outs["dkv"], flops["dkv"], PEAK_BF16)
     ck.record("flash_backward_dkv", shape + " dV", dv, rv, 1e-2)
+    every_b = {name: bound(qkv + B * Tq * Tk * f4 + outs[name],
+                           n * 2 * Dh * every, PEAK_BF16)[0]
+               for name, n in (("dq", 3), ("dkv", 4))}
+    host = "n/a" if lib_host_ms is None else f"{lib_host_ms:.4f} ms"
+    log(f"  {'':16s} bound over every (i, j) pair, the whole mask read: dQ "
+        f"{every_b['dq']:.4f} ms, dK/dV {every_b['dkv']:.4f} ms; SDPA's "
+        f"backward timed without the lead {host}")
 
 
 def check_train_kernels(ck, timer, gen):
     """The training path's attention kernels: flash forward with lse and the
     two backward kernels at GPT-2 117M training (B 8, T 512, 12 heads of 64,
-    the causal mask of gpt2.forward); the backward kernels also at D 256
-    (GPT-J width, key tiles of 32) and on a ragged GQA case with softcap,
+    the causal mask of gpt2.forward, and a sliding window of 128 keys);
+    the backward kernels also at D 256 (GPT-J width, the shared-memory
+    route, key tiles of 32) and on a ragged GQA case with softcap,
     ALiBi and a fully masked row. Then dx through the kernel matmul routes
     (W4A16 at M 512, W8A16) against the same routes run plain on the card."""
     from ggml_imax_tpu_torch.models.common import attention_mask
@@ -698,6 +753,8 @@ def check_train_kernels(ck, timer, gen):
     pos = torch.arange(T, device="cuda")[None].expand(B, T)
     backward_case(ck, timer, gen, "train", B, T, T, H, H, D, {},
                   mask=attention_mask(pos, T, 0))
+    backward_case(ck, timer, gen, "window 128", B, T, T, H, H, D, {},
+                  window=128)
     backward_case(ck, timer, gen, "gptj", 1, 512, 512, 16, 16, 256, {})
     backward_case(ck, timer, gen, "gqa+softcap+alibi", 2, 200, 300, 8, 2, 128,
                   {"logit_softcap": 20.0, "max_bias": 8.0}, masked_row=7)
@@ -1507,7 +1564,8 @@ def train_gpt2(failures):
     log(f"  launches over {TRAIN['steps']} steps: {counts}")
     n = TRAIN["steps"] * L
     check_counts(counts, {"flash_attention": n, "flash_backward_dq": n,
-                          "flash_backward_dkv": n}, failures)
+                          "flash_backward_dkv": n,
+                          "flash_backward_tiles": n}, failures)
     if not (len(losses) == TRAIN["steps"] and losses[-1] < losses[0]
             and all(math.isfinite(f) for f in losses)):
         failures.append(f"training losses {losses}")
@@ -1538,6 +1596,14 @@ def train_gpt2(failures):
             f"({100 * copy_ms / busy:.1f}%)")
         for key, ms in sorted(dev.items(), key=lambda kv: -kv[1])[:10]:
             log(f"    {ms:9.4f} ms  {key[:90]}")
+        # the backward's kernels in the step, per launch (no timer floor)
+        for ev in evs:
+            name = re.search(r"flash_bwd_\w+", ev.key)
+            if name and ev.self_device_time_total > 0:
+                each = ev.self_device_time_total / 1e3 / ev.count
+                summary[name.group() + "_ms"] = each
+                log(f"    {name.group()}: {ev.count} launches, {each:.4f} ms "
+                    f"each")
     else:
         log("  profiled step: no device time in the trace (not measured)")
 

@@ -59,11 +59,13 @@ _SIGNATURES = {
     # q, k, v, ks, vs, kn, vn, kns, vns, rows, mask, ws_acc, ws_ml, out, NB,
     # Bk, Hq, Hkv, D, T, split, scale, stream
     "ggml_decode_attention_update": [_P] * 14 + [_I] * 7 + [_F, _P],
-    # q, k, v, dout, lse, di, mask, slopes, dq, B, Tq, Tk, Hq, Hkv, D, scale,
-    # softcap, stream
-    "ggml_flash_backward_dq": [_P] * 9 + [_I] * 6 + [_F, _F, _P],
+    # q, k, v, dout, lse, di, mask, slopes, tiles, dq, B, Tq, Tk, Hq, Hkv, D,
+    # scale, softcap, stream
+    "ggml_flash_backward_dq": [_P] * 10 + [_I] * 6 + [_F, _F, _P],
     # the same with dk, dv in place of dq
-    "ggml_flash_backward_dkv": [_P] * 10 + [_I] * 6 + [_F, _F, _P],
+    "ggml_flash_backward_dkv": [_P] * 11 + [_I] * 6 + [_F, _F, _P],
+    # mask, tiles, B, Tq, Tk, stream
+    "ggml_flash_backward_tiles": [_P, _P, _I, _I, _I, _P],
     # x, q, scale, bias, out, M, K, N, bk, g, zero, split, scale_is_bf16,
     # stream
     "ggml_planes_w4a16": [_P] * 5 + [_I] * 8 + [_P],
@@ -77,6 +79,7 @@ LAUNCHES = {"w4a8_gemv": 0, "w4a16_gemm": 0, "decode_attention": 0,
             "flash_attention": 0, "nat8_w8a8": 0, "nat8_w8a16": 0,
             "decode_attention_cells": 0, "decode_attention_update": 0,
             "flash_backward_dq": 0, "flash_backward_dkv": 0,
+            "flash_backward_tiles": 0,
             "planes_w4a16": 0, "rowpair_w4a16": 0, "int8_rows_w8a16": 0}
 
 _lock = threading.Lock()

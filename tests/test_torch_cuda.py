@@ -485,15 +485,37 @@ def test_small_gptj_batched_on_card_matches_cpu(gen):
     assert outs["cuda", False] == outs["cpu", False] == outs["cuda", True]
 
 
-def causal_mask(b, tq, tk, dist=False):
+def causal_mask(b, tq, tk, dist=False, window=None):
     qi = torch.arange(tq, device="cuda")[:, None] + (tk - tq)
     kj = torch.arange(tk, device="cuda")[None]
     fill = (kj - qi).float() if dist else torch.zeros(tq, tk, device="cuda")
-    return torch.where(kj <= qi, fill, float("-inf"))[None, None] \
+    vis = kj <= qi if window is None else (kj <= qi) & (kj > qi - window)
+    return torch.where(vis, fill, float("-inf"))[None, None] \
         .expand(b, 1, tq, tk)
 
 
-@pytest.mark.parametrize("b,tq,tk,hq,hkv,d,causal,kw", [
+def backward_args(gen, b, tq, tk, hq, hkv, d, causal, kw):
+    """The backward kernels' prepared inputs, from the forward kernel's out
+    and lse; kw as test_flash_backward_kernels_match_plain takes it."""
+    kw = dict(kw)
+    row, window = kw.pop("masked_row", None), kw.pop("window", None)
+    q = torch.randn(b, tq, hq, d, generator=gen, device="cuda")
+    k, v = (torch.randn(b, tk, hkv, d, generator=gen, device="cuda")
+            for _ in range(2))
+    mask = causal_mask(b, tq, tk, kw.get("max_bias", 0) > 0, window) \
+        if causal else None
+    if row is not None:
+        mask = mask.clone()
+        mask[:, :, row] = float("-inf")
+    prep = fa._prep(q, k, v, mask, kw.get("max_bias", 0.0))
+    scale, cap = 1 / math.sqrt(d), kw.get("logit_softcap", 0.0)
+    out, lse = fa.flash_attention_kernel(*prep, scale, cap, True)
+    do = torch.randn(out.shape, generator=gen, device="cuda")
+    di = (do * out).sum(-1).transpose(1, 2).contiguous()
+    return (*prep[:3], do.bfloat16(), *prep[3:], lse, di, scale, cap)
+
+
+BACKWARD_CASES = [
     # the reference's flash-backward test cases (tests/test_flash_backward.py)
     (2, 16, 16, 4, 4, 32, False, {}),
     (1, 24, 40, 4, 2, 64, True, {}),
@@ -506,35 +528,88 @@ def causal_mask(b, tq, tk, dist=False):
     (1, 96, 96, 4, 4, 256, True, {}),
     (2, 72, 100, 8, 2, 128, True, {"logit_softcap": 20.0, "max_bias": 8.0,
                                    "masked_row": 5}),
-])
+    # the training shape at B 1; a sliding window; T not a multiple of 64;
+    # a fully masked row in tiles that would otherwise be skipped
+    (1, 512, 512, 12, 12, 64, True, {}),
+    (2, 256, 256, 4, 4, 64, True, {"window": 80}),
+    (2, 200, 200, 4, 2, 64, True, {}),
+    (1, 200, 200, 4, 4, 64, True, {"masked_row": 5}),
+    (1, 300, 300, 4, 2, 128, True, {"window": 70, "masked_row": 3}),
+    # ALiBi with a fully masked row at D 128: its 32-row query step is
+    # computed, the other half of its all-NEG tiles skipped
+    (1, 200, 200, 4, 4, 128, True, {"max_bias": 8.0, "masked_row": 70}),
+]
+
+
+@pytest.mark.parametrize("b,tq,tk,hq,hkv,d,causal,kw", BACKWARD_CASES)
 def test_flash_backward_kernels_match_plain(gen, b, tq, tk, hq, hkv, d, causal,
                                             kw):
     from ggml_imax_tpu_torch.ops import flash_backward as fb
-    kw = dict(kw)
-    row = kw.pop("masked_row", None)
-    q = torch.randn(b, tq, hq, d, generator=gen, device="cuda")
-    k, v = (torch.randn(b, tk, hkv, d, generator=gen, device="cuda")
-            for _ in range(2))
-    mask = causal_mask(b, tq, tk, kw.get("max_bias", 0) > 0) if causal \
-        else None
-    if row is not None:
-        mask = mask.clone()
-        mask[:, :, row] = float("-inf")
-    prep = fa._prep(q, k, v, mask, kw.get("max_bias", 0.0))
-    scale, cap = 1 / math.sqrt(d), kw.get("logit_softcap", 0.0)
-    out, lse = fa.flash_attention_kernel(*prep, scale, cap, True)
-    do = torch.randn(out.shape, generator=gen, device="cuda")
-    di = (do * out).sum(-1).transpose(1, 2).contiguous()
-    args = (*prep[:3], do.bfloat16(), *prep[3:], lse, di, scale, cap)
+    args = backward_args(gen, b, tq, tk, hq, hkv, d, causal, kw)
     n0 = dict(_build.LAUNCHES)
     got = fb.flash_attention_bwd_kernel(*args)
     assert _build.LAUNCHES["flash_backward_dq"] == n0["flash_backward_dq"] + 1
     assert _build.LAUNCHES["flash_backward_dkv"] == n0["flash_backward_dkv"] + 1
+    assert _build.LAUNCHES["flash_backward_tiles"] \
+        == n0["flash_backward_tiles"] + causal       # one map a masked call
     want = fb.flash_attention_bwd_plain(*args)
     torch.cuda.synchronize()
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.shape == w.shape and bool(torch.isfinite(g).all())
         assert rel(g, w) < 1e-2, name
+
+
+@pytest.mark.parametrize("case", [BACKWARD_CASES[i] for i in (7, 8, 9, 11)])
+def test_flash_backward_kernels_are_deterministic(gen, case):
+    """Two launches on the same inputs give the same bits (every sum in a
+    fixed order, no atomics)."""
+    from ggml_imax_tpu_torch.ops import flash_backward as fb
+    args = backward_args(gen, *case)
+    first = fb.flash_attention_bwd_kernel(*args)
+    second = fb.flash_attention_bwd_kernel(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("case", [BACKWARD_CASES[i]
+                                  for i in (6, 9, 11, 12, 13)])
+def test_flash_backward_skip_is_exact(gen, case):
+    """The kernels give equal results with the mask's tile map and with a
+    map that marks every tile mixed (nothing skipped, the mask read in every
+    tile): a skipped tile adds exact zeros, and the lse guard keeps the
+    tiles of a fully masked row (D 64 and 128, the register route; D 256,
+    the shared-memory route)."""
+    from ggml_imax_tpu_torch.ops import flash_backward as fb
+    args = backward_args(gen, *case)
+    tiles = fb.backward_tile_map(args[4])
+    assert bool((tiles == fb.TILE_NEG).any())
+    every = torch.full_like(tiles, fb.TILE_MIXED)
+    for kernel in (fb.flash_backward_dq, fb.flash_backward_dkv):
+        skipped, computed = kernel(*args, tiles), kernel(*args, every)
+        torch.cuda.synchronize()
+        for g, w in zip(*(t if isinstance(t, tuple) else (t,)
+                          for t in (skipped, computed))):
+            assert torch.equal(g, w), kernel.__name__
+
+
+@pytest.mark.parametrize("tq,tk,window,row", [(512, 512, None, None),
+                                              (200, 300, 70, None),
+                                              (131, 257, None, 64),
+                                              (64, 64, None, None)])
+def test_flash_backward_tile_map_matches_plain(gen, tq, tk, window, row):
+    from ggml_imax_tpu_torch.ops import flash_backward as fb
+    mask = causal_mask(3, tq, tk, window=window).clone()
+    mask[1, :, :, 0] = 0.5                         # one mixed column
+    if row is not None:
+        mask[:, :, row] = float("-inf")
+    m3 = fa._prep(torch.zeros(3, tq, 1, 16, device="cuda"),
+                  torch.zeros(3, tk, 1, 16, device="cuda"),
+                  torch.zeros(3, tk, 1, 16, device="cuda"), mask, 0.0)[3]
+    n0 = _build.LAUNCHES["flash_backward_tiles"]
+    got = fb.backward_tile_map(m3)
+    assert _build.LAUNCHES["flash_backward_tiles"] == n0 + 1
+    assert torch.equal(got.cpu(), fb.backward_tile_map_plain(m3.cpu()))
 
 
 def test_flash_attention_grads_on_card_match_cpu(gen):
