@@ -13,7 +13,8 @@ Phases (any failure exits nonzero and prints no result line):
 2. kernels: each hand-written kernel against its plain PyTorch version on
    the card at the main paths' shapes (GPT-J: natpair W4A8/W4A16 (M 512,
    the serving ubatches M 8 and 128, each with the route and K split
-   it took, and its time at other K splits), decode attention, flash;
+   it took, and its time at other K splits), decode attention, flash
+   (and a row that sees no key at a ragged Tk of 200, 300 and 600);
    serving:
    cells decode attention at 8 rows over a 2048-cell arena, the fused
    KV-update kernel in flat mode at T 512 and in cells mode at 8 rows x
@@ -46,13 +47,14 @@ Phases (any failure exits nonzero and prints no result line):
    prompt + 64 greedy tokens, with the launch counts of that run; then the
    device busy share of a prefill and of decode steps (torch.profiler
    kernel time against the unprofiled TTFT and step time), and W4A16's
-   share of the device time;
+   and the flash forward's (with its tile map) share of the device time;
 5. GPT-2 XL engine: synthetic GPT-2 1558M Q8_0 drawn on the card,
    prepare_fused + nat8 repack, Engine(n_ctx=1024), the same 3 requests,
-   launch counts and profile (with nat8 W8A16's share of the prefill's
-   device time), and the device time of the products the reference's
-   N % 128 gate leaves to dequantize + matmul (attn_w, proj_w, out_w, the
-   tied LM head) against the step's device time;
+   launch counts and profile (with nat8 W8A16's and the flash forward's
+   share of the prefill's device time), and the device time of the
+   products the reference's N % 128 gate leaves to dequantize + matmul
+   (attn_w, proj_w, out_w, the tied LM head) against the step's device
+   time;
 6. GPT-J serving: synthetic GPT-J-6B Q4_0, BatchedEngine(n_ctx=2048, q8_0
    KV arena, on-device sampling) under the workload of the reference's
    `examples/serve.py --bench` (8 requests arriving every 4 engine steps,
@@ -70,8 +72,9 @@ Phases (any failure exits nonzero and prints no result line):
    8 x 512 tokens, a fresh f32 KV cache per loss call, the mean NLL of
    log_softmax, AdamW (alpha 1e-4) through optimize.opt: 2 warm-up steps,
    then 10 timed ones through opt_resume (ms/step, train tok/s, the loss
-   must fall, exact launch counts: 12 flash forwards and 12 of each
-   backward kernel (tile map, dQ, dK/dV) a step, nothing else), the device
+   must fall, exact launch counts: 12 flash forwards, 12 tile maps (one a
+   forward, kept for its backward) and 12 of each backward kernel (dQ,
+   dK/dV) a step, nothing else), the device
    busy share of one profiled step with the flash kernels' and the KV
    arena's CopySlices share and each backward kernel's time a launch;
    then one step's loss and gradients with the kernels held to the same
@@ -90,7 +93,9 @@ Phases (any failure exits nonzero and prints no result line):
    scale rows swapped) that must fail that check.
 
 Each engine phase, and the timed training steps, sets the launch counters
-to 0 just before its run and reads them just after. The line before the
+to 0 just before its run and reads them just after. Every flash forward
+launches the tile map of its mask (flash_backward_tiles) before its kernel,
+so each phase counts one map for each flash call. The line before the
 last is the kernels JSON, the last line is {"ok": true, "device": {...}}.
 Needs no arguments, no network and one card.
 """
@@ -107,6 +112,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 HBM_BYTES_S = 3.35e12          # H100 SXM data sheet
 PEAK_BF16 = 989e12
@@ -292,13 +298,21 @@ def random_nat8(K, N, gen, g=32, scale_dtype=torch.float32, bias=False):
 
 
 def flash_case(ck, timer, gen, label, B, Tq, Tk, Hq, Hkv, Dh, kw, timed,
-               q_off=None, kv=None, visible=None):
+               q_off=None, kv=None, visible=None, masked_row=None):
     """One flash-attention case; causal over positions q_off + i (the last
     Tq keys by default), keys at or past q_off + Tq masked as the engine's
     bucketed prefill masks them. kv: the keys and values (B, Tk, Hkv, Dh)
     instead of random ones; visible: a (B, Tq, Tk) bool visibility instead
-    of the causal one."""
+    of the causal one; masked_row: a query row that sees no key. The lse is
+    held on the rows with a visible key and, apart, on those with none.
+    Timed: the bound counts what the kernel must move and compute: q, the
+    k/v rows of the tiles it scores (and the V rows of the skipped tiles of
+    a query tile holding a row with no visible key), the slopes, the tile
+    map, the mask of the mixed tiles only, out and lse; 4 Dh operations for
+    each (i, j) pair of the scored tiles. The bound over every (i, j) pair
+    with the whole mask read is logged beside it."""
     from ggml_imax_tpu_torch.ops import flash_attention as fa
+    from ggml_imax_tpu_torch.ops import flash_backward as fb
     sdpa = torch.nn.functional.scaled_dot_product_attention
     q = torch.randn(B, Tq, Hq, Dh, generator=gen, device="cuda")
     k, v = kv if kv is not None else (
@@ -308,7 +322,9 @@ def flash_case(ck, timer, gen, label, B, Tq, Tk, Hq, Hkv, Dh, kw, timed,
     qi = torch.arange(Tq, device="cuda")[:, None] + q_off
     if visible is None:
         visible = torch.arange(Tk, device="cuda")[None, :] <= qi
-    visible = visible.expand(B, Tq, Tk)
+    visible = visible.expand(B, Tq, Tk).clone()
+    if masked_row is not None:
+        visible[:, masked_row] = False
     if kw.get("max_bias"):
         dist = (torch.arange(Tk, device="cuda")[None, :] - qi).float()
         mask = torch.where(visible, dist, float("-inf"))[:, None]
@@ -317,22 +333,59 @@ def flash_case(ck, timer, gen, label, B, Tq, Tk, Hq, Hkv, Dh, kw, timed,
     prep = fa._prep(q, k, v, mask, kw.get("max_bias", 0.0))
     args = prep + (1.0 / math.sqrt(Dh), kw.get("logit_softcap", 0.0),
                    kw.get("want_lse", False))
-    got, got_lse = fa.flash_attention_kernel(*args)
+    m3, slopes = prep[3], prep[4]
+    tmap = fb.backward_tile_map(m3)
+    got, got_lse = fa.flash_attention_kernel(*args, tiles=tmap)
     ref, ref_lse = fa.flash_attention_plain(*args)
     if got_lse is not None:
-        ck.record("flash_attention", label + " (lse)", got_lse, ref_lse, 1e-4)
+        seen = ref_lse.abs() < 1e30
+        ck.record("flash_attention", label + " (lse)", got_lse[seen],
+                  ref_lse[seen], 1e-4)
+        if not bool(seen.all()):
+            ck.record("flash_attention", label + " (lse, rows with no key)",
+                      got_lse[~seen], ref_lse[~seen], 1e-6)
     timing = {}
     if timed:
         qb, kb, vb = (t.to(torch.bfloat16).transpose(1, 2).contiguous()
                       for t in (q, k, v))
+        tiles = fb.backward_tile_map_plain(m3)
+        nq, nk, T = tiles.shape[1], tiles.shape[2], fb.TILE
+        rows = (Tq - T * torch.arange(nq, device="cuda")).clamp(max=T)
+        keys = (Tk - T * torch.arange(nk, device="cuda")).clamp(max=T)
+        scored = ~fa.skipped_tiles_plain(tiles, slopes, Hq)   # (B, Hq, nq, nk)
+        lone = ~F.pad(visible.any(-1), (0, nq * T - Tq), value=True) \
+            .reshape(B, nq, T).all(-1)                        # a row with no key
+        group = (B, Hkv, Hq // Hkv, nq, nk)
+        k_tiles = scored.reshape(group).any(2).any(2)
+        v_tiles = k_tiles | (~scored & lone[:, None, :, None]) \
+            .reshape(group).any(2).any(2)
+        pairs = int((scored * rows[:, None] * keys[None, :]).sum())
+        mixed = (tiles == fb.TILE_MIXED) * rows[:, None] * keys[None, :]
+        kv_rows = int(((k_tiles + v_tiles.float()) * keys).sum())
+        f4 = 4
+        nbytes = (B * Tq * Hq * Dh * 2 + kv_rows * Dh * 2
+                  + (0 if slopes is None else Hq * f4) + tiles.numel()
+                  + int(mixed.sum()) * f4 + B * Tq * Hq * Dh * f4
+                  + (B * Hq * Tq * f4 if got_lse is not None else 0))
+        every = B * Hq * Tq * Tk
+        old_bytes = ((B * Tq * Hq + 2 * B * Tk * Hkv) * Dh * 2
+                     + B * Tq * Tk * f4 + B * Tq * Hq * Dh * f4)
+        # the kernel timed on a map built once (the map's own kernel is
+        # flash_backward_tiles, one launch a forward on the paths)
+        map_ms = timer(lambda: fb.backward_tile_map(m3), iters=20, lead=True)
+        log(f"  {'':16s} {label}: the scored tiles hold "
+            f"{100 * pairs / every:.1f}% of the (i, j) pairs, the mixed ones "
+            f"{100 * int(mixed.sum()) / (B * Tq * Tk):.1f}% of the mask; bound "
+            f"over every pair, the whole mask read: "
+            f"{bound(old_bytes, 4 * every * Dh, PEAK_BF16)[0]:.4f} ms; the "
+            f"tile map {map_ms:.4f} ms")
         timing = dict(
-            ms=timer(lambda: fa.flash_attention_kernel(*args), iters=50),
+            ms=timer(lambda: fa.flash_attention_kernel(*args, tiles=tmap),
+                     iters=50, lead=True),
             plain_ms=timer(lambda: fa.flash_attention_plain(*args), iters=5),
             lib_ms=timer(lambda: sdpa(qb, kb, vb, attn_mask=visible[:, None]),
-                         iters=50),
-            nbytes=(B * Tq * Hq + 2 * B * Tk * Hkv) * Dh * 2
-            + B * Tq * Tk * 4 + B * Tq * Hq * Dh * 4,
-            ops=4 * B * Hq * Tq * Tk * Dh)
+                         iters=50, lead=True),
+            nbytes=nbytes, ops=4 * Dh * pairs)
     ck.record("flash_attention", label, got, ref, 1e-2, **timing)
 
 
@@ -433,10 +486,19 @@ def check_gptj_kernels(ck, timer, gen):
              ("gqa 8:2 D=128", 2, 96, 160, 8, 2, 128, {}),
              ("alibi D=64", 1, 64, 64, 8, 8, 64, {"max_bias": 8.0}),
              ("softcap D=128", 1, 80, 80, 4, 4, 128, {"logit_softcap": 30.0}),
-             ("lse D=256", 1, 64, 128, 2, 2, 256, {"want_lse": True})]
+             ("lse D=256", 1, 64, 128, 2, 2, 256, {"want_lse": True}),
+             # a row that sees no key at a ragged Tk: the reference's
+             # average over padded_keys(Tk) keys (256, 384, 1024)
+             ("masked row Tk=200 D=64", 1, 72, 200, 4, 2, 64,
+              {"want_lse": True, "max_bias": 8.0}),
+             ("masked row Tk=300 D=128", 1, 72, 300, 4, 2, 128,
+              {"want_lse": True}),
+             ("masked row Tk=600 D=256", 1, 72, 600, 4, 2, 256,
+              {"want_lse": True})]
     for label, B, Tq, Tk, Hq, Hkv, Dh, kw in cases:
         flash_case(ck, timer, gen, label, B, Tq, Tk, Hq, Hkv, Dh, kw,
-                   timed=label.startswith("gptj"))
+                   timed=label.startswith("gptj"),
+                   masked_row=5 if label.startswith("masked") else None)
 
 
 def check_serving_kernels(ck, timer, gen):
@@ -668,11 +730,11 @@ def backward_case(ck, timer, gen, label, B, Tq, Tk, Hq, Hkv, Dh, kw,
         mask[:, :, masked_row] = float("-inf")
     prep = fa._prep(q, k, v, mask, kw.get("max_bias", 0.0))
     scale, cap = 1.0 / math.sqrt(Dh), kw.get("logit_softcap", 0.0)
-    out, lse = fa.flash_attention_kernel(*prep, scale, cap, True)
-    do = torch.randn(out.shape, generator=gen, device="cuda")
-    di = (do * out).sum(-1).transpose(1, 2).contiguous()
     m3, slopes = prep[3], prep[4]
     tiles = fb.backward_tile_map(m3)
+    out, lse = fa.flash_attention_kernel(*prep, scale, cap, True, tiles=tiles)
+    do = torch.randn(out.shape, generator=gen, device="cuda")
+    di = (do * out).sum(-1).transpose(1, 2).contiguous()
     args = (*prep[:3], do.to(torch.bfloat16), m3, slopes, lse, di, scale,
             cap, tiles)
     dq = fb.flash_backward_dq(*args)
@@ -1047,7 +1109,9 @@ def _device_ms(fn, reps):
 
 # kernel file -> the kernel names of its routes in a profile
 SHARES = {"W4A16 (w4a16_gemm.cu)": ("w4a16_small_m", "w4a16_tile"),
-          "nat8 W8A16 (nat8_gemm.cu)": ("nat8_small_m", "nat8_tile")}
+          "nat8 W8A16 (nat8_gemm.cu)": ("nat8_small_m", "nat8_tile"),
+          "flash forward (flash_attention.cu and its tile map)":
+              ("flash_fwd_kernel", "flash_bwd_tiles_kernel")}
 
 
 def kernel_share(dev, busy, label, what="W4A16 (w4a16_gemm.cu)"):
@@ -1220,6 +1284,12 @@ def patched(pairs):
             setattr(m, n, val)
 
 
+def without_tiles(plain):
+    """A plain version in place of its kernel entry, which the paths call
+    with the tile map as `tiles`: the map dropped."""
+    return lambda *args, tiles=None: plain(*args)
+
+
 def plain_on_card():
     """Patches pointing every kernel entry of the GPT-J and GPT-2 117M
     K-quant paths at its plain version, so that the wrappers run the plain
@@ -1227,13 +1297,16 @@ def plain_on_card():
     never does this)."""
     from ggml_imax_tpu_torch.ops import decode_attention as da
     from ggml_imax_tpu_torch.ops import flash_attention as fa
+    from ggml_imax_tpu_torch.ops import flash_backward as fb
     from ggml_imax_tpu_torch.ops import qmm
     return [(qmm, "w4a16_gemm", qmm.w4a16_gemm_plain),
             (qmm, "w4a8_gemv", qmm.w4a8_gemv_plain),
             (qmm, "planes_w4a16", qmm.planes_w4a16_plain),
             (qmm, "rowpair_w4a16", qmm.rowpair_w4a16_plain),
             (qmm, "int8_rows_w8a16", qmm.int8_rows_w8a16_plain),
-            (fa, "flash_attention_kernel", fa.flash_attention_plain),
+            (fa, "flash_attention_kernel",
+             without_tiles(fa.flash_attention_plain)),
+            (fb, "backward_tile_map", fb.backward_tile_map_plain),
             (da, "decode_attention_kernel", da.decode_attention_plain),
             (da, "decode_attention_cells_kernel", da.decode_attention_plain),
             (da, "decode_attention_update_kernel",
@@ -1410,6 +1483,7 @@ def serve_gptj(failures):
     n_all = nu["mixed"] + nu["decode"]
     check_counts(counts, {"decode_attention_cells": L * nu["decode"],
                           "flash_attention": L * nu["mixed"],
+                          "flash_backward_tiles": L * nu["mixed"],
                           "w4a16_gemm": (2 * L + 1) * n_all}, failures)
     launches = {"serving": counts}
 
@@ -1458,7 +1532,8 @@ def serve_gptj(failures):
                 failures)
     check_counts(launches["engine_fused"],
                  {"decode_attention_update": L * 7, "w4a8_gemv": 7 * (2 * L + 1),
-                  "w4a16_gemm": 2 * L + 1, "flash_attention": L}, failures)
+                  "w4a16_gemm": 2 * L + 1, "flash_attention": L,
+                  "flash_backward_tiles": L}, failures)
     for fault, patches in planted_faults().items():
         check_route(f"control: serving, fused route with {fault}", ref_s,
                     short_serving(cfg, params, True, patches), failures,
@@ -1609,8 +1684,11 @@ def train_gpt2(failures):
 
     # the gradient route check at full width (see TRAIN_TOL), then a planted
     # fault that it must catch: dK returned without its softmax scale
-    plain = [(fa, "flash_attention_kernel", fa.flash_attention_plain),
-             (fb, "flash_attention_bwd_kernel", fb.flash_attention_bwd_plain)]
+    plain = [(fa, "flash_attention_kernel",
+              without_tiles(fa.flash_attention_plain)),
+             (fb, "backward_tile_map", fb.backward_tile_map_plain),
+             (fb, "flash_attention_bwd_kernel",
+              without_tiles(fb.flash_attention_bwd_plain))]
     real_dkv = fb.flash_backward_dkv
 
     def dk_unscaled(*args):
@@ -1679,7 +1757,8 @@ def kquant_gpt2(failures):
         eng, rng, reqs, counts = serve(gpt2, cfg, params, cfg.n_ctx, failures,
                                        n_requests=n_req)
         check_counts(counts, {kernel_of[layout]: n_req * products,
-                              "flash_attention": n_req * L}, failures)
+                              "flash_attention": n_req * L,
+                              "flash_backward_tiles": n_req * L}, failures)
         launches[f"gpt2_117m_{key}"] = counts
         entry = {"ttft_ms": [r["ttft_ms"] for r in reqs],
                  "decode_tok_s": [r["decode_tok_s"] for r in reqs],
@@ -1775,7 +1854,8 @@ def main() -> int:
     check_counts(counts, {"w4a8_gemv": n_dec * (2 * L + 1),
                           "decode_attention": n_dec * L,
                           "w4a16_gemm": n_pre * (2 * L + 1),
-                          "flash_attention": n_pre * L}, failures)
+                          "flash_attention": n_pre * L,
+                          "flash_backward_tiles": n_pre * L}, failures)
     if failures:
         raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
     profile_engine(eng, rng, reqs)
@@ -1795,7 +1875,8 @@ def main() -> int:
     eng, rng, reqs, counts = serve(gpt2, cfg, params, 1024, failures)
     L = cfg.n_layer
     check_counts(counts, {"nat8_w8a8": n_dec * L, "nat8_w8a16": n_pre * L,
-                          "flash_attention": n_pre * L}, failures)
+                          "flash_attention": n_pre * L,
+                          "flash_backward_tiles": n_pre * L}, failures)
     if failures:
         raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
     gated = gated_products_ms(

@@ -49,10 +49,9 @@ _SIGNATURES = {
     # q, k, v, ks, vs, mask, out, B, Hq, Hkv, D, T, scale, stream
     "ggml_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _F, _P],
-    # q, k, v, mask, slopes, out, lse, B, Tq, Tk, Hq, Hkv, D, scale,
+    # q, k, v, mask, slopes, tiles, out, lse, B, Tq, Tk, Hq, Hkv, D, scale,
     # softcap, stream
-    "ggml_flash_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _I, _F, _F, _P],
+    "ggml_flash_attention": [_P] * 8 + [_I] * 6 + [_F, _F, _P],
     # q, k, v, ks, vs, mask, ws_acc, ws_ml, out, NB, Hq, Hkv, D, T, split,
     # scale, stream
     "ggml_decode_attention_cells": [_P] * 9 + [_I] * 6 + [_F, _P],

@@ -10,11 +10,13 @@ P = exp(S_eff - lse) from it, FlashAttention-2 style:
 with D_i = rowsum(dO * O) computed here in f32 torch ops. Rounding points
 as the reference's kernels: q, k, v and dO in bf16; S, P, dP and dS in f32;
 dS and P rounded to bf16 before their products, which sum in f32. A fully
-masked row gets the uniform P its forward gave it (every score clamps to
-NEG, and so does its lse).
+masked row's scores and lse = m + log(tk) all round to its masked score
+(NEG * slope), so its P is 1 at every key, as the reference's backward
+has it.
 
 The kernels share a map of the mask's 64 x 64 tiles (all NEG, all 0 or
-mixed; `backward_tile_map`, one launch a backward) and skip an all-NEG tile
+mixed; `backward_tile_map`, built by the forward and kept for the backward
+of a differentiable call, else one launch a backward) and skip an all-NEG tile
 where that is exact: every valid query row of the tile has lse > -1e30
 (`skipped_plain` states the rule, `backward_tile_map_plain` the map). The
 dK/dV kernel at D in (64, 128] takes query steps of 32 rows and applies
@@ -183,25 +185,29 @@ def flash_backward_dkv(qb, kb, vb, dob, m3, slopes, lse, di, scale, softcap,
 
 
 def flash_attention_bwd_kernel(qb, kb, vb, dob, m3, slopes, lse, di, scale,
-                               softcap):
+                               softcap, tiles=None):
     """csrc/flash_backward.cu's kernels on the prepared inputs (as the plain
-    version takes them): the tile map of a mask, then dQ and dK/dV. The map
-    goes last and positionally, so `scale` stays at index 8."""
-    tiles = None if m3 is None else backward_tile_map(m3)
+    version takes them): the tile map of a mask (unless the forward's is
+    given), then dQ and dK/dV. The map goes last and positionally, so
+    `scale` stays at index 8."""
+    if tiles is None and m3 is not None:
+        tiles = backward_tile_map(m3)
     args = (qb, kb, vb, dob, m3, slopes, lse.contiguous(), di, scale, softcap,
             tiles)
     return (flash_backward_dq(*args), *flash_backward_dkv(*args))
 
 
-def backward_prepared(qb, kb, vb, m3, slopes, out, lse, do, scale, softcap):
+def backward_prepared(qb, kb, vb, m3, slopes, out, lse, do, scale, softcap,
+                      tiles=None):
     """(dq, dk, dv) f32 from the forward's prepared inputs, its output `out`
-    (in its own dtype) and lse: D_i here, then the kernels on a CUDA tensor,
-    the plain version on a CPU one."""
+    (in its own dtype), lse and tile map (or None): D_i here, then the
+    kernels on a CUDA tensor, the plain version on a CPU one."""
     di = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     dob = do.to(torch.bfloat16).contiguous()
-    fn = flash_attention_bwd_plain if qb.device.type == "cpu" \
-        else flash_attention_bwd_kernel
-    return fn(qb, kb, vb, dob, m3, slopes, lse, di, scale, softcap)
+    args = (qb, kb, vb, dob, m3, slopes, lse, di, scale, softcap)
+    if qb.device.type == "cpu":
+        return flash_attention_bwd_plain(*args)
+    return flash_attention_bwd_kernel(*args, tiles=tiles)
 
 
 def flash_attention_bwd(q, k, v, mask, out, lse, do, *, scale: float,

@@ -196,11 +196,167 @@ def test_flash_kernel_matches_plain(gen, b, tq, tk, hq, hkv, d, kw):
                        float("-inf"))[None, None].expand(b, 1, tq, tk)
     args = fa._prep(q, k, v, mask, kw.get("max_bias", 0.0)) + (
         1 / math.sqrt(d), kw.get("logit_softcap", 0.0), kw.get("want_lse", False))
-    got, got_lse = fa.flash_attention_kernel(*args)
+    got, got_lse = fa.flash_attention_kernel(*args, tiles=tile_map(args[3]))
     ref, ref_lse = fa.flash_attention_plain(*args)
     assert rel(got, ref) < 1e-2
     if got_lse is not None:
         assert rel(got_lse, ref_lse) < 1e-4
+
+
+def serving_mask(nb, T, seed=3):
+    """The cell mask (1, 1, nb, T) of a mixed serving ubatch, the registry of
+    chip_smoke.py's mixed_ubatch_mask: 7 sequences decoding (a run of cells
+    each), a new request's 100-token prompt chunk, and pad rows up to nb
+    that see no cell; the rest of the arena empty."""
+    from ggml_imax_tpu_torch.models.common import cells_attention_mask
+    from ggml_imax_tpu_torch.runtime.batched import MAX_SEQ
+    rng = np.random.default_rng(seed)
+    cell_pos, cell_seq = np.full(T, -1, np.int64), np.zeros(T, np.int64)
+    tok_pos, tok_seq, head = [], [], 0
+    for s, n in enumerate(rng.integers(64, 128, 7) + rng.integers(0, 32, 7)):
+        cell_pos[head:head + n + 1] = np.arange(n + 1)
+        cell_seq[head:head + n + 1] = 1 << s
+        tok_pos.append(n)
+        tok_seq.append(s)
+        head += n + 1
+    cell_pos[head:head + 100] = np.arange(100)
+    cell_seq[head:head + 100] = 1 << 7
+    tok_pos += list(range(100)) + [0] * (nb - 107)
+    tok_seq += [7] * 100 + [MAX_SEQ - 1] * (nb - 107)
+    return cells_attention_mask(*(
+        torch.as_tensor(np.asarray(a), device="cuda")[None]
+        for a in (tok_pos, tok_seq, cell_pos, cell_seq)))
+
+
+def forward_args(gen, b, tq, tk, hq, hkv, d, kw):
+    """The forward kernel's prepared arguments under a causal mask over the
+    last tq keys; kw: max_bias (key distances in the mask), window (the last
+    `window` keys only), masked_row (a row that sees no key), serving (the
+    cell mask of serving_mask instead), want_lse."""
+    q = torch.randn(b, tq, hq, d, generator=gen, device="cuda")
+    k, v = (torch.randn(b, tk, hkv, d, generator=gen, device="cuda")
+            for _ in range(2))
+    if kw.get("serving"):
+        mask = serving_mask(tq, tk).expand(b, 1, tq, tk).clone()
+    else:
+        mask = causal_mask(b, tq, tk, kw.get("max_bias", 0) > 0,
+                           kw.get("window")).clone()
+    if kw.get("masked_row") is not None:
+        mask[:, :, kw["masked_row"]] = float("-inf")
+    return fa._prep(q, k, v, mask, kw.get("max_bias", 0.0)) + (
+        1 / math.sqrt(d), 0.0, kw.get("want_lse", True))
+
+
+def tile_map(m3):
+    from ggml_imax_tpu_torch.ops import flash_backward as fb
+    return fb.backward_tile_map(m3)
+
+
+def check_forward(args):
+    """The kernel (one map launch, one forward launch) against the plain
+    version: out within 1e-2 of its largest magnitude, lse within 1e-4 on
+    the rows with a visible key and 1e-6 on those with none (about NEG)."""
+    n0 = dict(_build.LAUNCHES)
+    got, got_lse = fa.flash_attention_kernel(*args, tiles=tile_map(args[3]))
+    assert _build.LAUNCHES["flash_attention"] == n0["flash_attention"] + 1
+    assert _build.LAUNCHES["flash_backward_tiles"] \
+        == n0["flash_backward_tiles"] + 1
+    ref, ref_lse = fa.flash_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all()) and rel(got, ref) < 1e-2
+    seen = ref_lse.abs() < 1e30
+    assert rel(got_lse[seen], ref_lse[seen]) < 1e-4
+    if not bool(seen.all()):
+        assert rel(got_lse[~seen], ref_lse[~seen]) < 1e-6
+
+
+# a row that sees no key at a ragged Tk: the reference's average over
+# padded_keys(Tk) keys (256, 384, 1024), its all-NEG tiles skipped
+@pytest.mark.parametrize("tk", [200, 300, 600])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_kernel_masked_row_matches_plain(gen, tk, d):
+    kw = {"masked_row": 5, "max_bias": 8.0 if tk == 300 else 0.0}
+    args = forward_args(gen, 1, 72, tk, 4, 2, d, kw)
+    check_forward(args)
+    got, _ = fa.flash_attention_kernel(*args, tiles=tile_map(args[3]))
+    v = args[2][0, :, :, :].float()                      # (Tk, Hkv, D)
+    want = v.sum(0).repeat_interleave(2, 0) / fa.padded_keys(tk)
+    torch.cuda.synchronize()
+    assert rel(got[0, 5], want) < 1e-2
+
+
+# a mixed serving ubatch (128 rows over 2048 cells, 21 pad rows) at 4 and
+# 16 heads of 256 (a cluster of 8 and of 4 blocks a query tile); a sliding
+# window
+@pytest.mark.parametrize("b,tq,tk,hq,hkv,d,kw", [
+    (1, 128, 2048, 4, 4, 256, {"serving": True}),
+    (1, 128, 2048, 16, 16, 256, {"serving": True}),
+    (2, 300, 300, 4, 2, 64, {"window": 70}),
+    (1, 256, 256, 4, 4, 128, {"window": 100, "max_bias": 8.0,
+                              "masked_row": 130}),
+])
+def test_flash_kernel_masks_match_plain(gen, b, tq, tk, hq, hkv, d, kw):
+    check_forward(forward_args(gen, b, tq, tk, hq, hkv, d, kw))
+
+
+SKIP_CASES = [
+    # B 2 x 8 heads x 8 query tiles: 128 blocks, no split (D 64 and 256)
+    (2, 512, 512, 8, 8, 64, {}),
+    (2, 512, 512, 8, 8, 256, {"masked_row": 200}),
+    # split key ranges (clusters of 2-8 blocks)
+    (1, 300, 300, 4, 2, 128, {"window": 70, "masked_row": 5}),
+    (1, 128, 2048, 4, 4, 256, {"serving": True}),
+    (1, 200, 200, 4, 4, 64, {"max_bias": 8.0, "masked_row": 70}),
+]
+
+
+@pytest.mark.parametrize("case", SKIP_CASES)
+def test_flash_forward_skip_is_exact(gen, case):
+    """The kernel with the mask's tile map and with a map that marks every
+    tile mixed (nothing skipped, the mask read everywhere): equal bits on
+    every row with a visible key (a skipped tile adds exact zeros, and the
+    split walks the same key tiles in both); on a row with none, within
+    1e-5 (its V sum taken in another order)."""
+    from ggml_imax_tpu_torch.ops import flash_backward as fb
+    args = forward_args(gen, *case)
+    tiles = fb.backward_tile_map(args[3])
+    assert bool((tiles == fb.TILE_NEG).any())
+    every = torch.full_like(tiles, fb.TILE_MIXED)
+    (out, lse), (out_e, lse_e) = (fa.flash_attention_kernel(*args, tiles=t)
+                                  for t in (tiles, every))
+    torch.cuda.synchronize()
+    seen = (args[3] > da.NEG).any(-1)                     # (B, Tq)
+    assert torch.equal(out[seen], out_e[seen])
+    assert torch.equal(lse.transpose(1, 2)[seen], lse_e.transpose(1, 2)[seen])
+    if not bool(seen.all()):
+        assert rel(out[~seen], out_e[~seen]) < 1e-5
+    assert rel(lse, lse_e) < 1e-6
+
+
+@pytest.mark.parametrize("case", [SKIP_CASES[i] for i in (1, 2, 3)])
+def test_flash_forward_is_deterministic(gen, case):
+    """Two launches on the same inputs give the same bits (the split's
+    partial sums are added in rank order, no atomics)."""
+    args = forward_args(gen, *case)
+    tiles = tile_map(args[3])
+    first, second = (fa.flash_attention_kernel(*args, tiles=tiles)
+                     for _ in range(2))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(gen):
+    args = list(forward_args(gen, 1, 64, 64, 2, 2, 64, {}))
+    with pytest.raises(ValueError):           # a map of another shape
+        fa.flash_attention_kernel(*args, tiles=torch.zeros(
+            1, 2, 1, dtype=torch.uint8, device="cuda"))
+    with pytest.raises(ValueError):           # a mask without its map
+        fa.flash_attention_kernel(*args)
+    q = torch.randn(1, 64, 2, 72, generator=gen, device="cuda")
+    with pytest.raises(ValueError):           # D % 16 != 0
+        fa.flash_attention_kernel(*fa._prep(q, q, q, None, 0.0), 1.0, 0.0,
+                                  False)
 
 
 def test_small_gptj_on_card_matches_cpu(gen):
@@ -509,7 +665,8 @@ def backward_args(gen, b, tq, tk, hq, hkv, d, causal, kw):
         mask[:, :, row] = float("-inf")
     prep = fa._prep(q, k, v, mask, kw.get("max_bias", 0.0))
     scale, cap = 1 / math.sqrt(d), kw.get("logit_softcap", 0.0)
-    out, lse = fa.flash_attention_kernel(*prep, scale, cap, True)
+    tiles = None if mask is None else tile_map(prep[3])
+    out, lse = fa.flash_attention_kernel(*prep, scale, cap, True, tiles=tiles)
     do = torch.randn(out.shape, generator=gen, device="cuda")
     di = (do * out).sum(-1).transpose(1, 2).contiguous()
     return (*prep[:3], do.bfloat16(), *prep[3:], lse, di, scale, cap)
