@@ -13,7 +13,8 @@ Phases (any failure exits nonzero and prints no result line):
 2. kernels: each hand-written kernel against its plain PyTorch version on
    the card at the main paths' shapes (GPT-J: natpair W4A8/W4A16 (M 512,
    the serving ubatches M 8 and 128, each with the route and K split
-   it took, and its time at other K splits), decode attention, flash
+   it took, and its time at other K splits), decode attention (with the
+   cluster split decode_plan took, and its time at splits 1, 2, 4, 8), flash
    (and a row that sees no key at a ragged Tk of 200, 300 and 600);
    serving:
    cells decode attention at 8 rows over a 2048-cell arena, the fused
@@ -405,6 +406,24 @@ def split_times(timer, qmm, x, qt, plan="natpair_plan", fn="w4a16_gemm"):
         setattr(qmm, plan, planner)
 
 
+def decode_split_times(ck, timer, da, args, ref, name):
+    """The decode attention kernel's time (led) at cluster splits 1, 2, 4
+    and 8 in place of decode_plan's, each result held to the plain version
+    `ref` as the planned split is."""
+    planner = da.decode_plan
+    try:
+        for s in (1, 2, 4, 8):
+            da.decode_plan = lambda *a, s=s: s
+            err = rel_err(da.decode_attention_kernel(*args), ref)
+            if err > 1e-2:
+                ck.failures.append(f"decode_attention {name} split {s}: "
+                                   f"rel_err {err:.3e} > 1e-02")
+            yield s, timer(lambda: da.decode_attention_kernel(*args),
+                           iters=50, lead=True)
+    finally:
+        da.decode_plan = planner
+
+
 def check_gptj_kernels(ck, timer, gen):
     from ggml_imax_tpu_torch.models.common import init_kv_cache, update_kv
     from ggml_imax_tpu_torch.ops import decode_attention as da
@@ -449,9 +468,15 @@ def check_gptj_kernels(ck, timer, gen):
                 f"{s} {ms:.4f} ms" for s, ms in split_times(timer, qmm, xm, qt)))
         del qt, wd
 
-    # C: decode attention over one layer of a 512-row arena, bf16 and q8_0
+    # C: decode attention over one layer of a 512-row arena, bf16 and q8_0,
+    # the keys split over a cluster of decode_plan's blocks (and the time at
+    # other splits); a ~0.01 ms kernel, so each call is led, and the
+    # timer's own floor (one tiny led kernel) is logged beside it
     H, D, T, L = 16, 256, 512, 2
     scale = 1.0 / math.sqrt(D)
+    tiny = torch.zeros(16, device="cuda")
+    log(f"  timer floor: one tiny kernel, led, "
+        f"{timer(lambda: tiny.add_(1), iters=50, lead=True):.4f} ms")
     for kv in (torch.bfloat16, "q8_0"):
         cache = init_kv_cache(L, 1, T, H, D, kv, device="cuda")
         kk = torch.randn(1, T, H, D, generator=gen, device="cuda")
@@ -472,13 +497,20 @@ def check_gptj_kernels(ck, timer, gen):
         sdpa = torch.nn.functional.scaled_dot_product_attention
         elt = 2 if cache.ks is None else 1 + 4 / 32
         name = "bf16" if cache.ks is None else "q8_0"
-        ck.record("decode_attention", f"{name} B=1 H={H} D={D} T={T}", got, ref,
-                  1e-2,
-                  timer(lambda: da.decode_attention_kernel(*args), iters=50),
-                  timer(lambda: da.decode_attention_plain(*args), iters=5),
-                  timer(lambda: sdpa(qb, kb, vb, attn_mask=mb), iters=50),
+        ck.record("decode_attention",
+                  f"{name} B=1 H={H} D={D} T={T} S={da.decode_plan(1, H, T)}",
+                  got, ref, 1e-2,
+                  timer(lambda: da.decode_attention_kernel(*args), iters=50,
+                        lead=True),
+                  timer(lambda: da.decode_attention_plain(*args), iters=5,
+                        lead=True),
+                  timer(lambda: sdpa(qb, kb, vb, attn_mask=mb), iters=50,
+                        lead=True),
                   H * D * 4 + 2 * T * H * D * elt + T * 4 + H * D * 4,
                   4 * H * T * D, PEAK_BF16)
+        log(f"  {'':16s} {name} by split: " + ", ".join(
+            f"{s} {ms:.4f} ms" for s, ms in
+            decode_split_times(ck, timer, da, args, ref, name)))
 
     # D: flash forward at the prefill shape, plus the small GQA / ALiBi /
     # softcap / LSE cases the GPT-J path does not use
@@ -1111,7 +1143,8 @@ def _device_ms(fn, reps):
 SHARES = {"W4A16 (w4a16_gemm.cu)": ("w4a16_small_m", "w4a16_tile"),
           "nat8 W8A16 (nat8_gemm.cu)": ("nat8_small_m", "nat8_tile"),
           "flash forward (flash_attention.cu and its tile map)":
-              ("flash_fwd_kernel", "flash_bwd_tiles_kernel")}
+              ("flash_fwd_kernel", "flash_bwd_tiles_kernel"),
+          "decode attention (decode_attention.cu)": ("decode_cluster_kernel",)}
 
 
 def kernel_share(dev, busy, label, what="W4A16 (w4a16_gemm.cu)"):

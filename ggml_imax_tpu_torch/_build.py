@@ -46,9 +46,8 @@ _SIGNATURES = {
     "ggml_nat8_gemv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, q, scale, bias, xs, out, M, K, N, g, split, scale_is_bf16, stream
     "ggml_nat8_gemm": [_P] * 6 + [_I] * 6 + [_P],
-    # q, k, v, ks, vs, mask, out, B, Hq, Hkv, D, T, scale, stream
-    "ggml_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                              _I, _F, _P],
+    # q, k, v, ks, vs, mask, out, B, Hq, Hkv, D, T, split, scale, stream
+    "ggml_decode_attention": [_P] * 7 + [_I] * 6 + [_F, _P],
     # q, k, v, mask, slopes, tiles, out, lse, B, Tq, Tk, Hq, Hkv, D, scale,
     # softcap, stream
     "ggml_flash_attention": [_P] * 8 + [_I] * 6 + [_F, _F, _P],

@@ -2,7 +2,9 @@
 (counterpart of ggml_imax_tpu/ops/decode_attention.py). Three kernels:
 
 - `decode_attention` (csrc/decode_attention.cu): one query row per arena
-  batch row, read only (`decode_attention_stacked`, the "kernel" route);
+  batch row, read only (`decode_attention_stacked`, the "kernel" route),
+  its keys split over a thread-block cluster of `decode_plan` blocks in
+  one launch;
 - `decode_attention_cells` (csrc/decode_attention_cells.cu): NB query rows
   of distinct sequences over the one shared cell arena of continuous
   batching, read only, the arena read once for all rows (the "cells2"
@@ -30,6 +32,11 @@ from ..models.common import _q8_rows
 NEG = -0.7 * float(np.finfo(np.float32).max)
 # keys per block of the split-KV kernels (csrc/decode_split.cuh)
 SPLIT = 64
+# csrc/decode_attention.cu: the H100's SMs, the most blocks of a portable
+# cluster, and the floats of one block's scores in shared memory
+SMS = 132
+MAX_SPLIT = 8
+_MAX_SCORES = 16384
 
 
 def _dense(x, xs, rows: int, hkv: int):
@@ -95,18 +102,52 @@ def _split_workspace(B, Hq, D, T, device):
             torch.empty(B, Hq, parts, 2, dtype=torch.float32, device=device))
 
 
+def decode_plan(B: int, Hkv: int, T: int) -> int:
+    """The blocks S of one thread-block cluster that share the T keys of a
+    (batch row, kv head) in csrc/decode_attention.cu: as many as bring
+    S * Hkv * B to the card's SMs, at most MAX_SPLIT and at most T (1 once
+    B * Hkv fills the SMs alone). GPT-J batch 1 (16 kv heads): 8."""
+    return max(1, min(MAX_SPLIT, T, SMS // (B * Hkv)))
+
+
+def decode_slices(T: int, S: int):
+    """The keys [lo, hi) of each rank of the cluster, in rank order: rank r
+    owns [r ceil(T/S), (r + 1) ceil(T/S)) cut to [0, T) (empty past T)."""
+    chunk = -(-T // S)
+    return [(min(r * chunk, T), min((r + 1) * chunk, T)) for r in range(S)]
+
+
+def _group(rep: int) -> int:
+    """Query heads of one kv head that a block serves (the kernel's kG)."""
+    return 1 if rep == 1 else 2 if rep == 2 else 4 if rep <= 4 else 8
+
+
 def decode_attention_kernel(q3, k, v, ks, vs, mask2, hkv: int, scale: float):
-    """Launch csrc/decode_attention.cu on one layer's arena slices."""
+    """Launch csrc/decode_attention.cu on one layer's arena slices, its keys
+    split over a cluster of decode_plan(B, hkv, T) blocks. Takes D 128 or
+    256 and 16-byte aligned arena slices; raises on anything else, without
+    a launch."""
     B, Hq, D = q3.shape
     T = k.shape[1]
     _check_arena("decode_attention", q3, k, v, ks, vs, hkv, B)
+    if D not in (128, 256):
+        raise ValueError(f"decode_attention: the kernel takes D 128 or 256 "
+                         f"(D % 128 == 0, D <= 256), not {D}")
+    for name, t in (("k", k), ("v", v), ("ks", ks), ("vs", vs)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"decode_attention: the arena slice {name} is "
+                             f"not 16-byte aligned")
+    S = decode_plan(B, hkv, T)
+    if -(-T // S) * _group(Hq // hkv) > _MAX_SCORES:
+        raise ValueError(f"decode_attention: {T} keys in {S} slices do not "
+                         f"fit a block's {_MAX_SCORES} scores")
     q3 = q3.float().contiguous()
     mask2 = mask2.float().contiguous()
     out = torch.empty(B, Hq, D, dtype=torch.float32, device=q3.device)
     rc = _build.lib().ggml_decode_attention(
         q3.data_ptr(), k.data_ptr(), v.data_ptr(), _build.ptr(ks),
         _build.ptr(vs), mask2.data_ptr(), out.data_ptr(), B, Hq, hkv, D, T,
-        float(scale), _build.stream_ptr(q3))
+        S, float(scale), _build.stream_ptr(q3))
     _build.check(rc, "decode_attention")
     _build.LAUNCHES["decode_attention"] += 1
     return out

@@ -32,9 +32,17 @@ def bf16_inputs(rng, *shapes):
                        .astype(jnp.float32)) for s in shapes]
 
 
-@pytest.mark.parametrize("kv", ["bf16", "q8_0"])
-def test_decode_attention_plain_matches_kernel(kv):
-    L, B, N, H, D = 2, 2, 256, 2, 128
+# hq, hkv, D, and a batch row that sees no key (the mean of V), or None
+DECODE_CASES = {"": (2, 2, 128, None), "gqa-8-2-d256": (8, 2, 256, None),
+                "masked-row": (2, 2, 128, 1)}
+
+
+@pytest.mark.parametrize("kv,case", [
+    pytest.param(kv, case, id=f"{kv}-{case}" if case else kv)
+    for case in DECODE_CASES for kv in ("bf16", "q8_0")])
+def test_decode_attention_plain_matches_kernel(kv, case):
+    Hq, H, D, masked_row = DECODE_CASES[case]
+    L, B, N = 2, 2, 256
     n_past = 200
     rng = np.random.default_rng(0)
     jd, td = (jnp.bfloat16, torch.bfloat16) if kv == "bf16" else ("q8_0",) * 2
@@ -45,15 +53,18 @@ def test_decode_attention_plain_matches_kernel(kv):
     for li in range(L):
         jc = jcommon.update_kv(jc, li, jnp.asarray(k), jnp.asarray(v), 0)
         tcommon.update_kv(tc, li, T(k), T(v), 0)
-    q = rng.standard_normal((B, 1, H, D)).astype(np.float32)
+    q = rng.standard_normal((B, 1, Hq, D)).astype(np.float32)
     pos = np.full((B, 1), n_past, np.int32)
     jmask = jcommon.attention_mask(jnp.asarray(pos), N, n_past)
     tmask = tcommon.attention_mask(T(pos).long(), N, n_past)
+    if masked_row is not None:
+        jmask = jmask.at[masked_row].set(-jnp.inf)
+        tmask[masked_row] = float("-inf")
     for li in range(L):
         ref = jdec.decode_attention_stacked(jc, li, jnp.asarray(q), jmask,
                                             interpret=True)
         got = tdec.decode_attention(tc, li, T(q), tmask)
-        assert got.shape == (B, 1, H, D)
+        assert got.shape == (B, 1, Hq, D)
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
                                    atol=2e-2)
 

@@ -161,23 +161,108 @@ def test_w4a16_refuses_what_the_kernel_does_not_take(gen):
     check_w4a16(qt, xf)
 
 
-@pytest.mark.parametrize("kv", [torch.bfloat16, "q8_0"])
-@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
-def test_decode_attention_kernel_matches_plain(gen, kv, hq, hkv):
-    L, B, T, D = 2, 2, 384, 128
-    cache = init_kv_cache(L, B, T, hkv, D, kv, device="cuda")
-    k = torch.randn(B, 300, hkv, D, generator=gen, device="cuda")
-    v = torch.randn(B, 300, hkv, D, generator=gen, device="cuda")
+def decode_args(gen, kv, B, hq, hkv, D, T, visible, masked_row=None):
+    """One layer's arena of T random keys (layer 1 of 2), queries, and a
+    mask that shows each row its first `visible` keys (none to
+    `masked_row`)."""
+    cache = init_kv_cache(2, B, T, hkv, D, kv, device="cuda")
+    k = torch.randn(B, T, hkv, D, generator=gen, device="cuda")
+    v = torch.randn(B, T, hkv, D, generator=gen, device="cuda")
     update_kv(cache, 1, k, v, 0)
     q = torch.randn(B, hq, D, generator=gen, device="cuda")
     mask = torch.zeros(B, T, device="cuda")
-    mask[:, 300:] = da.NEG
-    args = (q, cache.k[1], cache.v[1],
+    mask[:, visible:] = da.NEG
+    if masked_row is not None:
+        mask[masked_row] = da.NEG
+    return (q, cache.k[1], cache.v[1],
             None if cache.ks is None else cache.ks[1],
             None if cache.vs is None else cache.vs[1], mask, hkv,
             1 / math.sqrt(D))
-    assert rel(da.decode_attention_kernel(*args),
-               da.decode_attention_plain(*args)) < 1e-2
+
+
+# b, hq, hkv, d, T, visible keys, the split the plan gives, or a forced one
+DECODE_CASES = {
+    "gptj": (1, 16, 16, 256, 512, 500, 8),        # n_past 499
+    "b2 4:4": (2, 4, 4, 128, 384, 300, 8),
+    "b2 8:2": (2, 8, 2, 128, 384, 300, 8),
+    "gqa 6:2": (1, 6, 2, 256, 256, 200, 8),       # 3 of a block's 4 heads
+    "gqa 16:1": (1, 16, 1, 128, 256, 256, 8),     # two blocks of 8 heads
+    "ragged T 300": (1, 16, 16, 256, 300, 290, 8),   # slices of 38, last 34
+    "ragged T 1000": (2, 20, 10, 128, 1000, 990, 6),  # slices of 167, last 165
+    "tiny T 5": (1, 16, 16, 256, 5, 5, 5),
+    "T 9, ranks 5-7 empty": (1, 16, 16, 256, 9, 9, 8),
+    "tiny T 5 at split 8": (1, 16, 16, 256, 5, 5, "8"),
+    "b8 x 16 heads": (8, 16, 16, 256, 512, 400, 1),  # V past 128 staged rows
+}
+
+
+@pytest.mark.parametrize("kv", [torch.bfloat16, "q8_0"])
+@pytest.mark.parametrize("case", list(DECODE_CASES))
+def test_decode_attention_kernel_matches_plain(gen, monkeypatch, kv, case):
+    B, hq, hkv, D, T, visible, split = DECODE_CASES[case]
+    if isinstance(split, str):                        # forced past the plan
+        monkeypatch.setattr(da, "decode_plan", lambda *a: int(split))
+    else:
+        assert da.decode_plan(B, hkv, T) == split
+    args = decode_args(gen, kv, B, hq, hkv, D, T, visible)
+    err = rel(da.decode_attention_kernel(*args),
+              da.decode_attention_plain(*args))
+    print(f"decode_attention {case} {kv}: rel {err:.3e}")   # shown with -s
+    assert err < 1e-2
+
+
+@pytest.mark.parametrize("kv", [torch.bfloat16, "q8_0"])
+def test_decode_attention_masked_row_is_mean_of_v(gen, kv):
+    """A batch row whose keys are all masked scores NEG everywhere: p = 1
+    on every key, the mean of the (bf16-rounded) V rows, as the plain
+    version gives; the other row is held to the plain version as usual."""
+    B, hq, hkv, D, T = 2, 8, 2, 256, 512
+    args = decode_args(gen, kv, B, hq, hkv, D, T, 500, masked_row=1)
+    got = da.decode_attention_kernel(*args)
+    err = rel(got, da.decode_attention_plain(*args))
+    print(f"decode_attention masked row {kv}: rel {err:.3e}")   # shown with -s
+    assert err < 1e-2
+    mean = da._dense(args[2], args[4], B, hkv).mean(dim=2) \
+        .repeat_interleave(hq // hkv, dim=1)
+    # f32 sums of 512 values in another order: ~1e-6 apart
+    assert rel(got[1], mean[1]) < 1e-4
+
+
+@pytest.mark.parametrize("kv", [torch.bfloat16, "q8_0"])
+def test_decode_attention_is_deterministic_and_counted(gen, kv):
+    args = decode_args(gen, kv, 1, 16, 16, 256, 512, 500)
+    before = _build.LAUNCHES["decode_attention"]
+    first = da.decode_attention_kernel(*args)
+    assert _build.LAUNCHES["decode_attention"] == before + 1
+    second = da.decode_attention_kernel(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["decode_attention"] == before + 2
+    assert torch.equal(first, second)
+
+
+def test_decode_attention_refuses_what_the_kernel_does_not_take(gen):
+    before = _build.LAUNCHES["decode_attention"]
+    for D in (384, 64):
+        args = decode_args(gen, torch.bfloat16, 1, 4, 4, D, 64, 64)
+        with pytest.raises(ValueError, match="D 128 or 256"):
+            da.decode_attention_kernel(*args)
+    # a bf16 arena slice 2 bytes off its 16-byte alignment
+    q, k, v, ks, vs, mask, hkv, scale = decode_args(
+        gen, torch.bfloat16, 1, 4, 4, 128, 64, 64)
+    buf = torch.empty(k.numel() + 1, dtype=k.dtype, device="cuda")
+    k1 = buf[1:].view(k.shape)
+    k1.copy_(k)
+    with pytest.raises(ValueError, match="aligned"):
+        da.decode_attention_kernel(q, k1, v, ks, vs, mask, hkv, scale)
+    # a q8_0 scale slice 4 bytes off
+    q, k, v, ks, vs, mask, hkv, scale = decode_args(
+        gen, "q8_0", 1, 4, 4, 128, 64, 64)
+    buf = torch.empty(vs.numel() + 1, dtype=vs.dtype, device="cuda")
+    vs1 = buf[1:].view(vs.shape)
+    vs1.copy_(vs)
+    with pytest.raises(ValueError, match="aligned"):
+        da.decode_attention_kernel(q, k, v, ks, vs1, mask, hkv, scale)
+    assert _build.LAUNCHES["decode_attention"] == before
 
 
 @pytest.mark.parametrize("b,tq,tk,hq,hkv,d,kw", [
