@@ -11,8 +11,9 @@ Phases (any failure exits nonzero and prints no result line):
 1. setup: device facts, `nvidia-smi` name and power limit, the kernel build
    from ggml_imax_tpu_torch/csrc (nvcc -Xptxas -v summary);
 2. kernels: each hand-written kernel against its plain PyTorch version on
-   the card at the main paths' shapes (GPT-J: natpair W4A8/W4A16 (M 512,
-   the serving ubatches M 8 and 128, each with the route and K split
+   the card at the main paths' shapes (GPT-J: natpair W4A8 at m 1 (with
+   the K split w4a8_plan took, and its time at other K splits), W4A16 (M
+   512, the serving ubatches M 8 and 128, each with the route and K split
    it took, and its time at other K splits), decode attention (with the
    cluster split decode_plan took, and its time at splits 1, 2, 4, 8), flash
    (and a row that sees no key at a ragged Tk of 200, 300 and 600);
@@ -406,22 +407,21 @@ def split_times(timer, qmm, x, qt, plan="natpair_plan", fn="w4a16_gemm"):
         setattr(qmm, plan, planner)
 
 
-def decode_split_times(ck, timer, da, args, ref, name):
-    """The decode attention kernel's time (led) at cluster splits 1, 2, 4
-    and 8 in place of decode_plan's, each result held to the plain version
-    `ref` as the planned split is."""
-    planner = da.decode_plan
+def forced_split_times(ck, timer, mod, plan, splits, call, ref, tol, name):
+    """A kernel's time (led) at each split of `splits` in place of its
+    plan's (`mod.plan` forced to return it), each result of `call` held to
+    the plain version `ref` as the planned split is."""
+    planner = getattr(mod, plan)
     try:
-        for s in (1, 2, 4, 8):
-            da.decode_plan = lambda *a, s=s: s
-            err = rel_err(da.decode_attention_kernel(*args), ref)
-            if err > 1e-2:
-                ck.failures.append(f"decode_attention {name} split {s}: "
-                                   f"rel_err {err:.3e} > 1e-02")
-            yield s, timer(lambda: da.decode_attention_kernel(*args),
-                           iters=50, lead=True)
+        for s in splits:
+            setattr(mod, plan, lambda *a, s=s: s)
+            err = rel_err(call(), ref)
+            if err > tol:
+                ck.failures.append(f"{name} split {s}: rel_err {err:.3e} > "
+                                   f"{tol:.0e}")
+            yield s, timer(call, iters=50, lead=True)
     finally:
-        da.decode_plan = planner
+        setattr(mod, plan, planner)
 
 
 def check_gptj_kernels(ck, timer, gen):
@@ -431,23 +431,45 @@ def check_gptj_kernels(ck, timer, gen):
 
     E = GPTJ_6B["n_embd"]
     shapes = {"qkvf_w": (E, 7 * E), "of_w": (5 * E, E), "lm_head": (E, 51200)}
+    # the W4A8 GEMVs and decode attention take ~0.01-0.06 ms, so they are
+    # timed led, beside the timer's own floor (one tiny led kernel)
+    tiny = torch.zeros(16, device="cuda")
+    log(f"  timer floor: one tiny kernel, led, "
+        f"{timer(lambda: tiny.add_(1), iters=50, lead=True):.4f} ms")
     for label, (K, N) in shapes.items():
         qt = random_natpair(K, N, gen)
         wd = qmm.dequant_bf16(qt)                     # library yardstick only
         sbytes = qt.scale.numel() * qt.scale.element_size()
-        # A: W4A8 GEMV at m = 1
+        # A: W4A8 GEMV at m = 1, K cut as w4a8_plan says (and its time at
+        # other K splits); also timed unled, as it was before the timer led
         x = torch.randn(1, K, generator=gen, device="cuda")
         x8, dx = qmm.quantize_activations_q8(x)
         x8, dx = x8[:, 0].contiguous(), dx[:, 0].contiguous()
         got = qmm.w4a8_gemv(x8, dx, qt)
         ref = qmm.w4a8_gemv_plain(x8, dx, qt)
         xb = x.to(torch.bfloat16)
-        ck.record("w4a8_gemv", f"{label} m=1 K={K} N={N}", got, ref, 1e-4,
-                  timer(lambda: qmm.w4a8_gemv(x8, dx, qt)),
+        row = f"{label} m=1 K={K} N={N} split {qmm.w4a8_plan(K, N)}"
+        ck.record("w4a8_gemv", row, got, ref, 1e-4,
+                  timer(lambda: qmm.w4a8_gemv(x8, dx, qt), iters=50,
+                        lead=True),
                   timer(lambda: qmm.w4a8_gemv_plain(x8, dx, qt), iters=3),
-                  timer(lambda: torch.matmul(xb, wd)),
+                  timer(lambda: torch.matmul(xb, wd), iters=50, lead=True),
                   K * N // 2 + sbytes + K + K // 32 * 4 + N * 4, 2 * K * N,
                   PEAK_INT8)
+        # a yardstick of the stream alone: torch's amax over the weight's
+        # bytes (no scales), led
+        qi = qt.q.view(torch.int32)
+        log(f"  {'':16s} {label} m=1 unled: kernel "
+            f"{timer(lambda: qmm.w4a8_gemv(x8, dx, qt)):.4f} ms, library "
+            f"{timer(lambda: torch.matmul(xb, wd)):.4f} ms; led amax over "
+            f"the weight's {K * N // 2 / 1e6:.1f} MB "
+            f"{timer(lambda: qi.amax(), iters=50, lead=True):.4f} ms")
+        log(f"  {'':16s} {label} m=1 by K split: " + ", ".join(
+            f"{s} {ms:.4f} ms" for s, ms in forced_split_times(
+                ck, timer, qmm, "w4a8_plan",
+                [s for s in (1, 2, 4, 5, 8) if (K // 32) % s == 0],
+                lambda: qmm.w4a8_gemv(x8, dx, qt), ref, 1e-4,
+                f"w4a8_gemv {label}")))
         # B: W4A16 GEMM at the prefill bucket M = 512, the serving
         # decode-only ubatch M = 8 and a mixed serving ubatch's bucket 128,
         # each with the route and K split it takes
@@ -470,13 +492,9 @@ def check_gptj_kernels(ck, timer, gen):
 
     # C: decode attention over one layer of a 512-row arena, bf16 and q8_0,
     # the keys split over a cluster of decode_plan's blocks (and the time at
-    # other splits); a ~0.01 ms kernel, so each call is led, and the
-    # timer's own floor (one tiny led kernel) is logged beside it
+    # other splits), each call led
     H, D, T, L = 16, 256, 512, 2
     scale = 1.0 / math.sqrt(D)
-    tiny = torch.zeros(16, device="cuda")
-    log(f"  timer floor: one tiny kernel, led, "
-        f"{timer(lambda: tiny.add_(1), iters=50, lead=True):.4f} ms")
     for kv in (torch.bfloat16, "q8_0"):
         cache = init_kv_cache(L, 1, T, H, D, kv, device="cuda")
         kk = torch.randn(1, T, H, D, generator=gen, device="cuda")
@@ -509,8 +527,10 @@ def check_gptj_kernels(ck, timer, gen):
                   H * D * 4 + 2 * T * H * D * elt + T * 4 + H * D * 4,
                   4 * H * T * D, PEAK_BF16)
         log(f"  {'':16s} {name} by split: " + ", ".join(
-            f"{s} {ms:.4f} ms" for s, ms in
-            decode_split_times(ck, timer, da, args, ref, name)))
+            f"{s} {ms:.4f} ms" for s, ms in forced_split_times(
+                ck, timer, da, "decode_plan", (1, 2, 4, 8),
+                lambda: da.decode_attention_kernel(*args), ref, 1e-2,
+                f"decode_attention {name}")))
 
     # D: flash forward at the prefill shape, plus the small GQA / ALiBi /
     # softcap / LSE cases the GPT-J path does not use
@@ -1140,7 +1160,8 @@ def _device_ms(fn, reps):
 
 
 # kernel file -> the kernel names of its routes in a profile
-SHARES = {"W4A16 (w4a16_gemm.cu)": ("w4a16_small_m", "w4a16_tile"),
+SHARES = {"W4A8 (w4a8_gemv.cu)": ("w4a8_split_k",),
+          "W4A16 (w4a16_gemm.cu)": ("w4a16_small_m", "w4a16_tile"),
           "nat8 W8A16 (nat8_gemm.cu)": ("nat8_small_m", "nat8_tile"),
           "flash forward (flash_attention.cu and its tile map)":
               ("flash_fwd_kernel", "flash_bwd_tiles_kernel"),

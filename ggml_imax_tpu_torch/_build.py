@@ -38,8 +38,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> argtypes (every pointer and the stream are c_void_p)
 _SIGNATURES = {
-    # x8, dx, q, scale, bias, xs, out, K, N, scale_is_bf16, stream
-    "ggml_w4a8_gemv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x8, dx, q, scale, bias, xs, out, K, N, split, scale_is_bf16, stream
+    "ggml_w4a8_gemv": [_P] * 7 + [_I] * 4 + [_P],
     # x, q, scale, bias, xs, out, M, K, N, split, scale_is_bf16, stream
     "ggml_w4a16_gemm": [_P] * 6 + [_I] * 5 + [_P],
     # x8, dx, q, scale, bias, xs, out, K, N, g, scale_is_bf16, stream

@@ -26,7 +26,8 @@ rows and reorder the rows inside each tile (NB = bk / group):
 Seven kernels, each with a plain PyTorch version beside it:
 
 - `w4a8_gemv` (natpair, m == 1, decode): Q8_0 activations, per-block int32
-  dots, f32 scale epilogue — csrc/w4a8_gemv.cu.
+  dots, f32 scale epilogue, K cut across blocks as `w4a8_plan` says —
+  csrc/w4a8_gemv.cu.
 - `w4a16_gemm` (natpair, m > 1): bf16 activations times bf16-rounded
   dequantized weights, f32 accumulation, a small-M route up to m = 8 and a
   tile route above, K cut across blocks as `natpair_plan` says —
@@ -247,24 +248,46 @@ def w4a8_gemv_plain(x8, dx, qt: QTensor, xs=None) -> torch.Tensor:
     return out
 
 
+# csrc/w4a8_gemv.cu's blocks own 128 columns each (kCols); K is cut across
+# blocks into pieces of whole quant blocks, the pieces of a column block one
+# thread-block cluster
+_W4A8_COLS = 128
+
+
+def w4a8_plan(k: int, n: int) -> int:
+    """K split of the W4A8 GEMV (csrc/w4a8_gemv.cu): the least divisor of
+    K/32 (at most 8) whose 128-column blocks give the 132 SMs one each, as
+    `_fill_split` says."""
+    return _fill_split(-(-n // _W4A8_COLS), k // 32)
+
+
 def w4a8_gemv(x8, dx, qt: QTensor, xs=None) -> torch.Tensor:
     """W4A8 GEMV: Q8_0 activations x8 (K/32, 32) int8 with d_x dx (K/32) f32
     (and per-block sums xs = dx * sum(x8) when the weight has a bias) times
-    natpair weights -> (N,) f32."""
+    natpair weights -> (N,) f32, K cut as `w4a8_plan` says."""
     _check_layout(qt, "nib4", 3)
     if x8.shape != (qt.k // 32, 32) or dx.shape != (qt.k // 32,):
         raise ValueError(f"w4a8_gemv: x8 {tuple(x8.shape)} for K={qt.k}")
+    if qt.bias is not None and (xs is None or xs.shape != dx.shape):
+        raise ValueError("w4a8_gemv: a weight with a bias needs xs (K/32)")
     if x8.device.type == "cpu":
         return w4a8_gemv_plain(x8, dx, qt, xs)
-    if qt.n % 4 or x8.dtype != torch.int8 or dx.dtype != torch.float32:
-        raise ValueError("w4a8_gemv: N % 4, int8 x8 and f32 dx required")
+    if qt.n % _W4A8_COLS or qt.k % 32 or x8.dtype != torch.int8 \
+            or dx.dtype != torch.float32:
+        raise ValueError("w4a8_gemv: N % 128, K % 32, int8 x8 and f32 dx "
+                         "required")
     x8, dx = x8.contiguous(), dx.contiguous()
+    if any(t.data_ptr() % 16 for t in (x8, qt.q, qt.scale, qt.bias)
+           if t is not None):
+        raise ValueError("w4a8_gemv: a 16-byte aligned x8, weight, scale and "
+                         "bias required")
     xs = None if qt.bias is None else xs.float().contiguous()
     out = torch.empty(qt.n, dtype=torch.float32, device=x8.device)
     rc = _build.lib().ggml_w4a8_gemv(
         x8.data_ptr(), dx.data_ptr(), qt.q.data_ptr(), qt.scale.data_ptr(),
         _build.ptr(qt.bias), _build.ptr(xs), out.data_ptr(), qt.k, qt.n,
-        int(qt.scale.dtype == torch.bfloat16), _build.stream_ptr(x8))
+        w4a8_plan(qt.k, qt.n), int(qt.scale.dtype == torch.bfloat16),
+        _build.stream_ptr(x8))
     _build.check(rc, "w4a8_gemv")
     _build.LAUNCHES["w4a8_gemv"] += 1
     return out
@@ -322,6 +345,17 @@ def _k_splits(units: int, most: int) -> list[int]:
     return [s for s in range(1, min(units, most) + 1) if units % s == 0]
 
 
+def _fill_split(blocks: int, units: int) -> int:
+    """K split of a GEMV-shaped launch of `blocks` column blocks over K's
+    `units` pieces: the least divisor of units (at most 8, a cluster's
+    blocks) that gives the 132 SMs a block each, 1 when the column blocks
+    alone fill them, the largest when none does."""
+    if blocks >= _SMS:
+        return 1
+    splits = _k_splits(units, _A16_MAX_SPLIT)
+    return next((s for s in splits if blocks * s >= _SMS), splits[-1])
+
+
 def _tile_split(m: int, k: int, n: int) -> int:
     """K split of an A16 tile route with the launch shapes above (one block
     an SM): the least waves x (steps a block + the cluster sum's cost in
@@ -341,12 +375,7 @@ def natpair_plan(m: int, k: int, n: int) -> tuple[str, int]:
     bytes) takes the least split that gives the 132 SMs a block each, or
     the largest when none does; the tile route as `_tile_split` says."""
     if m <= _A16_SMALL_MAX_M:
-        blocks, units = -(-n // _A16_COLS), k // 32
-        if blocks >= _SMS:
-            return "small", 1
-        splits = _k_splits(units, _A16_MAX_SPLIT)
-        return "small", next((s for s in splits if blocks * s >= _SMS),
-                             splits[-1])
+        return "small", _fill_split(-(-n // _A16_COLS), k // 32)
     return "tile", _tile_split(m, k, n)
 
 

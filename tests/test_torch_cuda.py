@@ -7,6 +7,7 @@ on a machine with one:
 The kernels are built from ggml_imax_tpu_torch/csrc at first use.
 """
 import math
+from dataclasses import replace
 
 import numpy as np
 import pytest
@@ -53,18 +54,100 @@ def natpair(K, N, gen, scale_dtype=torch.float32, bias=False):
                    interleaved_bk=512, q4_layout=3)
 
 
+# (K, N): the first case; a long K on 4 column blocks (split 8); K with an
+# odd (3) and a prime-times-3 (33) number of quant blocks (split 3)
+W4A8_SHAPES = [(2048, 1280), (20480, 512), (96, 128), (1056, 384)]
+
+
 @pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bias", [False, True])
-def test_w4a8_kernel_matches_plain(gen, scale_dtype, bias):
-    qt = natpair(2048, 1280, gen, scale_dtype, bias)
-    x = torch.randn(1, 2048, generator=gen, device="cuda")
+@pytest.mark.parametrize("k,n", W4A8_SHAPES)
+def test_w4a8_kernel_matches_plain(gen, scale_dtype, bias, k, n):
+    qt = natpair(k, n, gen, scale_dtype, bias)
+    x = torch.randn(1, k, generator=gen, device="cuda")
     before = _build.LAUNCHES["w4a8_gemv"]
     got = qmm.qmatmul_natpair(x, qt)
     assert _build.LAUNCHES["w4a8_gemv"] == before + 1
     x8, dx = qmm.quantize_activations_q8(x)
     xs = dx[:, 0] * x8[:, 0].float().sum(-1)
     ref = qmm.w4a8_gemv_plain(x8[:, 0], dx[:, 0], qt, xs)
-    assert rel(got[0], ref) < 1e-5
+    err = rel(got[0], ref)
+    print(f"w4a8_gemv K {k} N {n}: rel {err:.3e}")      # shown with -s
+    assert err < 1e-5
+
+
+def check_w4a8(qt, x, launches=1):
+    """`launches` wrapper calls on x (1, K), each counted, each giving the
+    same bits, against the plain version."""
+    x8, dx = qmm.quantize_activations_q8(x)
+    x8, dx = x8[:, 0], dx[:, 0]
+    xs = None if qt.bias is None else dx * x8.float().sum(-1)
+    before = _build.LAUNCHES["w4a8_gemv"]
+    runs = [qmm.w4a8_gemv(x8, dx, qt, xs) for _ in range(launches)]
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["w4a8_gemv"] == before + launches
+    ref = qmm.w4a8_gemv_plain(x8, dx, qt, xs)
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    err = rel(runs[0], ref)
+    print(f"w4a8_gemv K {qt.k} N {qt.n} split {qmm.w4a8_plan(qt.k, qt.n)}: "
+          f"rel {err:.3e}")                                 # shown with -s
+    assert err < 1e-5
+
+
+# every split the plan may pick (a divisor of K/32, at most 8), forced:
+# GPT-J's of_w (640 quant blocks), a long K on 4 column blocks, K 1344 (42
+# quant blocks: 3, 6, 7), the odd K 96 and 1056
+W4A8_SPLITS = [(k, n, s) for k, n in [(20480, 4096), (20480, 512), (1344, 256),
+                                      (96, 128), (1056, 384)]
+               for s in range(1, 9) if (k // 32) % s == 0]
+
+
+@pytest.mark.parametrize("k,n,split", W4A8_SPLITS)
+@pytest.mark.parametrize("scale_dtype,bias", [(torch.float32, False),
+                                              (torch.bfloat16, True)])
+def test_w4a8_every_split_matches_plain(gen, monkeypatch, k, n, split,
+                                        scale_dtype, bias):
+    qt = natpair(k, n, gen, scale_dtype, bias)
+    x = torch.randn(1, k, generator=gen, device="cuda")
+    monkeypatch.setattr(qmm, "w4a8_plan", lambda *a: split)
+    check_w4a8(qt, x, launches=2)
+
+
+@pytest.mark.parametrize("nibble", [0, 15])
+@pytest.mark.parametrize("scale_dtype,bias", [(torch.float32, False),
+                                              (torch.bfloat16, True)])
+def test_w4a8_extremes(gen, nibble, scale_dtype, bias):
+    """Every weight at q = 0 (-8) or 15 (+7), every x8 at +-127: the
+    integer dots' largest magnitudes."""
+    qt = natpair(20480, 512, gen, scale_dtype, bias)
+    qt.q.fill_((nibble ^ 8) * 0x11)
+    x = torch.randn(1, 20480, generator=gen, device="cuda").sign() * 3.0
+    x8, _ = qmm.quantize_activations_q8(x)
+    assert int(x8.abs().min()) == 127
+    check_w4a8(qt, x)
+
+
+def test_w4a8_one_launch_a_call_when_split(gen):
+    qt = natpair(20480, 512, gen)
+    assert qmm.w4a8_plan(20480, 512) == 8
+    check_w4a8(qt, torch.randn(1, 20480, generator=gen, device="cuda"),
+               launches=3)
+
+
+def test_w4a8_refuses_what_the_kernel_does_not_take(gen):
+    x8 = torch.zeros(16, 32, dtype=torch.int8, device="cuda")
+    dx = torch.ones(16, device="cuda")
+    before = _build.LAUNCHES["w4a8_gemv"]
+    with pytest.raises(ValueError, match="N % 128"):
+        qmm.w4a8_gemv(x8, dx, natpair(512, 192, gen))
+    qt = natpair(512, 256, gen)
+    with pytest.raises(ValueError, match="int8 x8"):
+        qmm.w4a8_gemv(x8.to(torch.uint8), dx, qt)
+    s = torch.empty(16 * 256 + 1, device="cuda")[1:].view(16, 256)
+    s.copy_(qt.scale)
+    with pytest.raises(ValueError, match="16-byte"):
+        qmm.w4a8_gemv(x8, dx, replace(qt, scale=s))
+    assert _build.LAUNCHES["w4a8_gemv"] == before
 
 
 @pytest.mark.parametrize("m", [8, 100, 512])

@@ -48,12 +48,15 @@ def test_quantize_activations_q8_bit_exact():
     np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
 
 
+# K 20480 x N 256: GPT-J's of_w depth, the long K the kernel cuts across a
+# cluster of 8 blocks
 @pytest.mark.parametrize("fmt", ["Q4_0", "Q4_1"])          # Q4_1: bias term
 @pytest.mark.parametrize("scale_dtype", ["f32", "bf16"])
-def test_w4a8_plain_matches_reference(fmt, scale_dtype):
-    j, t = natpair_pair(fmt, 1024, 256, scale_dtype, seed=1)
+@pytest.mark.parametrize("k", [1024, 20480])
+def test_w4a8_plain_matches_reference(fmt, scale_dtype, k):
+    j, t = natpair_pair(fmt, k, 256, scale_dtype, seed=1)
     assert (t.bias is not None) == (fmt == "Q4_1")
-    x = np.random.default_rng(2).standard_normal((1, 1024)).astype(np.float32)
+    x = np.random.default_rng(2).standard_normal((1, k)).astype(np.float32)
     ref = jpq._qmatmul_natpair_w4a8(jnp.asarray(x), j, bn=2048, interpret=True)
     got = tqmm.qmatmul_natpair(torch.from_numpy(x), t)
     assert got.shape == (1, 256)
