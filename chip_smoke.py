@@ -20,7 +20,8 @@ Phases (any failure exits nonzero and prints no result line):
    serving:
    cells decode attention at 8 rows over a 2048-cell arena, the fused
    KV-update kernel in flat mode at T 512 and in cells mode at 8 rows x
-   2048, flash at a mixed ubatch's 128 rows over that q8_0 arena; GPT-2
+   2048 (with its time at cluster splits 1, 2, 4, 8), these timed led,
+   flash at a mixed ubatch's 128 rows over that q8_0 arena; GPT-2
    XL: nat8 W8A8 on fc_w, W8A16 on fc_w at M 512, 5, 8 and 128 (per-32
    f32 scales, and per-16 bf16 scales with a bias), each with the route
    and K split it took and its time at other K splits, flash at D = 64;
@@ -93,6 +94,12 @@ Phases (any failure exits nonzero and prints no result line):
    held to the same with every plain version on the card (KQ_ROUTE_TOL),
    and a planted fault (the plane-split kernel with its low and high
    scale rows swapped) that must fail that check.
+
+    python3 chip_smoke.py --serving-kernels [ROOT]
+
+runs phases 1 and 2's serving kernels alone (rows 14-15 of PERF.md's
+kernel table, timed led), on the port of the checkout at ROOT (default:
+this one): the same script times another commit's kernels.
 
 Each engine phase, and the timed training steps, sets the launch counters
 to 0 just before its run and reads them just after. Every flash forward
@@ -578,13 +585,14 @@ def check_serving_kernels(ck, timer, gen):
                        None if cache.vs is None else cache.vs[1])
 
     def library(q3, k, v, ks, vs, visible):
-        """SDPA over the dequantized arena with a boolean mask (yardstick)."""
+        """SDPA over the dequantized arena with a boolean mask (yardstick),
+        led."""
         B = q3.shape[0]
         kd, vd = (da._dense(x, xs, B, H).to(torch.bfloat16)
                   for x, xs in ((k, ks), (v, vs)))
         qb = q3.to(torch.bfloat16)[:, :, None]
         return timer(lambda: sdpa(qb, kd, vd, attn_mask=visible[:, None, None]),
-                     iters=50)
+                     iters=50, lead=True)
 
     def elt(cache):
         return 2 if cache.ks is None else 1 + 4 / 32
@@ -603,7 +611,8 @@ def check_serving_kernels(ck, timer, gen):
         ck.record("decode_attention_cells", f"{name} NB={NB} H={H} D={D} T={T}",
                   da.decode_attention_cells_kernel(*args),
                   da.decode_attention_plain(*args), 1e-2,
-                  timer(lambda: da.decode_attention_cells_kernel(*args), iters=50),
+                  timer(lambda: da.decode_attention_cells_kernel(*args), iters=50,
+                        lead=True),
                   timer(lambda: da.decode_attention_plain(*args), iters=5),
                   library(q, *ar, visible),
                   2 * NB * H * D * 4 + 2 * T * H * D * elt(cache) + NB * T * 4,
@@ -631,15 +640,25 @@ def check_serving_kernels(ck, timer, gen):
                                "differs from the plain version's")
         fbytes = 2 * NB * H * D * elt(cache) * 2   # fresh rows read + written
         name = "q8_0" if cache.ks is not None else "bf16"
+        S = da.decode_plan(ar[0].shape[0], H, T)
         ck.record("decode_attention_update",
-                  f"{label} {name} NB={NB} H={H} D={D} T={T}", got, ref, 1e-2,
+                  f"{label} {name} NB={NB} H={H} D={D} T={T} S={S}", got, ref,
+                  1e-2,
                   timer(lambda: da.decode_attention_update_kernel(
-                      q, *ar, *fresh, *tail), iters=50),
+                      q, *ar, *fresh, *tail), iters=50, lead=True),
                   timer(lambda: da.decode_attention_update_plain(
                       q, *twin, *fresh, *tail), iters=5),
                   library(q, *ar, visible),
                   2 * NB * H * D * 4 + 2 * T * H * D * elt(cache) + NB * T * 4
                   + fbytes, 4 * NB * H * T * D, PEAK_BF16)
+        if label == "cells":   # the time at other cluster splits, led
+            log(f"  {'':16s} {label} {name} by split (* the plan's): "
+                + ", ".join(f"{s}{'*' if s == S else ''} {ms:.4f} ms"
+                            for s, ms in forced_split_times(
+                                ck, timer, da, "decode_plan", (1, 2, 4, 8),
+                                lambda: da.decode_attention_update_kernel(
+                                    q, *ar, *fresh, *tail), ref, 1e-2,
+                                f"decode_attention_update {label}")))
 
     # flat mode at the Engine's shape: B 1, T 512, n_past 499 (as check C)
     Tf = PROMPT + N_PREDICT
@@ -1847,6 +1866,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     repo = Path(__file__).resolve().parent
+    serving_only = sys.argv[1:2] == ["--serving-kernels"]
+    if serving_only and len(sys.argv) > 2:   # another checkout's port
+        repo = Path(sys.argv[2]).resolve()
     if not (repo / "ggml_imax_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout holding ggml_imax_tpu_torch/",
               file=sys.stderr)
@@ -1874,6 +1896,14 @@ def main() -> int:
     ck, timer = Checks(), Timer()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    if serving_only:
+        check_serving_kernels(ck, timer, gen)
+        if ck.failures:
+            raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(ck.failures))
+        log(smi[0] if smi else "nvidia-smi: n/a")
+        log(json.dumps({"serving_kernels": list(ck.results.values()),
+                        "port": str(repo)}))
+        return 0
     check_gptj_kernels(ck, timer, gen)
     check_serving_kernels(ck, timer, gen)
     check_gpt2_kernels(ck, timer, gen)

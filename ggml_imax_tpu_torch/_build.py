@@ -31,7 +31,7 @@ SOURCES = ("w4a8_gemv.cu", "w4a16_gemm.cu", "decode_attention.cu",
            "flash_attention.cu", "nat8_gemv.cu", "nat8_gemm.cu",
            "decode_attention_cells.cu", "decode_attention_update.cu",
            "flash_backward.cu", "permuted_gemm.cu")
-HEADERS = ("decode_split.cuh",)
+HEADERS = ("decode_split.cuh",)     # included by decode_attention_cells.cu
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -54,9 +54,9 @@ _SIGNATURES = {
     # q, k, v, ks, vs, mask, ws_acc, ws_ml, out, NB, Hq, Hkv, D, T, split,
     # scale, stream
     "ggml_decode_attention_cells": [_P] * 9 + [_I] * 6 + [_F, _P],
-    # q, k, v, ks, vs, kn, vn, kns, vns, rows, mask, ws_acc, ws_ml, out, NB,
-    # Bk, Hq, Hkv, D, T, split, scale, stream
-    "ggml_decode_attention_update": [_P] * 14 + [_I] * 7 + [_F, _P],
+    # q, k, v, ks, vs, kn, vn, kns, vns, rows, mask, out, NB, Bk, Hq, Hkv, D,
+    # T, split, scale, stream
+    "ggml_decode_attention_update": [_P] * 12 + [_I] * 7 + [_F, _P],
     # q, k, v, dout, lse, di, mask, slopes, tiles, dq, B, Tq, Tk, Hq, Hkv, D,
     # scale, softcap, stream
     "ggml_flash_backward_dq": [_P] * 10 + [_I] * 6 + [_F, _F, _P],

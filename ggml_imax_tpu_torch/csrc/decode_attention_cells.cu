@@ -32,9 +32,8 @@ extern "C" int ggml_decode_attention_cells(const void* q, void* k, void* v, void
                                            int Hkv, int D, int T, int split, float scale,
                                            void* stream) {
   split_decode::Args a{static_cast<const float*>(q), k, v, static_cast<float*>(ks),
-                       static_cast<float*>(vs), static_cast<const float*>(mask), nullptr,
+                       static_cast<float*>(vs), static_cast<const float*>(mask),
                        static_cast<float*>(ws_acc), static_cast<float*>(ws_ml), NB, 1, Hq,
                        Hkv, D, T, split, (T + split - 1) / split, scale};
-  return split_decode::launch<false>(a, split_decode::Fresh{}, static_cast<float*>(out),
-                                     static_cast<cudaStream_t>(stream));
+  return split_decode::launch(a, static_cast<float*>(out), static_cast<cudaStream_t>(stream));
 }

@@ -1,5 +1,5 @@
-// Split-KV single-token attention shared by decode_attention_cells.cu and
-// decode_attention_update.cu (flash-decoding with the query rows batched).
+// Split-KV single-token attention of decode_attention_cells.cu
+// (flash-decoding with the query rows batched).
 //
 // Arithmetic, as csrc/decode_attention.cu and the reference: for query row n
 // and head h (kv head h / (Hq/Hkv)),
@@ -9,9 +9,8 @@
 // arena (int8, one f32 scale per 32 elements along D) is dequantized in f32
 // and rounded to bf16.
 //
-// Pass 1 (split_kernel): one block per (slice of `split` keys, kv head, arena
-// batch). Every query row that reads that arena batch (all NB rows over the
-// shared cell arena, or the one row of a flat arena batch) times its g_rep
+// Pass 1 (split_kernel): one block per (slice of `split` keys, kv head).
+// Every query row (all NB rows over the shared cell arena) times its g_rep
 // query heads is handled in the block, kRows at a time, so each K/V element
 // of the slice is read from device memory once per pass (once in all when
 // the rows fit one pass: NB * g_rep <= kRows). Warps take keys; a lane holds
@@ -22,8 +21,7 @@
 // each (row, head, slice) goes to a workspace.
 // Pass 2 (combine_kernel): one block per (row, head) merges the partials:
 // M = max m_j, out = sum_j exp(m_j - M) acc_j / max(sum_j exp(m_j - M) l_j,
-// 1e-30). In update mode it first folds in the fresh K/V row (always
-// visible, its p unrounded) and then writes that row into the arena.
+// 1e-30).
 #pragma once
 
 #include <cfloat>
@@ -47,7 +45,6 @@ struct Args {
   float* ks;                // (Bk, T, Hkv*D/32) f32 for q8_0, else null
   float* vs;
   const float* mask;        // (NB, T) f32 >= NEG
-  const int* rows;          // (NB) the stale row left out per query row, or null
   float* ws_acc;            // (NB, Hq, n_split, D)
   float* ws_ml;             // (NB, Hq, n_split, 2)
   int NB, Bk, Hq, Hkv, D, T, split, n_split;
@@ -118,9 +115,7 @@ __global__ void __launch_bounds__(kThreads) split_kernel(Args a) {
         acc = warp_sum(acc);
         if (lane == 0) {
           const int n = z * rpb + (r0 + r) / g_rep;
-          float s = fmaxf(acc * a.scale + a.mask[(size_t)n * a.T + t], kNeg);
-          if (a.rows != nullptr && t == a.rows[n]) s = kNeg;  // the stale row
-          sc[r * a.split + tt] = s;
+          sc[r * a.split + tt] = fmaxf(acc * a.scale + a.mask[(size_t)n * a.T + t], kNeg);
         }
       }
     }
@@ -169,85 +164,31 @@ __global__ void __launch_bounds__(kThreads) split_kernel(Args a) {
   }
 }
 
-// The fresh K/V rows of update mode: (NB, Hkv*D) in the arena's type,
-// scales (NB, Hkv*D/32) f32 for q8_0.
-struct Fresh {
-  const void* k;
-  const void* v;
-  const float* ks;
-  const float* vs;
-};
-
 // grid (Hq, NB), kThreads threads; shared memory: n_split floats.
-template <bool kQ8, bool kUpdate>
-__global__ void __launch_bounds__(kThreads) combine_kernel(Args a, Fresh f, float* out) {
+template <bool kQ8>
+__global__ void __launch_bounds__(kThreads) combine_kernel(Args a, float* out) {
   extern __shared__ float w[];
-  __shared__ float red[kWarps];
   const int h = blockIdx.x, n = blockIdx.y;
-  const int g_rep = a.Hq / a.Hkv, hk = h / g_rep, hd = a.Hkv * a.D;
   const size_t nh = (size_t)n * a.Hq + h;
   const float* ml = a.ws_ml + nh * a.n_split * 2;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
 
   float M = kNeg;
   for (int j = 0; j < a.n_split; ++j) M = fmaxf(M, ml[2 * j]);
-  float s_new = kNeg;
-  if (kUpdate) {  // the fresh row's score: dot(bf16 q, fresh k) * scale, no mask
-    float part = 0.f;
-    for (int d = threadIdx.x; d < a.D; d += kThreads)
-      part += round_bf16(a.q[nh * a.D + d]) * load_kv<kQ8>(f.k, f.ks, n, hd, hk * a.D + d);
-    part = warp_sum(part);
-    if (lane == 0) red[warp] = part;
-    __syncthreads();
-    part = 0.f;
-    for (int i = 0; i < kWarps; ++i) part += red[i];
-    s_new = part * a.scale;
-    M = fmaxf(M, s_new);
-  }
   for (int j = threadIdx.x; j < a.n_split; j += kThreads) w[j] = expf(ml[2 * j] - M);
   __syncthreads();
   float L = 0.f;
   for (int j = 0; j < a.n_split; ++j) L += w[j] * ml[2 * j + 1];
-  const float p_new = kUpdate ? expf(s_new - M) : 0.f;
-  const float inv = 1.f / fmaxf(L + p_new, 1e-30f);
+  const float inv = 1.f / fmaxf(L, 1e-30f);
   const float* acc = a.ws_acc + nh * a.n_split * a.D;
   for (int d = threadIdx.x; d < a.D; d += kThreads) {
     float o = 0.f;
     for (int j = 0; j < a.n_split; ++j) o += w[j] * acc[(size_t)j * a.D + d];
-    if (kUpdate) o += p_new * load_kv<kQ8>(f.v, f.vs, n, hd, hk * a.D + d);
     out[nh * a.D + d] = o * inv;
-  }
-
-  // Write the fresh row into the arena, one block per (row, kv head). This
-  // pass runs after every block of split_kernel has finished reading, so no
-  // block reads a row while it is written.
-  if (kUpdate && h % g_rep == 0) {
-    const int z = n / (a.NB / a.Bk);
-    const size_t dst = (size_t)z * a.T + a.rows[n];
-    for (int d = threadIdx.x; d < a.D; d += kThreads) {
-      const size_t src = (size_t)n * hd + hk * a.D + d, to = dst * hd + hk * a.D + d;
-      if (kQ8) {
-        static_cast<int8_t*>(a.k)[to] = static_cast<const int8_t*>(f.k)[src];
-        static_cast<int8_t*>(a.v)[to] = static_cast<const int8_t*>(f.v)[src];
-      } else {
-        static_cast<__nv_bfloat16*>(a.k)[to] = static_cast<const __nv_bfloat16*>(f.k)[src];
-        static_cast<__nv_bfloat16*>(a.v)[to] = static_cast<const __nv_bfloat16*>(f.v)[src];
-      }
-    }
-    if (kQ8) {
-      const int nsc = hd / 32;
-      for (int i = threadIdx.x; i < a.D / 32; i += kThreads) {
-        const int col = hk * (a.D / 32) + i;
-        a.ks[dst * nsc + col] = f.ks[(size_t)n * nsc + col];
-        a.vs[dst * nsc + col] = f.vs[(size_t)n * nsc + col];
-      }
-    }
   }
 }
 
 // Launch both passes on `stream`; returns cudaGetLastError().
-template <bool kUpdate>
-int launch(Args a, Fresh f, float* out, cudaStream_t stream) {
+inline int launch(Args a, float* out, cudaStream_t stream) {
   if (a.D % 32 || a.D > kMaxD || a.split > kMaxSplit || a.split < 1 || a.Hq % a.Hkv ||
       a.NB % a.Bk)
     return (int)cudaErrorInvalidValue;
@@ -255,15 +196,15 @@ int launch(Args a, Fresh f, float* out, cudaStream_t stream) {
   const size_t smem2 = sizeof(float) * (size_t)a.n_split;
   const dim3 g1(a.n_split, a.Hkv, a.Bk), g2(a.Hq, a.NB);
   if (a.ks != nullptr) {
-    cudaFuncSetAttribute(combine_kernel<true, kUpdate>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem2);
+    cudaFuncSetAttribute(combine_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem2);
     split_kernel<true><<<g1, kThreads, smem1, stream>>>(a);
-    combine_kernel<true, kUpdate><<<g2, kThreads, smem2, stream>>>(a, f, out);
+    combine_kernel<true><<<g2, kThreads, smem2, stream>>>(a, out);
   } else {
-    cudaFuncSetAttribute(combine_kernel<false, kUpdate>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem2);
+    cudaFuncSetAttribute(combine_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem2);
     split_kernel<false><<<g1, kThreads, smem1, stream>>>(a);
-    combine_kernel<false, kUpdate><<<g2, kThreads, smem2, stream>>>(a, f, out);
+    combine_kernel<false><<<g2, kThreads, smem2, stream>>>(a, out);
   }
   return (int)cudaGetLastError();
 }

@@ -5,14 +5,16 @@
   batch row, read only (`decode_attention_stacked`, the "kernel" route),
   its keys split over a thread-block cluster of `decode_plan` blocks in
   one launch;
-- `decode_attention_cells` (csrc/decode_attention_cells.cu): NB query rows
-  of distinct sequences over the one shared cell arena of continuous
-  batching, read only, the arena read once for all rows (the "cells2"
-  route);
+- `decode_attention_cells` (csrc/decode_attention_cells.cu over
+  csrc/decode_split.cuh): NB query rows of distinct sequences over the one
+  shared cell arena of continuous batching, read only, the arena read once
+  for all rows (the "cells2" route);
 - `decode_attention_update` / `decode_attention_update_cells`
   (csrc/decode_attention_update.cu): the fresh K/V row is written into the
   arena in place and its attention term is folded in apart, the stale
-  destination row left out of the arena pass ("fused" and "cells").
+  destination row left out of the arena pass ("fused" and "cells"); one
+  launch, its keys split over a cluster of `decode_plan` blocks as
+  `decode_attention`'s, every query row of a kv head in one block.
 
 The arena is (L, B, n_ctx, Hkv*D), bf16 or q8_0 (int8 plus one f32 scale
 per 32 elements along D). The kernels read layer `li` in place: no copy,
@@ -30,10 +32,11 @@ from .. import _build
 from ..models.common import _q8_rows
 
 NEG = -0.7 * float(np.finfo(np.float32).max)
-# keys per block of the split-KV kernels (csrc/decode_split.cuh)
+# keys per block of the cells kernel's split pass (csrc/decode_split.cuh)
 SPLIT = 64
-# csrc/decode_attention.cu: the H100's SMs, the most blocks of a portable
-# cluster, and the floats of one block's scores in shared memory
+# csrc/decode_attention.cu and csrc/decode_attention_update.cu: the H100's
+# SMs, the most blocks of a portable cluster; decode_attention.cu's floats
+# of one block's scores in shared memory
 SMS = 132
 MAX_SPLIT = 8
 _MAX_SCORES = 16384
@@ -94,7 +97,7 @@ def _check_arena(name, q3, k, v, ks, vs, hkv, arena_batch):
 
 
 def _split_workspace(B, Hq, D, T, device):
-    """Per-split partials (acc, then m and l) of the split-KV kernels."""
+    """Per-split partials (acc, then m and l) of the cells kernel."""
     if D > 256:
         raise ValueError(f"the split-KV decode kernels take D <= 256, not {D}")
     parts = -(-T // SPLIT)
@@ -104,7 +107,8 @@ def _split_workspace(B, Hq, D, T, device):
 
 def decode_plan(B: int, Hkv: int, T: int) -> int:
     """The blocks S of one thread-block cluster that share the T keys of a
-    (batch row, kv head) in csrc/decode_attention.cu: as many as bring
+    (batch row, kv head) in csrc/decode_attention.cu (and of an arena batch
+    row's kv head in csrc/decode_attention_update.cu): as many as bring
     S * Hkv * B to the card's SMs, at most MAX_SPLIT and at most T (1 once
     B * Hkv fills the SMs alone). GPT-J batch 1 (16 kv heads): 8."""
     return max(1, min(MAX_SPLIT, T, SMS // (B * Hkv)))
@@ -252,31 +256,53 @@ def decode_attention_update_plain(q3, k, v, ks, vs, kn, vn, kns, vns, mask2,
 def decode_attention_update_kernel(q3, k, v, ks, vs, kn, vn, kns, vns, mask2,
                                    rows, hkv: int, scale: float):
     """Launch csrc/decode_attention_update.cu (arguments as the plain
-    version; rows int32 or int64)."""
+    version), once: the keys of each (arena batch row, kv head) split over
+    a cluster of decode_plan(Bk, hkv, T) blocks. Takes D 128 or 256, int64
+    rows, fresh rows of the arena's type and shape, and 16-byte aligned
+    arena slices and fresh rows; raises on anything else, without a
+    launch. Allocates only the output (and a copy of q3 where it is not
+    16-byte aligned)."""
     NB, Hq, D = q3.shape
     Bk, T = k.shape[:2]
     if Bk not in (1, NB):
         raise ValueError(f"decode_attention_update: arena batch {Bk} for "
                          f"{NB} rows")
     _check_arena("decode_attention_update", q3, k, v, ks, vs, hkv, Bk)
+    if D not in (128, 256):
+        raise ValueError(f"decode_attention_update: the kernel takes D 128 or "
+                         f"256 (D % 128 == 0, D <= 256), not {D}")
     if kn.shape != (NB, hkv * D) or kn.dtype != k.dtype \
             or vn.shape != kn.shape or vn.dtype != kn.dtype:
         raise ValueError(f"decode_attention_update: fresh rows "
                          f"{tuple(kn.shape)} {kn.dtype}")
-    q3 = q3.float().contiguous()
-    mask2 = mask2.float().contiguous()
-    rows = rows.to(torch.int32).contiguous()
+    if (ks is None) != (kns is None) or (kns is None) != (vns is None) or (
+            kns is not None and (kns.shape != (NB, hkv * D // 32)
+                                 or vns.shape != kns.shape)):
+        raise ValueError("decode_attention_update: fresh scales do not match "
+                         "the arena")
+    if rows.dtype != torch.int64 or rows.shape != (NB,):
+        raise ValueError(f"decode_attention_update: rows must be int64 "
+                         f"({NB},), not {rows.dtype} {tuple(rows.shape)}")
     kn, vn = kn.contiguous(), vn.contiguous()
     kns = None if kns is None else kns.float().contiguous()
     vns = None if vns is None else vns.float().contiguous()
-    ws_acc, ws_ml = _split_workspace(NB, Hq, D, T, q3.device)
+    for name, t in (("k", k), ("v", v), ("ks", ks), ("vs", vs), ("kn", kn),
+                    ("vn", vn), ("kns", kns), ("vns", vns)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"decode_attention_update: {name} is not 16-byte "
+                             f"aligned")
+    q3 = q3.float().contiguous()
+    if q3.data_ptr() % 16:            # the kernel reads q in 16-byte loads
+        q3 = q3.clone()
+    mask2 = mask2.float().contiguous()
+    rows = rows.contiguous()
     out = torch.empty(NB, Hq, D, dtype=torch.float32, device=q3.device)
     rc = _build.lib().ggml_decode_attention_update(
         q3.data_ptr(), k.data_ptr(), v.data_ptr(), _build.ptr(ks),
         _build.ptr(vs), kn.data_ptr(), vn.data_ptr(), _build.ptr(kns),
-        _build.ptr(vns), rows.data_ptr(), mask2.data_ptr(), ws_acc.data_ptr(),
-        ws_ml.data_ptr(), out.data_ptr(), NB, Bk, Hq, hkv, D, T, SPLIT,
-        float(scale), _build.stream_ptr(q3))
+        _build.ptr(vns), rows.data_ptr(), mask2.data_ptr(), out.data_ptr(),
+        NB, Bk, Hq, hkv, D, T, decode_plan(Bk, hkv, T), float(scale),
+        _build.stream_ptr(q3))
     _build.check(rc, "decode_attention_update")
     _build.LAUNCHES["decode_attention_update"] += 1
     return out

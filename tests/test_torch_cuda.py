@@ -740,28 +740,29 @@ def test_decode_attention_cells_kernel_matches_plain(gen, kv, nb, hq, hkv):
     assert rel(got[-1, ::hq // hkv], vmean) < 1e-2
 
 
-@pytest.mark.parametrize("kv", [torch.bfloat16, "q8_0"])
-@pytest.mark.parametrize("mode,hq,hkv", [("flat", 4, 4), ("cells", 4, 4),
-                                         ("cells", 8, 2)])
-def test_decode_attention_update_kernel_matches_plain(gen, kv, mode, hq, hkv):
-    T, D, nb = 200, 128, 4
+def update_case(gen, kv, mode, nb, hq, hkv, D, T, rows, masked=(), n_pad=1):
+    """Two equal arenas (layer 1 of 2: the kernel's and the plain version's),
+    queries, fresh rows in the arena's type, int64 destination rows and a
+    mask: flat, keys past the largest destination hidden; cells, a random
+    half of the cells, the last n_pad rows pad rows that see none. Rows in
+    `masked` see no key either."""
     B = nb if mode == "flat" else 1
     cache = filled_cache(gen, kv, B, T, hkv, D)
-    twin = filled_cache(gen, kv, B, T, hkv, D)
+    twin = init_kv_cache(2, B, T, hkv, D, kv, device="cuda")
     for name in ("k", "v", "ks", "vs"):
         if getattr(cache, name) is not None:
             getattr(twin, name).copy_(getattr(cache, name))
-    start = {n: getattr(cache, n).clone() for n in ("k", "v")}
     q = torch.randn(nb, hq, D, generator=gen, device="cuda")
     kn, vn = (torch.randn(nb, 1, hkv, D, generator=gen, device="cuda")
               for _ in range(2))
+    rows = torch.tensor(rows, dtype=torch.int64, device="cuda")
     if mode == "flat":
-        rows = torch.full((nb,), 150, device="cuda")
         mask = torch.zeros(nb, T, device="cuda")
-        mask[:, 151:] = da.NEG
+        mask[:, int(rows.max()) + 1:] = da.NEG
     else:
-        rows = torch.tensor([3, 77, 150, T - 1], device="cuda")   # last: pad
-        mask = cells_mask(gen, nb, T, 1)
+        mask = cells_mask(gen, nb, T, n_pad)
+    for n in masked:
+        mask[n] = da.NEG
     if kv == "q8_0":
         k8, kd = _q8_rows(kn)
         v8, vd = _q8_rows(vn)
@@ -770,23 +771,180 @@ def test_decode_attention_update_kernel_matches_plain(gen, kv, mode, hq, hkv):
     else:
         fresh = (kn.reshape(nb, -1).bfloat16(), vn.reshape(nb, -1).bfloat16(),
                  None, None)
-    tail = (mask, rows, hkv, 1 / math.sqrt(D))
+    return cache, twin, q, fresh, (mask, rows, hkv, 1 / math.sqrt(D))
+
+
+# mode, nb, hq, hkv, D, T, destination rows (cells: the last is the pad
+# row's trash cell T - 1), rows that see no key; S is decode_plan's (8 in
+# each but "cells S 6"; "flat B 4"'s T 200 gives slices of 25 keys)
+UPDATE_CASES = {
+    "flat B 4 4:4": ("flat", 4, 4, 4, 128, 200, [150] * 4, ()),
+    "cells 4:4": ("cells", 4, 4, 4, 128, 200, [3, 77, 150, 199], ()),
+    "cells 8:2": ("cells", 4, 8, 2, 128, 200, [3, 77, 150, 199], ()),
+    # GPT-J's 16 heads of 256: T 512, 64 keys a rank
+    "gptj flat n_past 499": ("flat", 1, 16, 16, 256, 512, [499], ()),
+    "gptj flat first key of a rank": ("flat", 1, 16, 16, 256, 512, [448], ()),
+    "gptj flat last key of a rank": ("flat", 1, 16, 16, 256, 512, [63], ()),
+    "gptj flat T - 1": ("flat", 1, 16, 16, 256, 512, [511], ()),
+    # the serving arena: T 2048, 256 keys a rank
+    "gptj cells NB 8 T 2048": ("cells", 8, 16, 16, 256, 2048,
+                               [0, 255, 256, 511, 1024, 1792, 2046, 2047],
+                               ()),
+    "gptj cells NB 16 T 2048": ("cells", 16, 16, 16, 256, 2048,
+                                list(range(5, 1880, 125)) + [2047], ()),
+    "gptj cells NB 24 T 2048": ("cells", 24, 16, 16, 256, 2048,
+                                list(range(3, 2047, 89)) + [2047], ()),
+    "cells T 512 rank edges D 128": ("cells", 6, 4, 4, 128, 512,
+                                     [0, 63, 64, 448, 510, 511], ()),
+    "cells g_rep 8": ("cells", 3, 16, 2, 128, 512, [10, 300, 511], ()),
+    "flat g_rep 8 D 256": ("flat", 2, 16, 2, 256, 512, [300, 300], ()),
+    "cells a row hides every key": ("cells", 4, 16, 16, 256, 2048,
+                                    [5, 900, 1500, 2047], (1,)),
+    # 20 kv heads: S 6, which does not divide D into the ranks' columns
+    "cells S 6": ("cells", 4, 20, 20, 128, 512, [5, 100, 300, 511], ()),
+}
+
+
+@pytest.mark.parametrize("kv", [torch.bfloat16, "q8_0"])
+@pytest.mark.parametrize("case", list(UPDATE_CASES))
+def test_decode_attention_update_kernel_matches_plain(gen, kv, case):
+    """The fused kernel against its plain version (rel 1e-2: p is rounded
+    against a running max per 64-key chunk in the kernel, against the row's
+    global max in the plain version); its arena equals the plain version's
+    after the call, and only the destination rows moved."""
+    mode, nb, hq, hkv, D, T, rows, masked = UPDATE_CASES[case]
+    cache, twin, q, fresh, tail = update_case(gen, kv, mode, nb, hq, hkv, D,
+                                              T, rows, masked)
+    start = {n: getattr(cache, n).clone() for n in ("k", "v")}
     before = _build.LAUNCHES["decode_attention_update"]
     got = da.decode_attention_update_kernel(q, *arena_args(cache), *fresh,
                                             *tail)
     assert _build.LAUNCHES["decode_attention_update"] == before + 1
     ref = da.decode_attention_update_plain(q, *arena_args(twin), *fresh, *tail)
-    assert rel(got, ref) < 1e-2
+    err = rel(got, ref)
+    print(f"decode_attention_update {case} {kv}: rel {err:.3e}")  # with -s
+    assert err < 1e-2
     for name in ("k", "v", "ks", "vs"):          # the rows written in place
         if getattr(cache, name) is not None:
             assert torch.equal(getattr(cache, name), getattr(twin, name)), name
     written = torch.zeros(T, dtype=torch.bool, device="cuda")
-    written[rows] = True
+    written[tail[1]] = True
     for name, t in start.items():                # and nothing else moved
         a = getattr(cache, name)
         assert torch.equal(a[0], t[0]) and torch.equal(a[1][:, ~written],
                                                        t[1][:, ~written])
         assert not torch.equal(a[1][:, written], t[1][:, written])
+    for n in masked:                             # no visible key: v_new alone
+        vf = da._dense(fresh[1][n][None, None],
+                       None if fresh[3] is None else fresh[3][n][None, None],
+                       1, hkv)[0, :, 0].repeat_interleave(hq // hkv, dim=0)
+        assert rel(got[n], vf) < 1e-6
+
+
+@pytest.mark.parametrize("kv", [torch.bfloat16, "q8_0"])
+def test_decode_attention_update_pad_rows_share_the_trash_cell(gen, kv):
+    """Two pad rows write the trash cell T - 1: the arena equals the plain
+    version's everywhere else, and the trash cell holds one pad row's
+    fresh values (K, V and scales from the same row)."""
+    T, D, hkv = 512, 256, 16
+    cache, twin, q, fresh, tail = update_case(
+        gen, kv, "cells", 5, 16, hkv, D, T, [40, 300, 470, T - 1, T - 1],
+        n_pad=2)
+    got = da.decode_attention_update_kernel(q, *arena_args(cache), *fresh,
+                                            *tail)
+    ref = da.decode_attention_update_plain(q, *arena_args(twin), *fresh, *tail)
+    assert rel(got, ref) < 1e-2
+    for name, new in zip(("k", "v", "ks", "vs"), fresh):
+        a, b = getattr(cache, name), getattr(twin, name)
+        if a is None:
+            continue
+        assert torch.equal(a[:, :, :T - 1], b[:, :, :T - 1]), name
+        assert torch.equal(a[0], b[0]), name
+    pick = [n for n in (3, 4)
+            if all(t is None or torch.equal(getattr(cache, name)[1, 0, T - 1],
+                                            t[n])
+                   for name, t in zip(("k", "v", "ks", "vs"), fresh))]
+    assert pick, "the trash cell holds neither pad row's values"
+
+
+@pytest.mark.parametrize("kv", [torch.bfloat16, "q8_0"])
+@pytest.mark.parametrize("mode", ["flat", "cells"])
+def test_decode_attention_update_is_deterministic_and_counted(gen, kv, mode):
+    """Two launches on the same inputs give equal bits (the ranks merge in
+    rank order); each adds one to the counter. The arena is put back
+    between them: the first launch writes the fresh rows, and a pad row
+    (it sees no key) averages every row, its destination's included."""
+    nb, T = (1, 512) if mode == "flat" else (8, 2048)
+    rows = [499] if mode == "flat" else list(range(100, 1500, 200)) + [T - 1]
+    cache, twin, q, fresh, tail = update_case(gen, kv, mode, nb, 16, 16, 256,
+                                              T, rows)
+    before = _build.LAUNCHES["decode_attention_update"]
+    first = da.decode_attention_update_kernel(q, *arena_args(cache), *fresh,
+                                              *tail)
+    for name in ("k", "v", "ks", "vs"):
+        if getattr(cache, name) is not None:
+            getattr(cache, name).copy_(getattr(twin, name))
+    second = da.decode_attention_update_kernel(q, *arena_args(cache), *fresh,
+                                               *tail)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["decode_attention_update"] == before + 2
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("mode", ["flat", "cells"])
+def test_decode_attention_update_is_one_kernel(gen, mode):
+    """One CUDA kernel a call and nothing else (no workspace, no cast of
+    rows): torch.profiler's device events of one call, int64 rows."""
+    from torch.profiler import ProfilerActivity, profile
+    nb, T, kv = (1, 512, torch.bfloat16) if mode == "flat" \
+        else (8, 2048, "q8_0")
+    rows = [499] if mode == "flat" else list(range(100, 1500, 200)) + [T - 1]
+    cache, _, q, fresh, tail = update_case(gen, kv, mode, nb, 16, 16, 256, T,
+                                           rows)
+    args = (q, *arena_args(cache), *fresh, *tail)
+    da.decode_attention_update_kernel(*args)        # built and warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        da.decode_attention_update_kernel(*args)
+        torch.cuda.synchronize()
+    dev = [(ev.key, ev.count) for ev in prof.key_averages()
+           if str(ev.device_type).endswith("CUDA")
+           and ev.self_device_time_total > 0]
+    print(f"decode_attention_update {mode}: device events {dev}")
+    assert len(dev) == 1 and dev[0][1] == 1 and "update_kernel" in dev[0][0]
+
+
+def test_decode_attention_update_refuses_without_a_launch(gen):
+    """A D the kernel does not take, a misaligned arena slice or fresh row,
+    and int32 rows raise before any launch."""
+    before = _build.LAUNCHES["decode_attention_update"]
+    for D in (64, 384):
+        cache, _, q, fresh, tail = update_case(gen, torch.bfloat16, "flat", 1,
+                                               4, 4, D, 64, [10])
+        with pytest.raises(ValueError, match="D 128 or 256"):
+            da.decode_attention_update_kernel(q, *arena_args(cache), *fresh,
+                                              *tail)
+    for kv, which in ((torch.bfloat16, 0), ("q8_0", 3)):
+        cache, _, q, fresh, tail = update_case(gen, kv, "cells", 2, 4, 4, 128,
+                                               64, [5, 63])
+        ar = list(arena_args(cache))
+        buf = torch.empty(ar[which].numel() + 1, dtype=ar[which].dtype,
+                          device="cuda")
+        ar[which] = buf[1:].view(ar[which].shape)
+        with pytest.raises(ValueError, match="aligned"):
+            da.decode_attention_update_kernel(q, *ar, *fresh, *tail)
+    cache, _, q, fresh, (mask, rows, hkv, scale) = update_case(
+        gen, torch.bfloat16, "cells", 2, 4, 4, 128, 64, [5, 63])
+    kn = torch.empty(fresh[0].numel() + 1, dtype=fresh[0].dtype,
+                     device="cuda")[1:].view(fresh[0].shape)
+    with pytest.raises(ValueError, match="aligned"):
+        da.decode_attention_update_kernel(q, *arena_args(cache), kn,
+                                          *fresh[1:], mask, rows, hkv, scale)
+    with pytest.raises(ValueError, match="int64"):
+        da.decode_attention_update_kernel(q, *arena_args(cache), *fresh, mask,
+                                          rows.int(), hkv, scale)
+    assert _build.LAUNCHES["decode_attention_update"] == before
 
 
 def test_small_gptj_batched_on_card_matches_cpu(gen):
