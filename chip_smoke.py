@@ -18,11 +18,12 @@ Phases (any failure exits nonzero and prints no result line):
    cluster split decode_plan took, and its time at splits 1, 2, 4, 8), flash
    (and a row that sees no key at a ragged Tk of 200, 300 and 600);
    serving:
-   cells decode attention at 8 rows over a 2048-cell arena, the fused
-   KV-update kernel in flat mode at T 512 and in cells mode at 8 rows x
-   2048 (with its time at cluster splits 1, 2, 4, 8), these timed led,
-   flash at a mixed ubatch's 128 rows over that q8_0 arena; GPT-2
-   XL: nat8 W8A8 on fc_w, W8A16 on fc_w at M 512, 5, 8 and 128 (per-32
+   cells decode attention at 8 rows over a 2048-cell arena and the fused
+   KV-update kernel in cells mode at 8 rows x 2048 (each with its time at
+   cluster splits 1, 2, 4, 8), the fused kernel in flat mode at T 512,
+   these timed led, flash at a mixed ubatch's 128 rows over that q8_0
+   arena; GPT-2 XL: nat8 W8A8 on fc_w (timed led, its unled time logged
+   beside), W8A16 on fc_w at M 512, 5, 8 and 128 (per-32
    f32 scales, and per-16 bf16 scales with a bias), each with the route
    and K split it took and its time at other K splits, flash at D = 64;
    GPT-2 117M training:
@@ -54,7 +55,8 @@ Phases (any failure exits nonzero and prints no result line):
 5. GPT-2 XL engine: synthetic GPT-2 1558M Q8_0 drawn on the card,
    prepare_fused + nat8 repack, Engine(n_ctx=1024), the same 3 requests,
    launch counts and profile (with nat8 W8A16's and the flash forward's
-   share of the prefill's device time), and the device time of the
+   share of the prefill's device time, nat8 W8A8's time a launch in a
+   decode step), and the device time of the
    products the reference's N % 128 gate leaves to dequantize + matmul
    (attn_w, proj_w, out_w, the tied LM head) against the step's device
    time;
@@ -64,7 +66,8 @@ Phases (any failure exits nonzero and prints no result line):
    64-127-token prompts, 32 tokens each at temp 0.8 / top_k 40 / top_p
    0.95, step_chunk(8)), once to warm up and once timed: aggregate tok/s,
    p50 TTFT, ubatch counts, exact launch counts, peak memory, the device
-   busy share of a decode-only ubatch and W4A16's share of it; then a
+   busy share of a decode-only ubatch and W4A16's and the cells
+   kernel's share of it; then a
    short greedy serving pass (two mixed ubatches, a fork, decode-only
    ubatches) held to the same pass
    with every kernel's plain version on the card, and the fused KV-update
@@ -608,15 +611,24 @@ def check_serving_kernels(ck, timer, gen):
         q = torch.randn(NB, H, D, generator=gen, device="cuda")
         args = (q, *ar, mask, H, scale)
         name = "q8_0" if cache.ks is not None else "bf16"
-        ck.record("decode_attention_cells", f"{name} NB={NB} H={H} D={D} T={T}",
-                  da.decode_attention_cells_kernel(*args),
-                  da.decode_attention_plain(*args), 1e-2,
+        ref = da.decode_attention_plain(*args)
+        S = da.decode_plan(1, H, T)
+        ck.record("decode_attention_cells",
+                  f"{name} NB={NB} H={H} D={D} T={T} S={S}",
+                  da.decode_attention_cells_kernel(*args), ref, 1e-2,
                   timer(lambda: da.decode_attention_cells_kernel(*args), iters=50,
                         lead=True),
                   timer(lambda: da.decode_attention_plain(*args), iters=5),
                   library(q, *ar, visible),
                   2 * NB * H * D * 4 + 2 * T * H * D * elt(cache) + NB * T * 4,
                   4 * NB * H * T * D, PEAK_BF16)
+        # the time at other cluster splits (decode_plan forced), led
+        log(f"  {'':16s} cells {name} by split (* the plan's): "
+            + ", ".join(f"{s}{'*' if s == S else ''} {ms:.4f} ms"
+                        for s, ms in forced_split_times(
+                            ck, timer, da, "decode_plan", (1, 2, 4, 8),
+                            lambda: da.decode_attention_cells_kernel(*args),
+                            ref, 1e-2, f"decode_attention_cells {name}")))
         del cache, ar
 
     def fused_case(kv, NB, T, rows, mask, visible, label):
@@ -737,12 +749,16 @@ def check_gpt2_kernels(ck, timer, gen):
         got = qmm.nat8_w8a8_gemv(x8, dx, qt, xs)
         ref = qmm.nat8_w8a8_gemv_plain(x8, dx, qt, xs)
         xb = x.to(torch.bfloat16)
-        ck.record("nat8_w8a8", f"{label} m=1 K={K} N={N}", got, ref, 1e-4,
-                  timer(lambda: qmm.nat8_w8a8_gemv(x8, dx, qt, xs), iters=50),
+        kern = lambda: qmm.nat8_w8a8_gemv(x8, dx, qt, xs)
+        lib = lambda: torch.matmul(xb, wd)
+        ck.record("nat8_w8a8", f"{label} m=1 K={K} N={N} (led)", got, ref, 1e-4,
+                  timer(kern, iters=50, lead=True),
                   timer(lambda: qmm.nat8_w8a8_gemv_plain(x8, dx, qt, xs), iters=5),
-                  timer(lambda: torch.matmul(xb, wd), iters=50),
+                  timer(lib, iters=50, lead=True),
                   K * N + sbytes + K + K // g * 4 * (2 if bias else 1) + N * 4,
                   2 * K * N, PEAK_INT8)
+        log(f"  {'':16s} {label} m=1 unled: kernel {timer(kern, iters=50):.4f} "
+            f"ms, library {timer(lib, iters=50):.4f} ms")
         # W8A16 at the prefill bucket M = 512, the Engine's smallest bucket
         # M = 8, a ragged M = 5 and the bucket M = 128, each with the route
         # and K split it takes, and its time at other K splits
@@ -1166,36 +1182,49 @@ def check_small_batched(failures):
                             f"{tok_h}")
 
 
-def _device_ms(fn, reps):
-    """Device time by kernel name, ms per rep (torch.profiler, CUDA)."""
+def _device_ms(fn, reps, launches=None):
+    """Device time by kernel name, ms per rep (torch.profiler, CUDA); with
+    a dict `launches`, also each name's launches per rep into it."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for i in range(reps):
             fn(i)
-    return {ev.key: ev.self_device_time_total / 1e3 / reps
-            for ev in prof.key_averages()
-            if str(ev.device_type).endswith("CUDA")
-            and ev.self_device_time_total > 0}
+    evs = [ev for ev in prof.key_averages()
+           if str(ev.device_type).endswith("CUDA")
+           and ev.self_device_time_total > 0]
+    if launches is not None:
+        launches.update({ev.key: ev.count / reps for ev in evs})
+    return {ev.key: ev.self_device_time_total / 1e3 / reps for ev in evs}
 
 
 # kernel file -> the kernel names of its routes in a profile
 SHARES = {"W4A8 (w4a8_gemv.cu)": ("w4a8_split_k",),
           "W4A16 (w4a16_gemm.cu)": ("w4a16_small_m", "w4a16_tile"),
           "nat8 W8A16 (nat8_gemm.cu)": ("nat8_small_m", "nat8_tile"),
+          "nat8 W8A8 (nat8_gemv.cu)": ("nat8_gemv_kernel",),
+          "cells decode attention (decode_attention_cells.cu)":
+              ("cells_kernel",),
           "flash forward (flash_attention.cu and its tile map)":
               ("flash_fwd_kernel", "flash_bwd_tiles_kernel"),
           "decode attention (decode_attention.cu)": ("decode_cluster_kernel",)}
 
 
-def kernel_share(dev, busy, label, what="W4A16 (w4a16_gemm.cu)"):
+def kernel_share(dev, busy, label, what="W4A16 (w4a16_gemm.cu)",
+                 launches=None):
     """Log the device time of one kernel file's routes (SHARES[what]) in a
-    profile (kernel name -> ms) against the device busy time; None where
-    the profile has none."""
-    ms = sum(t for k, t in dev.items() if any(n in k for n in SHARES[what]))
+    profile (kernel name -> ms) against the device busy time, and with
+    `launches` (kernel name -> launches) the time a launch; None where the
+    profile has none."""
+    keys = [k for k in dev if any(n in k for n in SHARES[what])]
+    ms = sum(dev[k] for k in keys)
     if not ms:
         return None
+    each = ""
+    if launches:
+        n = sum(launches.get(k, 0) for k in keys)
+        each = f", {n:g} launches, {ms / n:.4f} ms a launch"
     log(f"  {label}: {what} {ms:.3f} ms of {busy:.3f} ms device busy "
-        f"({100 * ms / busy:.1f}%)")
+        f"({100 * ms / busy:.1f}%{each})")
     return ms
 
 
@@ -1217,7 +1246,8 @@ def profile_engine(eng, rng, reqs, steps=8):
              "decode step": 1e3 / float(np.median([r["decode_tok_s"]
                                                    for r in reqs]))}
     for label, fn, reps in (("prefill", pre, 1), ("decode step", dec, steps)):
-        dev = _device_ms(fn, reps)
+        launches = {}
+        dev = _device_ms(fn, reps, launches)
         busy_ms[label] = sum(dev.values()) if dev else None
         if not dev:
             log(f"  profiled {label}: no device time in the trace (not measured)")
@@ -1229,7 +1259,7 @@ def profile_engine(eng, rng, reqs, steps=8):
         for key, ms in sorted(dev.items(), key=lambda kv: -kv[1])[:8]:
             log(f"    {ms:9.4f} ms  {key[:90]}")
         for what in SHARES:
-            kernel_share(dev, busy, f"profiled {label}", what)
+            kernel_share(dev, busy, f"profiled {label}", what, launches)
     return busy_ms, walls
 
 
@@ -1570,7 +1600,8 @@ def serve_gptj(failures):
     for _ in range(4):
         be.step()
     step_ms = (time.perf_counter() - t0) / 4 * 1e3
-    dev = _device_ms(lambda _: be.step(), 4)
+    launches_ub = {}
+    dev = _device_ms(lambda _: be.step(), 4, launches_ub)
     if dev:
         busy = sum(dev.values())
         summary.update(decode_ubatch_ms=step_ms, decode_ubatch_busy_ms=busy)
@@ -1580,7 +1611,10 @@ def serve_gptj(failures):
         for key, ms in sorted(dev.items(), key=lambda kv: -kv[1])[:8]:
             log(f"    {ms:9.4f} ms  {key[:90]}")
         summary["decode_ubatch_w4a16_ms"] = kernel_share(
-            dev, busy, "profiled decode-only ubatch")
+            dev, busy, "profiled decode-only ubatch", launches=launches_ub)
+        summary["decode_ubatch_cells_ms"] = kernel_share(
+            dev, busy, "profiled decode-only ubatch",
+            "cells decode attention (decode_attention_cells.cu)", launches_ub)
     else:
         log("  profiled decode-only ubatch: no device time (not measured)")
 

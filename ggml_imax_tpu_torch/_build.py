@@ -1,12 +1,11 @@
 """Build, load and count the hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` file (with the ``*.cuh`` headers it includes) is
-compiled by its own ``nvcc`` process, all started together, for ``sm_90a``;
-the objects are linked into one shared library with a plain C interface,
-``build/ggml_imax_tpu_torch/libkernels.so`` beside the package, and loaded
-with ctypes. The build runs at first use and again whenever a source, a
-header or a flag changes (a SHA-256 stamp). A failed build raises with
-nvcc's output.
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all
+started together, for ``sm_90a``; the objects are linked into one shared
+library with a plain C interface, ``build/ggml_imax_tpu_torch/libkernels.so``
+beside the package, and loaded with ctypes. The build runs at first use
+and again whenever a source or a flag changes (a SHA-256 stamp). A failed
+build raises with nvcc's output.
 
 Each C entry returns ``cudaGetLastError()`` right after its launch;
 `check` raises on a nonzero code. `LAUNCHES` counts the launches of each
@@ -31,7 +30,6 @@ SOURCES = ("w4a8_gemv.cu", "w4a16_gemm.cu", "decode_attention.cu",
            "flash_attention.cu", "nat8_gemv.cu", "nat8_gemm.cu",
            "decode_attention_cells.cu", "decode_attention_update.cu",
            "flash_backward.cu", "permuted_gemm.cu")
-HEADERS = ("decode_split.cuh",)     # included by decode_attention_cells.cu
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -51,9 +49,8 @@ _SIGNATURES = {
     # q, k, v, mask, slopes, tiles, out, lse, B, Tq, Tk, Hq, Hkv, D, scale,
     # softcap, stream
     "ggml_flash_attention": [_P] * 8 + [_I] * 6 + [_F, _F, _P],
-    # q, k, v, ks, vs, mask, ws_acc, ws_ml, out, NB, Hq, Hkv, D, T, split,
-    # scale, stream
-    "ggml_decode_attention_cells": [_P] * 9 + [_I] * 6 + [_F, _P],
+    # q, k, v, ks, vs, mask, out, NB, Hq, Hkv, D, T, split, scale, stream
+    "ggml_decode_attention_cells": [_P] * 7 + [_I] * 6 + [_F, _P],
     # q, k, v, ks, vs, kn, vn, kns, vns, rows, mask, out, NB, Bk, Hq, Hkv, D,
     # T, split, scale, stream
     "ggml_decode_attention_update": [_P] * 12 + [_I] * 7 + [_F, _P],
@@ -100,7 +97,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
+    for name in SOURCES:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()

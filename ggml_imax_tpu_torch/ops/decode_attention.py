@@ -5,10 +5,11 @@
   batch row, read only (`decode_attention_stacked`, the "kernel" route),
   its keys split over a thread-block cluster of `decode_plan` blocks in
   one launch;
-- `decode_attention_cells` (csrc/decode_attention_cells.cu over
-  csrc/decode_split.cuh): NB query rows of distinct sequences over the one
-  shared cell arena of continuous batching, read only, the arena read once
-  for all rows (the "cells2" route);
+- `decode_attention_cells` (csrc/decode_attention_cells.cu): NB query rows
+  of distinct sequences over the one shared cell arena of continuous
+  batching, read only (the "cells2" route); one launch, its keys split
+  over a cluster of `decode_plan` blocks, every query row of a kv head in
+  one block, so the arena is read once for all rows;
 - `decode_attention_update` / `decode_attention_update_cells`
   (csrc/decode_attention_update.cu): the fresh K/V row is written into the
   arena in place and its attention term is folded in apart, the stale
@@ -32,11 +33,9 @@ from .. import _build
 from ..models.common import _q8_rows
 
 NEG = -0.7 * float(np.finfo(np.float32).max)
-# keys per block of the cells kernel's split pass (csrc/decode_split.cuh)
-SPLIT = 64
-# csrc/decode_attention.cu and csrc/decode_attention_update.cu: the H100's
-# SMs, the most blocks of a portable cluster; decode_attention.cu's floats
-# of one block's scores in shared memory
+# csrc/decode_attention*.cu: the H100's SMs, the most blocks of a portable
+# cluster; decode_attention.cu's floats of one block's scores in shared
+# memory
 SMS = 132
 MAX_SPLIT = 8
 _MAX_SCORES = 16384
@@ -96,21 +95,24 @@ def _check_arena(name, q3, k, v, ks, vs, hkv, arena_batch):
             raise ValueError(f"{name}: arena slices must be contiguous")
 
 
-def _split_workspace(B, Hq, D, T, device):
-    """Per-split partials (acc, then m and l) of the cells kernel."""
-    if D > 256:
-        raise ValueError(f"the split-KV decode kernels take D <= 256, not {D}")
-    parts = -(-T // SPLIT)
-    return (torch.empty(B, Hq, parts, D, dtype=torch.float32, device=device),
-            torch.empty(B, Hq, parts, 2, dtype=torch.float32, device=device))
+def _check_kernel_arena(name, D, tensors):
+    """The gates the one-launch kernels share: D 128 or 256, and 16-byte
+    aligned arena slices (and fresh rows); raises ValueError."""
+    if D not in (128, 256):
+        raise ValueError(f"{name}: the kernel takes D 128 or 256 "
+                         f"(D % 128 == 0, D <= 256), not {D}")
+    for key, t in tensors:
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} is not 16-byte aligned")
 
 
 def decode_plan(B: int, Hkv: int, T: int) -> int:
     """The blocks S of one thread-block cluster that share the T keys of a
     (batch row, kv head) in csrc/decode_attention.cu (and of an arena batch
-    row's kv head in csrc/decode_attention_update.cu): as many as bring
-    S * Hkv * B to the card's SMs, at most MAX_SPLIT and at most T (1 once
-    B * Hkv fills the SMs alone). GPT-J batch 1 (16 kv heads): 8."""
+    row's kv head in csrc/decode_attention_update.cu and, B 1, in
+    csrc/decode_attention_cells.cu): as many as bring S * Hkv * B to the
+    card's SMs, at most MAX_SPLIT and at most T (1 once B * Hkv fills the
+    SMs alone). GPT-J batch 1 (16 kv heads): 8."""
     return max(1, min(MAX_SPLIT, T, SMS // (B * Hkv)))
 
 
@@ -134,13 +136,8 @@ def decode_attention_kernel(q3, k, v, ks, vs, mask2, hkv: int, scale: float):
     B, Hq, D = q3.shape
     T = k.shape[1]
     _check_arena("decode_attention", q3, k, v, ks, vs, hkv, B)
-    if D not in (128, 256):
-        raise ValueError(f"decode_attention: the kernel takes D 128 or 256 "
-                         f"(D % 128 == 0, D <= 256), not {D}")
-    for name, t in (("k", k), ("v", v), ("ks", ks), ("vs", vs)):
-        if t is not None and t.data_ptr() % 16:
-            raise ValueError(f"decode_attention: the arena slice {name} is "
-                             f"not 16-byte aligned")
+    _check_kernel_arena("decode_attention", D,
+                        (("k", k), ("v", v), ("ks", ks), ("vs", vs)))
     S = decode_plan(B, hkv, T)
     if -(-T // S) * _group(Hq // hkv) > _MAX_SCORES:
         raise ValueError(f"decode_attention: {T} keys in {S} slices do not "
@@ -159,20 +156,27 @@ def decode_attention_kernel(q3, k, v, ks, vs, mask2, hkv: int, scale: float):
 
 def decode_attention_cells_kernel(q3, k, v, ks, vs, mask2, hkv: int,
                                   scale: float):
-    """Launch csrc/decode_attention_cells.cu: q3 (NB, Hq, D) over the shared
-    (1, T, Hkv*D) arena slice; the plain version is decode_attention_plain."""
+    """Launch csrc/decode_attention_cells.cu once: q3 (NB, Hq, D) over the
+    shared (1, T, Hkv*D) arena slice, its keys split over a cluster of
+    decode_plan(1, hkv, T) blocks; the plain version is
+    decode_attention_plain. Takes D 128 or 256 and contiguous, 16-byte
+    aligned arena slices; raises on anything else, without a launch.
+    Allocates only the output (and a copy of q3 where it is not 16-byte
+    aligned)."""
     NB, Hq, D = q3.shape
     T = k.shape[1]
     _check_arena("decode_attention_cells", q3, k, v, ks, vs, hkv, 1)
+    _check_kernel_arena("decode_attention_cells", D,
+                        (("k", k), ("v", v), ("ks", ks), ("vs", vs)))
     q3 = q3.float().contiguous()
+    if q3.data_ptr() % 16:            # the kernel reads q in 16-byte loads
+        q3 = q3.clone()
     mask2 = mask2.float().contiguous()
-    ws_acc, ws_ml = _split_workspace(NB, Hq, D, T, q3.device)
     out = torch.empty(NB, Hq, D, dtype=torch.float32, device=q3.device)
     rc = _build.lib().ggml_decode_attention_cells(
         q3.data_ptr(), k.data_ptr(), v.data_ptr(), _build.ptr(ks),
-        _build.ptr(vs), mask2.data_ptr(), ws_acc.data_ptr(), ws_ml.data_ptr(),
-        out.data_ptr(), NB, Hq, hkv, D, T, SPLIT, float(scale),
-        _build.stream_ptr(q3))
+        _build.ptr(vs), mask2.data_ptr(), out.data_ptr(), NB, Hq, hkv, D, T,
+        decode_plan(1, hkv, T), float(scale), _build.stream_ptr(q3))
     _build.check(rc, "decode_attention_cells")
     _build.LAUNCHES["decode_attention_cells"] += 1
     return out
@@ -268,9 +272,6 @@ def decode_attention_update_kernel(q3, k, v, ks, vs, kn, vn, kns, vns, mask2,
         raise ValueError(f"decode_attention_update: arena batch {Bk} for "
                          f"{NB} rows")
     _check_arena("decode_attention_update", q3, k, v, ks, vs, hkv, Bk)
-    if D not in (128, 256):
-        raise ValueError(f"decode_attention_update: the kernel takes D 128 or "
-                         f"256 (D % 128 == 0, D <= 256), not {D}")
     if kn.shape != (NB, hkv * D) or kn.dtype != k.dtype \
             or vn.shape != kn.shape or vn.dtype != kn.dtype:
         raise ValueError(f"decode_attention_update: fresh rows "
@@ -286,11 +287,9 @@ def decode_attention_update_kernel(q3, k, v, ks, vs, kn, vn, kns, vns, mask2,
     kn, vn = kn.contiguous(), vn.contiguous()
     kns = None if kns is None else kns.float().contiguous()
     vns = None if vns is None else vns.float().contiguous()
-    for name, t in (("k", k), ("v", v), ("ks", ks), ("vs", vs), ("kn", kn),
-                    ("vn", vn), ("kns", kns), ("vns", vns)):
-        if t is not None and t.data_ptr() % 16:
-            raise ValueError(f"decode_attention_update: {name} is not 16-byte "
-                             f"aligned")
+    _check_kernel_arena("decode_attention_update", D, (
+        ("k", k), ("v", v), ("ks", ks), ("vs", vs), ("kn", kn), ("vn", vn),
+        ("kns", kns), ("vns", vns)))
     q3 = q3.float().contiguous()
     if q3.data_ptr() % 16:            # the kernel reads q in 16-byte loads
         q3 = q3.clone()

@@ -719,25 +719,123 @@ def cells_mask(gen, nb, T, n_pad):
     return torch.where(vis, 0.0, da.NEG)
 
 
-# T = 200 is not a multiple of the 64-key slices; nb 9 x g_rep 4 = 36 query
-# rows take three passes of the block
-@pytest.mark.parametrize("kv", [torch.bfloat16, "q8_0"])
-@pytest.mark.parametrize("nb,hq,hkv", [(5, 4, 4), (5, 8, 2), (9, 8, 2)])
-def test_decode_attention_cells_kernel_matches_plain(gen, kv, nb, hq, hkv):
-    T, D = 200, 128
+# nb, hq, hkv, D, T, pad rows, rows that see no key. S is decode_plan(1,
+# hkv, T): 8 but in "S 6"; T 200 gives slices of 25 keys (the mask by
+# cp.async), T 512 and 2048 by tensor copies; nb 9 x g_rep 4 = 36 query
+# rows take three 16-row passes of the block
+CELLS_CASES = {
+    "nb 5 4:4": (5, 4, 4, 128, 200, 1, ()),
+    "nb 5 8:2": (5, 8, 2, 128, 200, 1, ()),
+    "nb 9 8:2": (9, 8, 2, 128, 200, 1, ()),
+    "gptj NB 8 T 2048": (8, 16, 16, 256, 2048, 1, ()),
+    "gptj NB 16 T 2048": (16, 16, 16, 256, 2048, 1, ()),
+    "gptj NB 24 T 2048": (24, 16, 16, 256, 2048, 1, ()),
+    "gptj NB 8 T 200": (8, 16, 16, 256, 200, 1, ()),
+    "NB 8 T 512 D 128": (8, 4, 4, 128, 512, 1, ()),
+    "NB 24 T 512 D 128": (24, 4, 4, 128, 512, 1, ()),
+    "g_rep 8 D 256": (3, 16, 2, 256, 512, 1, ()),
+    "g_rep 8 D 128 T 2048": (4, 16, 2, 128, 2048, 1, ()),
+    "two pad rows and a row that sees no key": (8, 16, 16, 256, 2048, 2,
+                                                (2,)),
+    "S 6": (4, 20, 20, 128, 512, 1, ()),
+}
+
+
+def cells_case(gen, kv, nb, hq, hkv, D, T, n_pad=1, masked=()):
     cache = filled_cache(gen, kv, 1, T, hkv, D)
     q = torch.randn(nb, hq, D, generator=gen, device="cuda")
-    args = (q, *arena_args(cache), cells_mask(gen, nb, T, 1), hkv,
-            1 / math.sqrt(D))
+    mask = cells_mask(gen, nb, T, n_pad)
+    for n in masked:
+        mask[n] = da.NEG
+    return cache, (q, *arena_args(cache), mask, hkv, 1 / math.sqrt(D))
+
+
+@pytest.mark.parametrize("kv", [torch.bfloat16, "q8_0"])
+@pytest.mark.parametrize("case", list(CELLS_CASES))
+def test_decode_attention_cells_kernel_matches_plain(gen, kv, case):
+    """The cells kernel against decode_attention_plain (rel 1e-2: p is
+    rounded against a running max per 64-key chunk in the kernel, against
+    the row's global max in the plain version); a row that sees no cell
+    (pad rows included) is the mean of V over the T keys, as in the
+    reference."""
+    nb, hq, hkv, D, T, n_pad, masked = CELLS_CASES[case]
+    cache, args = cells_case(gen, kv, nb, hq, hkv, D, T, n_pad, masked)
     before = _build.LAUNCHES["decode_attention_cells"]
     got = da.decode_attention_cells_kernel(*args)
     assert _build.LAUNCHES["decode_attention_cells"] == before + 1
     ref = da.decode_attention_plain(*args)
-    assert rel(got, ref) < 1e-2
-    # the pad row is the mean of V, as in the reference
+    err = rel(got, ref)
+    print(f"decode_attention_cells {case} {kv}: rel {err:.3e}")  # with -s
+    assert err < 1e-2
     vmean = da._dense(cache.v[1], None if cache.vs is None else cache.vs[1],
                       1, hkv)[0].mean(1)                 # (hkv, D)
-    assert rel(got[-1, ::hq // hkv], vmean) < 1e-2
+    for n in list(range(nb - n_pad, nb)) + list(masked):
+        assert rel(got[n, ::hq // hkv], vmean) < 1e-2
+
+
+@pytest.mark.parametrize("kv", [torch.bfloat16, "q8_0"])
+def test_decode_attention_cells_is_deterministic_and_counted(gen, kv):
+    """Two launches on the same inputs give equal bits (the ranks merge in
+    rank order); each adds one to the counter."""
+    _, args = cells_case(gen, kv, 8, 16, 16, 256, 2048)
+    before = _build.LAUNCHES["decode_attention_cells"]
+    first = da.decode_attention_cells_kernel(*args)
+    second = da.decode_attention_cells_kernel(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["decode_attention_cells"] == before + 2
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("kv", [torch.bfloat16, "q8_0"])
+def test_decode_attention_cells_is_one_kernel(gen, kv):
+    """One CUDA kernel a call and nothing else (no workspace, no combine
+    pass): torch.profiler's device events of one call at the serving
+    shape."""
+    from torch.profiler import ProfilerActivity, profile
+    _, args = cells_case(gen, kv, 8, 16, 16, 256, 2048)
+    da.decode_attention_cells_kernel(*args)          # built and warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        da.decode_attention_cells_kernel(*args)
+        torch.cuda.synchronize()
+    dev = [(ev.key, ev.count) for ev in prof.key_averages()
+           if str(ev.device_type).endswith("CUDA")
+           and ev.self_device_time_total > 0]
+    print(f"decode_attention_cells {kv}: device events {dev}")
+    assert len(dev) == 1 and dev[0][1] == 1 and "cells_kernel" in dev[0][0]
+
+
+def test_decode_attention_cells_refuses_without_a_launch(gen):
+    """A D the kernel does not take, a misaligned or non-contiguous arena
+    slice raise before any launch; a misaligned q3 is copied, not
+    refused."""
+    before = _build.LAUNCHES["decode_attention_cells"]
+    for D in (64, 384):
+        _, args = cells_case(gen, torch.bfloat16, 2, 4, 4, D, 64)
+        with pytest.raises(ValueError, match="D 128 or 256"):
+            da.decode_attention_cells_kernel(*args)
+    for kv, which in ((torch.bfloat16, 1), ("q8_0", 4)):
+        _, args = cells_case(gen, kv, 2, 4, 4, 128, 64)
+        args = list(args)
+        t = args[which]
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")
+        args[which] = buf[1:].view(t.shape)
+        with pytest.raises(ValueError, match="aligned"):
+            da.decode_attention_cells_kernel(*args)
+    _, args = cells_case(gen, torch.bfloat16, 2, 4, 4, 128, 64)
+    args = list(args)
+    args[2] = torch.cat([args[2], args[2]], dim=2)[:, :, :512]
+    with pytest.raises(ValueError, match="contiguous"):
+        da.decode_attention_cells_kernel(*args)
+    assert _build.LAUNCHES["decode_attention_cells"] == before
+    _, args = cells_case(gen, torch.bfloat16, 2, 4, 4, 128, 64)
+    q = args[0]
+    q_off = torch.empty(q.numel() + 1, device="cuda")[1:].view(q.shape)
+    q_off.copy_(q)
+    got = da.decode_attention_cells_kernel(q_off, *args[1:])
+    assert _build.LAUNCHES["decode_attention_cells"] == before + 1
+    assert rel(got, da.decode_attention_plain(*args)) < 1e-2
 
 
 def update_case(gen, kv, mode, nb, hq, hkv, D, T, rows, masked=(), n_pad=1):
