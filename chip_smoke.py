@@ -22,8 +22,10 @@ Phases (any failure exits nonzero and prints no result line):
    KV-update kernel in cells mode at 8 rows x 2048 (each with its time at
    cluster splits 1, 2, 4, 8), the fused kernel in flat mode at T 512,
    these timed led, flash at a mixed ubatch's 128 rows over that q8_0
-   arena; GPT-2 XL: nat8 W8A8 on fc_w (timed led, its unled time logged
-   beside), W8A16 on fc_w at M 512, 5, 8 and 128 (per-32
+   arena; GPT-2 XL: nat8 W8A8 on fc_w (timed led, its unled time and its
+   time at each K split nat8_gemv_plan may take logged beside, with the
+   clusters of 2-8 blocks the card runs at once), W8A16 on fc_w at M 512,
+   5, 8 and 128 (per-32
    f32 scales, and per-16 bf16 scales with a bias), each with the route
    and K split it took and its time at other K splits, flash at D = 64;
    GPT-2 117M training:
@@ -99,10 +101,13 @@ Phases (any failure exits nonzero and prints no result line):
    scale rows swapped) that must fail that check.
 
     python3 chip_smoke.py --serving-kernels [ROOT]
+    python3 chip_smoke.py --gpt2-kernels [ROOT]
 
-runs phases 1 and 2's serving kernels alone (rows 14-15 of PERF.md's
-kernel table, timed led), on the port of the checkout at ROOT (default:
-this one): the same script times another commit's kernels.
+run phase 1 and phase 2's serving kernels alone (rows 14-15 of PERF.md's
+kernel table, timed led), or its nat8 W8A8 checks alone (row 7, led and
+unled, with its time at each K split the plan may take), on the port of
+the checkout at ROOT (default: this one): the same script times another
+commit's kernels.
 
 Each engine phase, and the timed training steps, sets the launch counters
 to 0 just before its run and reads them just after. Every flash forward
@@ -434,6 +439,15 @@ def forced_split_times(ck, timer, mod, plan, splits, call, ref, tol, name):
         setattr(mod, plan, planner)
 
 
+def log_timer_floor(timer):
+    """The led timer's floor: one tiny kernel. The W8A8 and W4A8 GEMVs and
+    the decode attention kernels take ~0.01-0.06 ms, so they are timed led,
+    beside it."""
+    tiny = torch.zeros(16, device="cuda")
+    log(f"  timer floor: one tiny kernel, led, "
+        f"{timer(lambda: tiny.add_(1), iters=50, lead=True):.4f} ms")
+
+
 def check_gptj_kernels(ck, timer, gen):
     from ggml_imax_tpu_torch.models.common import init_kv_cache, update_kv
     from ggml_imax_tpu_torch.ops import decode_attention as da
@@ -441,11 +455,7 @@ def check_gptj_kernels(ck, timer, gen):
 
     E = GPTJ_6B["n_embd"]
     shapes = {"qkvf_w": (E, 7 * E), "of_w": (5 * E, E), "lm_head": (E, 51200)}
-    # the W4A8 GEMVs and decode attention take ~0.01-0.06 ms, so they are
-    # timed led, beside the timer's own floor (one tiny led kernel)
-    tiny = torch.zeros(16, device="cuda")
-    log(f"  timer floor: one tiny kernel, led, "
-        f"{timer(lambda: tiny.add_(1), iters=50, lead=True):.4f} ms")
+    log_timer_floor(timer)
     for label, (K, N) in shapes.items():
         qt = random_natpair(K, N, gen)
         wd = qmm.dequant_bf16(qt)                     # library yardstick only
@@ -725,16 +735,60 @@ def mixed_ubatch_mask(n_ctx, nb):
                                 dev(cell_seq))
 
 
-def check_gpt2_kernels(ck, timer, gen):
+def nat8_gemv_clusters():
+    """cudaOccupancyMaxActiveClusters of csrc/nat8_gemv.cu's g 32 f32 kernel
+    at clusters of s = 2 .. 8 blocks: a query compiled with the kernel's
+    source into the port's build directory."""
+    import ctypes
+    from ggml_imax_tpu_torch import _build
+    src = _build.CSRC / "nat8_gemv.cu"
+    d = _build.BUILD_DIR / "nat8_gemv_clusters"
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "query.cu").write_text(f"""#include "{src}"
+extern "C" int nat8_gemv_clusters(int s) {{
+  cudaLaunchConfig_t cfg = {{}};
+  cfg.gridDim = dim3(1, s);
+  cfg.blockDim = dim3(kThreads);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = s;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int n = -1;
+  return cudaOccupancyMaxActiveClusters(
+      &n, (void*)nat8_gemv_kernel<float, 32, false>, &cfg) ? -1 : n;
+}}
+""")
+    subprocess.run([_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-Xcompiler", "-fPIC", "-shared",
+                    str(d / "query.cu"), "-o", str(d / "query.so")],
+                   check=True, capture_output=True, timeout=300)
+    lib = ctypes.CDLL(str(d / "query.so"))
+    return [lib.nat8_gemv_clusters(s) for s in range(2, 9)]
+
+
+def check_gpt2_kernels(ck, timer, gen, w8a8_only=False):
     """nat8 W8A8 / W8A16 at GPT-2 XL's fc_w (1600 x 6400, per-32 f32 scales:
     Q8_0), then per-16 with bias and bf16 scales (Q6_K/Q5_K-like) and a
     ragged M; flash at the GPT-2 XL prefill (25 heads of 64, 512 queries
-    over the 1024-row arena)."""
+    over the 1024-row arena). w8a8_only: the W8A8 checks alone (row 7, with
+    its time at each K split the plan may take, where the port has
+    `nat8_gemv_plan`)."""
     from ggml_imax_tpu_torch.ops import qmm
 
     K, N = GPT2_XL["n_embd"], 4 * GPT2_XL["n_embd"]
     variants = [("fc_w g32 f32", 32, torch.float32, False),
                 ("fc_w g16 bias bf16", 16, torch.bfloat16, True)]
+    log_timer_floor(timer)
+    if hasattr(qmm, "nat8_gemv_plan"):       # a parent port may lack it
+        clusters = nat8_gemv_clusters()
+        table = list(qmm._NAT8_GEMV_CLUSTERS.values())
+        log(f"  nat8_w8a8 clusters of s blocks the card runs at once, s = "
+            f"2..8: {clusters}; the plan's table {table}"
+            + ("" if clusters == table
+               else " (MISMATCH: the plan may take a split of two waves)"))
     for label, g, sdt, bias in variants:
         qt = random_nat8(K, N, gen, g, sdt, bias)
         wd = qmm.dequant_bf16(qt)                     # library yardstick only
@@ -759,6 +813,15 @@ def check_gpt2_kernels(ck, timer, gen):
                   2 * K * N, PEAK_INT8)
         log(f"  {'':16s} {label} m=1 unled: kernel {timer(kern, iters=50):.4f} "
             f"ms, library {timer(lib, iters=50):.4f} ms")
+        if hasattr(qmm, "nat8_gemv_plan"):       # a parent port may lack it
+            log(f"  {'':16s} {label} m=1 by K split (plan "
+                f"{qmm.nat8_gemv_plan(K, N, g)}): " + ", ".join(
+                    f"{s} {ms:.4f} ms" for s, ms in forced_split_times(
+                        ck, timer, qmm, "nat8_gemv_plan",
+                        range(1, min(8, K // 32) + 1), kern, ref, 1e-4,
+                        f"nat8_w8a8 {label}")))
+        if w8a8_only:
+            continue
         # W8A16 at the prefill bucket M = 512, the Engine's smallest bucket
         # M = 8, a ragged M = 5 and the bucket M = 128, each with the route
         # and K split it takes, and its time at other K splits
@@ -779,6 +842,8 @@ def check_gpt2_kernels(ck, timer, gen):
                 f"{s} {ms:.4f} ms" for s, ms in split_times(
                     timer, qmm, xm, qt, "nat8_plan", "nat8_w8a16_gemm")))
         del qt, wd
+    if w8a8_only:
+        return
     H, D = GPT2_XL["n_head"], GPT2_XL["n_embd"] // GPT2_XL["n_head"]
     flash_case(ck, timer, gen, f"gpt2 B=1 Tq=512 Tk=1024 H={H} D={D}", 1, 512,
                1024, H, H, D, {}, timed=True, q_off=0)
@@ -1900,8 +1965,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     repo = Path(__file__).resolve().parent
-    serving_only = sys.argv[1:2] == ["--serving-kernels"]
-    if serving_only and len(sys.argv) > 2:   # another checkout's port
+    # a kernel group alone, timed on the port of another checkout if named
+    alone = {"--serving-kernels": ("serving_kernels", check_serving_kernels),
+             "--gpt2-kernels": ("gpt2_kernels", lambda ck, timer, gen:
+                                check_gpt2_kernels(ck, timer, gen,
+                                                   w8a8_only=True))
+             }.get(sys.argv[1] if len(sys.argv) > 1 else "")
+    if alone and len(sys.argv) > 2:
         repo = Path(sys.argv[2]).resolve()
     if not (repo / "ggml_imax_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout holding ggml_imax_tpu_torch/",
@@ -1930,13 +2000,13 @@ def main() -> int:
     ck, timer = Checks(), Timer()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    if serving_only:
-        check_serving_kernels(ck, timer, gen)
+    if alone:
+        key, check = alone
+        check(ck, timer, gen)
         if ck.failures:
             raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(ck.failures))
         log(smi[0] if smi else "nvidia-smi: n/a")
-        log(json.dumps({"serving_kernels": list(ck.results.values()),
-                        "port": str(repo)}))
+        log(json.dumps({key: list(ck.results.values()), "port": str(repo)}))
         return 0
     check_gptj_kernels(ck, timer, gen)
     check_serving_kernels(ck, timer, gen)

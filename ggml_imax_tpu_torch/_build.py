@@ -40,8 +40,8 @@ _SIGNATURES = {
     "ggml_w4a8_gemv": [_P] * 7 + [_I] * 4 + [_P],
     # x, q, scale, bias, xs, out, M, K, N, split, scale_is_bf16, stream
     "ggml_w4a16_gemm": [_P] * 6 + [_I] * 5 + [_P],
-    # x8, dx, q, scale, bias, xs, out, K, N, g, scale_is_bf16, stream
-    "ggml_nat8_gemv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x8, dx, q, scale, bias, xs, out, K, N, g, split, scale_is_bf16, stream
+    "ggml_nat8_gemv": [_P] * 7 + [_I] * 5 + [_P],
     # x, q, scale, bias, xs, out, M, K, N, g, split, scale_is_bf16, stream
     "ggml_nat8_gemm": [_P] * 6 + [_I] * 6 + [_P],
     # q, k, v, ks, vs, mask, out, B, Hq, Hkv, D, T, split, scale, stream

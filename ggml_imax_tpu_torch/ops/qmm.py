@@ -32,8 +32,8 @@ Seven kernels, each with a plain PyTorch version beside it:
   dequantized weights, f32 accumulation, a small-M route up to m = 8 and a
   tile route above, K cut across blocks as `natpair_plan` says —
   csrc/w4a16_gemm.cu.
-- `nat8_w8a8_gemv` (nat8, m == 1): the same W8A8 math per g-row group —
-  csrc/nat8_gemv.cu.
+- `nat8_w8a8_gemv` (nat8, m == 1): the same W8A8 math per g-row group,
+  K cut across blocks as `nat8_gemv_plan` says — csrc/nat8_gemv.cu.
 - `nat8_w8a16_gemm` (nat8, m > 1): as w4a16_gemm, weight bf16(q) * bf16(s),
   the two routes and the K split as `nat8_plan` says — csrc/nat8_gemm.cu.
 - `planes_w4a16`, `rowpair_w4a16`, `int8_rows_w8a16` (every m: these
@@ -477,28 +477,65 @@ def nat8_w8a8_gemv_plain(x8, dx, qt: QTensor, xs=None) -> torch.Tensor:
     return out
 
 
+# csrc/nat8_gemv.cu's blocks own 128 columns each (kCols) and run two an SM;
+# K is cut across blocks into pieces of whole 32-row units (one g-32 group or
+# two g-16 ones), the pieces of a column block one thread-block cluster
+_NAT8_GEMV_COLS = 128
+_NAT8_GEMV_UNIT = 32
+# the clusters of s such blocks the H100 runs at once
+# (cudaOccupancyMaxActiveClusters, s = 2 .. 8; chip_smoke.py logs the card's
+# own): a cluster stays inside one GPC, so clusters of 5 or more leave many
+# of the 264 block slots empty
+_NAT8_GEMV_CLUSTERS = {2: 132, 3: 79, 4: 62, 5: 47, 6: 39, 7: 32, 8: 30}
+
+
+def nat8_gemv_plan(k: int, n: int, g: int) -> int:
+    """K split of the W8A8 GEMV (csrc/nat8_gemv.cu) over a weight of g-row
+    groups (16 or 32; a unit is 32 rows at either): 1 when the 128-column
+    blocks alone give each of the 132 SMs one, else the largest split (at
+    most 8 and K/32) whose clusters the card runs in one wave. More pieces
+    put more of the weight in flight at once; a second wave costs a whole
+    one. The pieces differ by at most one unit."""
+    if g not in (16, 32):
+        raise ValueError(f"nat8_gemv_plan: g {g}")
+    blocks, units = -(-n // _NAT8_GEMV_COLS), k // _NAT8_GEMV_UNIT
+    if blocks >= _SMS:
+        return 1
+    fit = [s for s in range(2, min(_A16_MAX_SPLIT, units) + 1)
+           if blocks <= _NAT8_GEMV_CLUSTERS[s]]
+    return fit[-1] if fit else 1
+
+
 def nat8_w8a8_gemv(x8, dx, qt: QTensor, xs=None) -> torch.Tensor:
     """W8A8 GEMV: activations quantized per group of g = K / scale rows
     (x8 (K/g, g) int8, d_x dx (K/g) f32, and xs = dx * sum(x8) per group when
-    the weight has a bias) times nat8 weights -> (N,) f32."""
+    the weight has a bias) times nat8 weights -> (N,) f32, K cut as
+    `nat8_gemv_plan` says."""
     _check_nat8(qt)
     g = nat8_group(qt)
     if x8.shape != (qt.k // g, g) or dx.shape != (qt.k // g,):
         raise ValueError(f"nat8_w8a8_gemv: x8 {tuple(x8.shape)} for K={qt.k}, "
                          f"g={g}")
+    if qt.bias is not None and (xs is None or xs.shape != dx.shape):
+        raise ValueError("nat8_w8a8_gemv: a weight with a bias needs xs (K/g)")
     if x8.device.type == "cpu":
         return nat8_w8a8_gemv_plain(x8, dx, qt, xs)
-    if qt.n % 16 or x8.dtype != torch.int8 or dx.dtype != torch.float32:
-        raise ValueError("nat8_w8a8_gemv: N % 16, int8 x8 and f32 dx required")
-    if qt.q.data_ptr() % 16:
-        raise ValueError("nat8_w8a8_gemv: the weight must be 16-byte aligned")
+    if qt.n % _NAT8_GEMV_COLS or qt.k % _NAT8_GEMV_UNIT \
+            or x8.dtype != torch.int8 or dx.dtype != torch.float32:
+        raise ValueError("nat8_w8a8_gemv: N % 128, K % 32, int8 x8 and f32 dx "
+                         "required")
     x8, dx = x8.contiguous(), dx.contiguous()
+    if any(t.data_ptr() % 16 for t in (x8, qt.q, qt.scale, qt.bias)
+           if t is not None):
+        raise ValueError("nat8_w8a8_gemv: a 16-byte aligned x8, weight, scale "
+                         "and bias required")
     xs = None if qt.bias is None else xs.float().contiguous()
     out = torch.empty(qt.n, dtype=torch.float32, device=x8.device)
     rc = _build.lib().ggml_nat8_gemv(
         x8.data_ptr(), dx.data_ptr(), qt.q.data_ptr(), qt.scale.data_ptr(),
         _build.ptr(qt.bias), _build.ptr(xs), out.data_ptr(), qt.k, qt.n, g,
-        int(qt.scale.dtype == torch.bfloat16), _build.stream_ptr(x8))
+        nat8_gemv_plan(qt.k, qt.n, g), int(qt.scale.dtype == torch.bfloat16),
+        _build.stream_ptr(x8))
     _build.check(rc, "nat8_w8a8")
     _build.LAUNCHES["nat8_w8a8"] += 1
     return out

@@ -571,6 +571,127 @@ def test_nat8_w8a8_kernel_matches_plain(gen, g, scale_dtype, bias):
     assert rel(got[0], ref) < 1e-5
 
 
+def check_w8a8(qt, x, launches=2):
+    """`launches` W8A8 wrapper calls on x (1, K), each counted, each giving
+    the same bits, against the plain version."""
+    x8, dx = qmm.quantize_activations_q8(x, qmm.nat8_group(qt))
+    x8, dx = x8[:, 0], dx[:, 0]
+    xs = None if qt.bias is None else dx * x8.float().sum(-1)
+    before = _build.LAUNCHES["nat8_w8a8"]
+    runs = [qmm.nat8_w8a8_gemv(x8, dx, qt, xs) for _ in range(launches)]
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["nat8_w8a8"] == before + launches
+    ref = qmm.nat8_w8a8_gemv_plain(x8, dx, qt, xs)
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    err = rel(runs[0], ref)
+    print(f"nat8_w8a8 K {qt.k} N {qt.n} g {qmm.nat8_group(qt)} split "
+          f"{qmm.nat8_gemv_plan(qt.k, qt.n, qmm.nat8_group(qt))}: "
+          f"rel {err:.3e}")                                 # shown with -s
+    assert err < 1e-5
+
+
+# the kernel's eight instances: g 32 / 16, f32 / bf16 scales, bias or not
+W8A8_INSTANCES = [(g, sdt, bias) for g in (32, 16)
+                  for sdt in (torch.float32, torch.bfloat16)
+                  for bias in (False, True)]
+
+
+@pytest.mark.parametrize("split", range(1, 9))
+@pytest.mark.parametrize("g,scale_dtype,bias", W8A8_INSTANCES)
+def test_nat8_w8a8_fc_w_every_split(gen, monkeypatch, split, g, scale_dtype,
+                                    bias):
+    """GPT-2 XL's fc_w (50 units of 32 rows) at every split the kernel
+    takes (1 .. 8, pieces of whole units differing by at most one; the
+    plan takes 4), two launches a split."""
+    assert qmm.nat8_gemv_plan(1600, 6400, g) == 4
+    qt = nat8(1600, 6400, gen, g, scale_dtype, bias)
+    x = torch.randn(1, 1600, generator=gen, device="cuda")
+    monkeypatch.setattr(qmm, "nat8_gemv_plan", lambda *a: split)
+    check_w8a8(qt, x)
+
+
+# (K, N) at the plan's split: 132 column blocks unsplit, two units a warp
+# (K 512); 3 units of one (split 3); a long K on 13 column blocks (split
+# 8); GPT-2 117M's fc_w (24 column blocks, 8 pieces of 3 units) and out_w
+# (6 column blocks, 8 pieces of 12)
+@pytest.mark.parametrize("k,n", [(512, 16896), (96, 128), (6400, 1664),
+                                 (768, 3072), (3072, 768)])
+@pytest.mark.parametrize("g,scale_dtype,bias", W8A8_INSTANCES)
+def test_nat8_w8a8_shapes_match_plain(gen, k, n, g, scale_dtype, bias):
+    check_w8a8(nat8(k, n, gen, g, scale_dtype, bias),
+               torch.randn(1, k, generator=gen, device="cuda"))
+
+
+@pytest.mark.parametrize("w", [-128, 127])
+@pytest.mark.parametrize("g,scale_dtype,bias", [(32, torch.float32, False),
+                                                (16, torch.bfloat16, True)])
+def test_nat8_w8a8_extremes(gen, w, g, scale_dtype, bias):
+    """Every weight at -128 or 127, every x8 at +-127: the integer dots'
+    largest magnitudes (32 x 128 x 127), still exact."""
+    qt = nat8(1600, 6400, gen, g, scale_dtype, bias)
+    qt.q.fill_(w)
+    x = torch.randn(1, 1600, generator=gen, device="cuda").sign() * 3.0
+    x8, _ = qmm.quantize_activations_q8(x, g)
+    assert int(x8.abs().min()) == 127
+    check_w8a8(qt, x)
+
+
+def test_nat8_w8a8_is_one_kernel(gen):
+    """One CUDA kernel a call at fc_w's split 4 and nothing else (no
+    workspace, no second pass): torch.profiler's device events."""
+    from torch.profiler import ProfilerActivity, profile
+    qt = nat8(1600, 6400, gen, 16, torch.bfloat16, True)
+    x8, dx = qmm.quantize_activations_q8(
+        torch.randn(1, 1600, generator=gen, device="cuda"), 16)
+    x8, dx = x8[:, 0].contiguous(), dx[:, 0].contiguous()
+    xs = (dx * x8.float().sum(-1)).contiguous()
+    qmm.nat8_w8a8_gemv(x8, dx, qt, xs)                # built and warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        qmm.nat8_w8a8_gemv(x8, dx, qt, xs)
+        torch.cuda.synchronize()
+    dev = [(ev.key, ev.count) for ev in prof.key_averages()
+           if str(ev.device_type).endswith("CUDA")
+           and ev.self_device_time_total > 0]
+    print(f"nat8_w8a8: device events {dev}")
+    assert len(dev) == 1 and dev[0][1] == 1 and "nat8_gemv_kernel" in dev[0][0]
+
+
+def test_nat8_w8a8_refuses_what_the_kernel_does_not_take(gen):
+    """An N or K the kernel does not take (N % 16 == 0 was taken before the
+    kernel's 128-column blocks; the N % 128 gate sends none such), a
+    misaligned scale or bias, a bias without xs and a non-int8 x8 raise
+    before any launch."""
+    before = _build.LAUNCHES["nat8_w8a8"]
+
+    def acts(qt):
+        g = qmm.nat8_group(qt)
+        return (torch.zeros(qt.k // g, g, dtype=torch.int8, device="cuda"),
+                torch.ones(qt.k // g, device="cuda"))
+
+    qt = nat8(512, 144, gen)
+    with pytest.raises(ValueError, match="N % 128"):
+        qmm.nat8_w8a8_gemv(*acts(qt), qt)
+    qt = nat8(1616, 256, gen, 16)
+    with pytest.raises(ValueError, match="K % 32"):
+        qmm.nat8_w8a8_gemv(*acts(qt), qt)
+    qt = nat8(512, 256, gen, 32, torch.float32, True)
+    x8, dx = acts(qt)
+    with pytest.raises(ValueError, match="xs"):
+        qmm.nat8_w8a8_gemv(x8, dx, qt)
+    with pytest.raises(ValueError, match="int8 x8"):
+        qmm.nat8_w8a8_gemv(x8.to(torch.uint8), dx, qt, dx)
+    for which in ("scale", "bias"):
+        t = getattr(qt, which)
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")
+        off = buf[1:].view(t.shape)
+        off.copy_(t)
+        with pytest.raises(ValueError, match="16-byte"):
+            qmm.nat8_w8a8_gemv(x8, dx, replace(qt, **{which: off}), dx)
+    assert _build.LAUNCHES["nat8_w8a8"] == before
+
+
 @pytest.mark.parametrize("m,n", [(5, 640), (100, 200), (512, 640)])
 @pytest.mark.parametrize("g,bias", [(32, False), (16, True)])
 def test_nat8_w8a16_kernel_matches_plain(gen, m, n, g, bias):
