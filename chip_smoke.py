@@ -47,13 +47,25 @@ Phases (any failure exits nonzero and prints no result line):
    row-pair Q4_0 and u-order Q8_0, on the card (kernels) against the
    same model on the CPU (plain versions), prefill + decode; and the small
    GPT-J's BatchedEngine (two requests and a fork, q8_0 KV, both cells
-   routes) on the card against the CPU, ubatch by ubatch;
+   routes) on the card against the CPU, ubatch by ubatch; then
+   generate(chunk=4) of the small GPT-J (both KV types, default and fused
+   routes) and GPT-2 Q8_0 on the card (captured decode spans, then their
+   replays), whose greedy tokens must equal generate(chunk=1) on the card
+   and on the CPU, and the small GPT-J BatchedEngine's run_pipelined(4)
+   against its step() loop on the card (equal tokens, every cell freed);
 4. GPT-J engine: synthetic GPT-J-6B Q4_0 drawn on the card, prepare_fused +
    natpair repack, Engine(n_ctx=512) serving 3 requests of a 448-token
    prompt + 64 greedy tokens, with the launch counts of that run; then the
    device busy share of a prefill and of decode steps (torch.profiler
    kernel time against the unprofiled TTFT and step time), and W4A16's
    and the flash forward's (with its tile map) share of the device time;
+   then the same 3 requests through generate(chunk=8) (decode spans
+   captured as CUDA graphs in a warm-up request, then replayed): tokens
+   equal to the chunk-1 run's request by request, the same exact launch
+   counts, TTFT, tok/s, ms a token, the capture seconds, the graph pool's
+   bytes and a replayed span's device busy share; and a control, the
+   spans captured without their n_past advance, which must fail the token
+   check;
 5. GPT-2 XL engine: synthetic GPT-2 1558M Q8_0 drawn on the card,
    prepare_fused + nat8 repack, Engine(n_ctx=1024), the same 3 requests,
    launch counts and profile (with nat8 W8A16's and the flash forward's
@@ -61,21 +73,27 @@ Phases (any failure exits nonzero and prints no result line):
    decode step), and the device time of the
    products the reference's N % 128 gate leaves to dequantize + matmul
    (attn_w, proj_w, out_w, the tied LM head) against the step's device
-   time;
+   time; then one request through generate(chunk=8) (the W8A8 GEMV inside
+   a graph): tokens equal to chunk 1's, 48 W8A8 launches a decode token;
 6. GPT-J serving: synthetic GPT-J-6B Q4_0, BatchedEngine(n_ctx=2048, q8_0
    KV arena, on-device sampling) under the workload of the reference's
    `examples/serve.py --bench` (8 requests arriving every 4 engine steps,
    64-127-token prompts, 32 tokens each at temp 0.8 / top_k 40 / top_p
-   0.95, step_chunk(8)), once to warm up and once timed: aggregate tok/s,
-   p50 TTFT, ubatch counts, exact launch counts, peak memory, the device
-   busy share of a decode-only ubatch and W4A16's and the cells
-   kernel's share of it; then a
+   0.95, step_chunk(8), each chunk a captured CUDA graph), once to warm
+   up and once timed; then timed in the `--steady` form (the decode tail,
+   once every request is past its prompt, through run_pipelined(8)):
+   aggregate tok/s, p50 TTFT, ubatch counts, exact launch counts, peak
+   memory of each, the tail's ms a ubatch, the device busy share of a
+   decode-only ubatch and W4A16's and the cells kernel's share of it;
+   run_pipelined(8) against the step() loop on a greedy pass (equal
+   tokens, every cell freed); then a
    short greedy serving pass (two mixed ubatches, a fork, decode-only
    ubatches) held to the same pass
    with every kernel's plain version on the card, and the fused KV-update
    routes on that pass and on Engine decode steps held to the default
-   routes (equal tokens, logits within ROUTE_TOL); two planted faults of
-   the fused kernel must fail that check;
+   routes (equal tokens, logits within ROUTE_TOL; the fused Engine also
+   through a replayed generate(chunk=8), equal tokens and launch counts);
+   two planted faults of the fused kernel must fail that check;
 7. GPT-2 117M training: synthetic F32 weights (124.4 M params), batch
    8 x 512 tokens, a fresh f32 KV cache per loss call, the mean NLL of
    log_softmax, AdamW (alpha 1e-4) through optimize.opt: 2 warm-up steps,
@@ -110,7 +128,9 @@ the checkout at ROOT (default: this one): the same script times another
 commit's kernels.
 
 Each engine phase, and the timed training steps, sets the launch counters
-to 0 just before its run and reads them just after. Every flash forward
+to 0 just before its run and reads them just after; a replayed graph adds
+the launches its capture recorded (_build.CapturedLaunches). Each phase
+prints its seconds. Every flash forward
 launches the tile map of its mask (flash_backward_tiles) before its kernel,
 so each phase counts one map for each flash call. The line before the
 last is the kernels JSON, the last line is {"ok": true, "device": {...}}.
@@ -138,6 +158,8 @@ GPTJ_6B = dict(n_vocab=50400, n_ctx=512, n_embd=4096, n_head=16, n_layer=28,
                n_rot=64)
 GPT2_XL = dict(n_vocab=50257, n_ctx=1024, n_embd=1600, n_head=25, n_layer=48)
 PROMPT, N_PREDICT, N_REQUESTS = 448, 64, 3
+# decode steps in a span of Engine.generate(chunk) (a captured CUDA graph)
+CHUNK = 8
 # examples/serve.py --bench: n_ctx, requests, arrival every k engine steps,
 # prompt lengths [lo, hi), tokens per request, decode steps per chunk
 SERVE = dict(n_ctx=2048, n_req=8, arrive=4, plen=(64, 128), n_predict=32,
@@ -1247,6 +1269,70 @@ def check_small_batched(failures):
                             f"{tok_h}")
 
 
+def check_small_chunked(failures):
+    """Captured spans and chunks at small size: the 2-layer GPT-J (both KV
+    types, the default and the fused flat route) and GPT-2 (Q8_0, nat8
+    W8A8 on fc_w) run generate(chunk=4) greedily on the card; their tokens
+    must equal generate(chunk=1) on the card and on the CPU. The small
+    GPT-J's BatchedEngine (q8_0 KV, on-device sampling) runs three requests
+    through run_pipelined(4); its greedy tokens must equal the step() loop's
+    on the card, and every cell must be freed."""
+    from ggml_imax_tpu_torch.models import gpt2, gptj
+    from ggml_imax_tpu_torch.ops.qmm import params_repack
+    from ggml_imax_tpu_torch.quant.formats import GGMLType
+    from ggml_imax_tpu_torch.runtime.batched import BatchedEngine
+    from ggml_imax_tpu_torch.runtime.engine import Engine
+
+    cfg = gptj.GPTJConfig(n_vocab=512, n_ctx=256, n_embd=512, n_head=2,
+                          n_layer=2, n_rot=64)
+    mk_j = lambda dev: params_repack(gptj.prepare_fused(
+        gptj.synthetic_params(cfg, seed=5, device=dev), cfg))
+    cfg2 = gpt2.GPT2Config(n_vocab=1000, n_ctx=64, n_embd=320, n_head=5,
+                           n_layer=2)
+    mk_2 = lambda dev: params_repack(gpt2.prepare_fused(
+        gpt2.synthetic_params(cfg2, GGMLType.Q8_0, seed=5, device=dev)))
+    prompt = list(np.random.default_rng(8).integers(0, 512, 40))
+    cases = [(f"GPT-J kv={kv} fused={fused}", gptj, cfg, mk_j,
+              dict(kv_dtype=kv, fused_kv_update=fused))
+             for kv in (torch.bfloat16, "q8_0") for fused in (False, True)]
+    cases.append(("GPT-2 Q8_0", gpt2, cfg2, mk_2, {}))
+    params = {}
+    for label, model, c, make, kw in cases:
+        toks = {}
+        for dev in ("cuda", "cpu"):
+            if (label[:5], dev) not in params:
+                params[label[:5], dev] = make(dev)
+            eng = Engine(model, c, params[label[:5], dev], device=dev, **kw)
+            toks[dev, 1] = eng.generate(prompt, 12, temp=0)
+            toks[dev, 4] = eng.generate(prompt, 12, temp=0, chunk=4)
+            if dev == "cuda":                      # a second run: replays
+                toks[dev, "replay"] = eng.generate(prompt, 12, temp=0, chunk=4)
+        ok = len({tuple(t) for t in toks.values()}) == 1
+        card = toks["cuda", 4]
+        log(f"  small {label}: generate(chunk=4) on the card (captured spans, "
+            f"then replays) vs chunk 1 on the card and on the CPU: tokens "
+            f"equal {ok} {card}")
+        if not ok:
+            failures.append(f"small chunked {label}: tokens {toks}")
+    rng = np.random.default_rng(6)
+    prompts = [list(rng.integers(0, cfg.n_vocab, n)) for n in (21, 9, 30)]
+    outs = []
+    for pipelined in (False, True):
+        be = BatchedEngine(gptj, cfg, params["GPT-J", "cuda"], kv_dtype="q8_0",
+                           on_device_sampling=True)
+        rids = [be.add_request(p, n, temp=0.0)
+                for p, n in zip(prompts, (11, 7, 18))]
+        res = be.run_pipelined(4) if pipelined else be.run()
+        outs.append([res[r] for r in rids])
+        if (be.cell_pos[:-1] != -1).any():
+            failures.append(f"small run_pipelined={pipelined}: cells not freed")
+    log(f"  small GPT-J BatchedEngine: run_pipelined(4) ({len(be._chunks)} "
+        f"captured chunks) vs the step() loop on the card: tokens equal "
+        f"{outs[0] == outs[1]}")
+    if outs[0] != outs[1]:
+        failures.append(f"small run_pipelined: {outs[1]} vs step() {outs[0]}")
+
+
 def _device_ms(fn, reps, launches=None):
     """Device time by kernel name, ms per rep (torch.profiler, CUDA); with
     a dict `launches`, also each name's launches per rep into it."""
@@ -1328,12 +1414,51 @@ def profile_engine(eng, rng, reqs, steps=8):
     return busy_ms, walls
 
 
+def arena_of(eng):
+    """A copy of the engine's KV arena (generate()'s cache)."""
+    c = eng.arena
+    return [t.clone() for t in (c.k, c.v, c.ks, c.vs) if t is not None]
+
+
+def same_arena(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def run_requests(eng, prompts, failures, chunk=1, label="request"):
+    """Each prompt + N_PREDICT greedy tokens through eng.generate(chunk=
+    chunk), the launch counters set to 0 just before and read just after.
+    Returns (per-request numbers, tokens, launch counts, a copy of the KV
+    arena after each request)."""
+    from ggml_imax_tpu_torch import _build
+    _build.reset_launches()
+    reqs, outs, arenas = [], [], []
+    for r, prompt in enumerate(prompts):
+        stamps = []
+        t0 = time.perf_counter()
+        out = eng.generate(prompt, N_PREDICT, temp=0, chunk=chunk,
+                           callback=lambda tok: stamps.append(time.perf_counter()))
+        ttft = (stamps[0] - t0) * 1e3
+        tok_s = (len(stamps) - 1) / (stamps[-1] - stamps[0])
+        ok = len(out) == N_PREDICT and all(0 <= t < eng.cfg.n_vocab for t in out)
+        log(f"  {label} {r}: TTFT {ttft:.2f} ms, decode {tok_s:.2f} tok/s "
+            f"({1e3 / tok_s:.3f} ms a token), {len(out)} tokens, first "
+            f"{out[:8]}")
+        if not ok:
+            failures.append(f"{label} {r}: bad tokens {out}")
+        reqs.append({"ttft_ms": ttft, "decode_tok_s": tok_s})
+        outs.append(out)
+        arenas.append(arena_of(eng))
+    counts = dict(_build.LAUNCHES)
+    log(f"  max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    log(f"  launches over {len(prompts)} {label}s: {counts}")
+    return reqs, outs, counts, arenas
+
+
 def serve(model, cfg, params, n_ctx, failures, n_requests=N_REQUESTS):
     """The engine phase: a warm-up, then n_requests requests of a PROMPT-token
-    prompt + N_PREDICT greedy tokens with the launch counters set to 0 just
-    before and read just after. Returns (engine, rng, per-request numbers,
-    launch counts)."""
-    from ggml_imax_tpu_torch import _build
+    prompt + N_PREDICT greedy tokens, one token a step (run_requests).
+    Returns (engine, rng, per-request numbers, launch counts, (the warm-up
+    prompt, the prompts, their tokens, the KV arena after each))."""
     from ggml_imax_tpu_torch.runtime.engine import Engine
 
     eng = Engine(model, cfg, params, n_ctx=n_ctx)
@@ -1348,26 +1473,108 @@ def serve(model, cfg, params, n_ctx, failures, n_requests=N_REQUESTS):
     torch.cuda.reset_peak_memory_stats()
     log(f"  allocated before the requests "
         f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
-    _build.reset_launches()
-    reqs = []
-    for r in range(n_requests):
-        prompt = rng.integers(0, cfg.n_vocab, PROMPT)
-        stamps = []
-        t0 = time.perf_counter()
-        out = eng.generate(prompt, N_PREDICT, temp=0,
-                           callback=lambda tok: stamps.append(time.perf_counter()))
-        ttft = (stamps[0] - t0) * 1e3
-        tok_s = (len(stamps) - 1) / (stamps[-1] - stamps[0])
-        ok = len(out) == N_PREDICT and all(0 <= t < cfg.n_vocab for t in out)
-        log(f"  request {r}: TTFT {ttft:.2f} ms, decode {tok_s:.2f} tok/s, "
-            f"{len(out)} tokens, first {out[:8]}")
-        if not ok:
-            failures.append(f"request {r}: bad tokens {out}")
-        reqs.append({"ttft_ms": ttft, "decode_tok_s": tok_s})
-    counts = dict(_build.LAUNCHES)
-    log(f"  max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    log(f"  launches over {n_requests} requests: {counts}")
-    return eng, rng, reqs, counts
+    prompts = [rng.integers(0, cfg.n_vocab, PROMPT) for _ in range(n_requests)]
+    reqs, outs, counts, arenas = run_requests(eng, prompts, failures)
+    return eng, rng, reqs, counts, (warm, prompts, outs, arenas)
+
+
+def pool_bytes(pool):
+    """Bytes of the CUDA caching allocator's segments in a graph memory pool
+    (torch.cuda.memory_snapshot's segment_pool_id); None where the snapshot
+    does not say."""
+    segs = torch.cuda.memory_snapshot()
+    if pool is None or not segs or "segment_pool_id" not in segs[0]:
+        return None
+    return sum(sg["total_size"] for sg in segs
+               if tuple(sg["segment_pool_id"]) == tuple(pool))
+
+
+def serve_chunked(eng, runs, failures, n=N_REQUESTS):
+    """The first n requests of serve() again, through generate(chunk=CHUNK):
+    a warm-up request first (the spans' first use: an eager run and the
+    capture, for spans of CHUNK and of the tail's N_PREDICT - 1 - CHUNK *
+    k), then the requests, whose tokens, and KV arena after each, must
+    equal serve()'s bit for bit (at random weights a token often follows
+    from its predecessor alone, so the arena is what shows a step that
+    attends to the wrong rows). Returns (per-request numbers, launch
+    counts, summary)."""
+    warm, prompts, want, want_arenas = runs
+    t0 = time.perf_counter()
+    eng.generate(warm, N_PREDICT, temp=0, chunk=CHUNK)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    pool = pool_bytes(eng.graph_pool)
+    log(f"  chunk {CHUNK} warm-up request {warm_s:.2f} s, of which the spans' "
+        f"eager first runs and captures {eng.capture_s:.2f} s "
+        f"({len(eng._spans)} spans); graph pool "
+        + ("not measured" if pool is None else f"{pool / 2**20:.1f} MiB"))
+    torch.cuda.reset_peak_memory_stats()
+    reqs, outs, counts, arenas = run_requests(eng, prompts[:n], failures,
+                                              CHUNK, f"chunk-{CHUNK} request")
+    same = [(got == ref, same_arena(a, b)) for got, ref, a, b
+            in zip(outs, want, arenas, want_arenas)]
+    for r, (tok_ok, arena_ok) in enumerate(same):
+        if not (tok_ok and arena_ok):
+            failures.append(f"chunk-{CHUNK} request {r}: tokens equal "
+                            f"{tok_ok}, KV arena equal {arena_ok}")
+    log(f"  chunk {CHUNK} vs chunk 1, request by request: (tokens equal, KV "
+        f"arena equal bit for bit) {same}")
+    del arenas
+    return reqs, counts, {"capture_s": eng.capture_s, "warm_up_s": warm_s,
+                          "graph_pool_bytes": pool}
+
+
+def profile_span(eng, step_busy_ms, reps=4):
+    """A replayed span of CHUNK decode steps at n_past PROMPT: its wall time
+    (host clock to the fetch) and its device busy share, from torch.profiler
+    over replays where the trace resolves the graph's kernels, else the
+    eager step's profiled device time x CHUNK. Returns (span ms, busy ms,
+    method)."""
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        eng.decode_span([1], PROMPT, CHUNK)
+    wall = (time.perf_counter() - t0) / reps * 1e3
+    dev = _device_ms(lambda _: eng.decode_span([1], PROMPT, CHUNK), reps)
+    if dev:
+        busy, how = sum(dev.values()), "torch.profiler over replays"
+        for key, ms in sorted(dev.items(), key=lambda kv: -kv[1])[:6]:
+            log(f"    {ms:9.4f} ms  {key[:90]}")
+    elif step_busy_ms is not None:
+        busy, how = step_busy_ms * CHUNK, ("the trace shows no kernel of a "
+                                           "replay: eager step's device time "
+                                           f"x {CHUNK}")
+    else:
+        log(f"  span of {CHUNK}: {wall:.3f} ms, device busy not measured")
+        return wall, None, "not measured"
+    log(f"  replayed span of {CHUNK} steps: {wall:.3f} ms ({wall / CHUNK:.3f} "
+        f"ms a token), device busy {busy:.3f} ms -> busy "
+        f"{100 * busy / wall:.1f}% ({how})")
+    return wall, busy, how
+
+
+def frozen_n_past_control(eng, runs, failures):
+    """Control: the spans captured anew with the n_past advance taken out of
+    the captured step (each step writes and reads at its span's first
+    position), one request replayed through them: its tokens and KV arena
+    must fail serve_chunked's check against chunk 1's."""
+    from ggml_imax_tpu_torch.runtime.engine import Engine
+    warm, prompts, want, want_arenas = runs
+    real, spans = Engine.__dict__["_advance"], eng._spans
+    Engine._advance = staticmethod(lambda st, nxt: st.tok.copy_(nxt))
+    eng._spans = {}
+    try:
+        got = eng.generate(prompts[0], N_PREDICT, temp=0, chunk=CHUNK)
+        arena_ok = same_arena(arena_of(eng), want_arenas[0])
+        replays = sum(run.graph is not None for _, run in eng._spans.values())
+    finally:
+        Engine._advance, eng._spans = real, spans
+    fails = got != want[0] or not arena_ok
+    log(f"  control: chunk {CHUNK} with n_past frozen in the captured span "
+        f"({replays} spans captured): tokens equal {got == want[0]}, KV arena "
+        f"equal {arena_ok} -> the check {'fails' if fails else 'holds'}")
+    if not fails:
+        failures.append("control: a span without its n_past advance passed "
+                        "the token and arena check")
 
 
 def check_counts(counts, expect, failures):
@@ -1405,20 +1612,38 @@ def gated_products_ms(ws, busy_ms, walls):
     return out
 
 
-def serving_workload(be, rng):
+def serving_workload(be, rng, steady=False):
     """examples/serve.py --bench: SERVE["n_req"] requests, one every
     SERVE["arrive"] engine steps, prompts of rng.integers(*plen) tokens,
     n_predict tokens each at temp 0.8, top_k 40, top_p 0.95; the loop body
     is step_chunk(chunk), and a decode-only iteration advances the arrival
-    clock by the chunk. Returns (tokens generated, wall s, sorted TTFTs s,
-    request ids)."""
+    clock by the chunk. steady: the --steady form (examples/serve.py:70-84),
+    whose decode tail, once every request has arrived and is past its
+    prompt, drains through run_pipelined(chunk). Returns (tokens generated,
+    wall s, sorted TTFTs s, request ids, the tail's (s, decode ubatches) or
+    None)."""
     vocab = be.cfg.n_vocab
     lo, hi = SERVE["plen"]
     queue = [(SERVE["arrive"] * i, int(rng.integers(lo, hi)),
               SERVE["n_predict"]) for i in range(SERVE["n_req"])]
     t_start = time.perf_counter()
-    ttft, t_add, step_no = {}, {}, 0
+    ttft, t_add, step_no, tail = {}, {}, 0, None
+
+    def note_ttfts():
+        for rid, t_a in t_add.items():
+            r = be.requests[rid]
+            if rid not in ttft and (r.out or r.next_tok is not None):
+                ttft[rid] = time.perf_counter() - t_a
+
     while queue or any(not be.requests[rid].done for rid in t_add):
+        live = [r for r in be.requests.values() if not r.done]
+        decode_only = live and all(r.n_prompt_done >= len(r.prompt)
+                                   for r in live)
+        if steady and not queue and decode_only:
+            t0, n0 = time.perf_counter(), be.n_ubatches["decode"]
+            be.run_pipelined(SERVE["chunk"])
+            tail = (time.perf_counter() - t0, be.n_ubatches["decode"] - n0)
+            break
         while queue and queue[0][0] <= step_no:
             _, plen, n_pred = queue.pop(0)
             rid = be.add_request(list(rng.integers(0, vocab - 1, plen)), n_pred,
@@ -1429,13 +1654,10 @@ def serving_workload(be, rng):
                                    for r in live)
         be.step_chunk(SERVE["chunk"])
         step_no += SERVE["chunk"] if decode_only else 1
-        for rid, t_a in t_add.items():
-            r = be.requests[rid]
-            if rid not in ttft and (r.out or r.next_tok is not None):
-                ttft[rid] = time.perf_counter() - t_a
+        note_ttfts()
     wall = time.perf_counter() - t_start
     gen = sum(len(be.requests[rid].out) for rid in t_add)
-    return gen, wall, sorted(ttft.values()), list(t_add)
+    return gen, wall, sorted(ttft.values()), list(t_add), tail
 
 
 @contextlib.contextmanager
@@ -1600,12 +1822,75 @@ def check_route(label, ref, got, failures, control=False, tol=ROUTE_TOL):
                         f"({note}, max diff {max(diffs):.3e}, limit {tol:.3e})")
 
 
+def timed_serving(be, rng, L, launches, failures, steady=False):
+    """One timed serving_workload (the --steady form with steady) with the
+    launch counters set to 0 just before and read just after, held to the
+    exact counts of its ubatches; into launches["serving"] (or
+    ["serving_steady"]). Returns its summary."""
+    from ggml_imax_tpu_torch import _build
+    be.requests.clear()
+    be.n_ubatches = {"mixed": 0, "decode": 0}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    gen, wall, ttfts, rids, tail = serving_workload(be, rng, steady)
+    counts = dict(_build.LAUNCHES)
+    nu = dict(be.n_ubatches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    outs = [be.requests[r].out for r in rids]
+    label = "steady serving" if steady else "serving"
+    if sorted(map(len, outs)) != [SERVE["n_predict"]] * SERVE["n_req"] or \
+            not all(0 <= t < be.cfg.n_vocab for o in outs for t in o):
+        failures.append(f"{label}: request lengths {list(map(len, outs))}")
+    summary = {"tok_s": gen / wall, "generated": gen, "wall_s": wall,
+               "p50_ttft_ms": 1e3 * ttfts[len(ttfts) // 2],
+               "ttft_ms": [1e3 * t for t in ttfts], "ubatches": nu,
+               "max_memory_allocated_gib": peak}
+    log(f"  {label}: {SERVE['n_req']} requests, {gen} tokens in {wall:.3f} s "
+        f"= {gen / wall:.2f} tok/s aggregate, p50 TTFT "
+        f"{summary['p50_ttft_ms']:.2f} ms (TTFTs "
+        f"{', '.join(f'{1e3 * t:.1f}' for t in ttfts)} ms)")
+    if tail is not None:
+        summary.update(tail_s=tail[0], tail_decode_ubatches=tail[1],
+                       tail_ms_per_ubatch=1e3 * tail[0] / max(1, tail[1]))
+        log(f"  {label}: the run_pipelined({SERVE['chunk']}) tail {tail[0]:.3f}"
+            f" s for {tail[1]} decode-only ubatches = "
+            f"{summary['tail_ms_per_ubatch']:.3f} ms a ubatch")
+    log(f"  ubatches: {nu['mixed']} mixed, {nu['decode']} decode-only; "
+        f"max_memory_allocated {peak:.3f} GiB")
+    log(f"  launches: {counts}")
+    n_all = nu["mixed"] + nu["decode"]
+    check_counts(counts, {"decode_attention_cells": L * nu["decode"],
+                          "flash_attention": L * nu["mixed"],
+                          "flash_backward_tiles": L * nu["mixed"],
+                          "w4a16_gemm": (2 * L + 1) * n_all}, failures)
+    launches["serving_steady" if steady else "serving"] = counts
+    return summary
+
+
+def pipelined_greedy(cfg, params, pipelined):
+    """A greedy serving pass at GPT-J-6B width (q8_0 arena, n_ctx 2048,
+    on-device sampling): three requests of 40, 23 and 70 prompt tokens, 24
+    tokens each, through the step() loop or run_pipelined(SERVE["chunk"]).
+    Returns (tokens, every cell freed)."""
+    from ggml_imax_tpu_torch.models import gptj
+    from ggml_imax_tpu_torch.runtime.batched import BatchedEngine
+    rng = np.random.default_rng(7)
+    prompts = [list(rng.integers(0, cfg.n_vocab - 1, n)) for n in (40, 23, 70)]
+    be = BatchedEngine(gptj, cfg, params, n_ctx=SERVE["n_ctx"],
+                       kv_dtype="q8_0", on_device_sampling=True, seed=1)
+    rids = [be.add_request(p, 24, temp=0.0) for p in prompts]
+    res = be.run_pipelined(SERVE["chunk"]) if pipelined else be.run()
+    return [res[r] for r in rids], bool((be.cell_pos[:-1] == -1).all())
+
+
 def serve_gptj(failures):
     """Phase 6. Returns (serving summary, launch counts by path)."""
     from ggml_imax_tpu_torch import _build
     from ggml_imax_tpu_torch.models import gptj
     from ggml_imax_tpu_torch.ops.qmm import params_repack
     from ggml_imax_tpu_torch.runtime.batched import BatchedEngine
+    from ggml_imax_tpu_torch.runtime.engine import Engine
 
     cfg = gptj.GPTJConfig(**dict(GPTJ_6B, n_ctx=SERVE["n_ctx"]))
     L = cfg.n_layer
@@ -1623,37 +1908,17 @@ def serve_gptj(failures):
     rng = np.random.default_rng(0)
     t0 = time.time()
     serving_workload(be, rng)                        # warm-up
-    log(f"  warm-up pass {time.time() - t0:.1f} s")
-    be.requests.clear()
-    be.n_ubatches = {"mixed": 0, "decode": 0}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _build.reset_launches()
-    gen, wall, ttfts, rids = serving_workload(be, rng)
-    counts = dict(_build.LAUNCHES)
-    nu = dict(be.n_ubatches)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    outs = [be.requests[r].out for r in rids]
-    if sorted(map(len, outs)) != [SERVE["n_predict"]] * SERVE["n_req"] or \
-            not all(0 <= t < cfg.n_vocab for o in outs for t in o):
-        failures.append(f"serving: request lengths {list(map(len, outs))}")
-    summary = {"tok_s": gen / wall, "generated": gen, "wall_s": wall,
-               "p50_ttft_ms": 1e3 * ttfts[len(ttfts) // 2],
-               "ttft_ms": [1e3 * t for t in ttfts], "ubatches": nu,
-               "max_memory_allocated_gib": peak}
-    log(f"  served {SERVE['n_req']} requests: {gen} tokens in {wall:.3f} s = "
-        f"{gen / wall:.2f} tok/s aggregate, p50 TTFT "
-        f"{summary['p50_ttft_ms']:.2f} ms (TTFTs "
-        f"{', '.join(f'{1e3 * t:.1f}' for t in ttfts)} ms)")
-    log(f"  ubatches: {nu['mixed']} mixed, {nu['decode']} decode-only; "
-        f"max_memory_allocated {peak:.3f} GiB")
-    log(f"  launches: {counts}")
-    n_all = nu["mixed"] + nu["decode"]
-    check_counts(counts, {"decode_attention_cells": L * nu["decode"],
-                          "flash_attention": L * nu["mixed"],
-                          "flash_backward_tiles": L * nu["mixed"],
-                          "w4a16_gemm": (2 * L + 1) * n_all}, failures)
-    launches = {"serving": counts}
+    log(f"  warm-up pass {time.time() - t0:.1f} s ({len(be._chunks)} chunks "
+        f"captured in {sum(r.capture_s for _, r in be._chunks.values()):.2f} "
+        "s with their eager first runs)")
+    launches = {}
+    summary = timed_serving(be, rng, L, launches, failures)
+    summary["steady"] = timed_serving(be, rng, L, launches, failures,
+                                      steady=True)
+    pool = pool_bytes(be.graph_pool)
+    summary["graph_pool_bytes"] = pool
+    log("  serving graph pool " + ("not measured" if pool is None
+                                   else f"{pool / 2**20:.1f} MiB"))
 
     # device busy share of a decode-only ubatch: 8 streams past their prompts
     for _ in range(SERVE["n_req"]):
@@ -1680,6 +1945,11 @@ def serve_gptj(failures):
         summary["decode_ubatch_cells_ms"] = kernel_share(
             dev, busy, "profiled decode-only ubatch",
             "cells decode attention (decode_attention_cells.cu)", launches_ub)
+        tail = summary["steady"].get("tail_ms_per_ubatch")
+        if tail:
+            log(f"  the run_pipelined tail: {tail:.3f} ms a decode-only ubatch "
+                f"-> busy {100 * busy / tail:.1f}% (the eager ubatch's "
+                "profiled device time over the tail's wall time a ubatch)")
     else:
         log("  profiled decode-only ubatch: no device time (not measured)")
 
@@ -1706,6 +1976,28 @@ def serve_gptj(failures):
                  {"decode_attention_update": L * 7, "w4a8_gemv": 7 * (2 * L + 1),
                   "w4a16_gemm": 2 * L + 1, "flash_attention": L,
                   "flash_backward_tiles": L}, failures)
+    # run_pipelined against the step() loop, greedy; and the fused flat
+    # route inside a graph: Engine.generate(chunk=CHUNK) twice (the second
+    # run replays its span) against the fused decode steps' tokens
+    want, _ = pipelined_greedy(cfg, params, False)
+    got, freed = pipelined_greedy(cfg, params, True)
+    log(f"  run_pipelined({SERVE['chunk']}) vs the step() loop, greedy: tokens "
+        f"equal {got == want}, every cell freed {freed}")
+    if got != want or not freed:
+        failures.append(f"run_pipelined: tokens {got} vs {want}, freed {freed}")
+    eng = Engine(gptj, cfg, params, n_ctx=512, fused_kv_update=True)
+    prompt = list(np.random.default_rng(7).integers(0, cfg.n_vocab - 1, 8))
+    eng.generate(prompt, 8, temp=0, chunk=CHUNK)   # the span's capture
+    _build.reset_launches()
+    toks = eng.generate(prompt, 8, temp=0, chunk=CHUNK)
+    counts = dict(_build.LAUNCHES)
+    log(f"  Engine fused, generate(chunk={CHUNK}) replayed: tokens equal the "
+        f"fused decode steps' {toks == fused_e[0]}; launches {counts}")
+    if toks != fused_e[0]:
+        failures.append(f"fused chunked Engine: {toks} vs {fused_e[0]}")
+    check_counts(counts, dict(launches["engine_fused"]), failures)
+    launches["engine_fused_chunked"] = counts
+    del eng
     for fault, patches in planted_faults().items():
         check_route(f"control: serving, fused route with {fault}", ref_s,
                     short_serving(cfg, params, True, patches), failures,
@@ -1926,8 +2218,8 @@ def kquant_gpt2(failures):
         log(f"  weights drawn and quantized on the host, repacked in "
             f"{time.time() - t0:.1f} s, "
             f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
-        eng, rng, reqs, counts = serve(gpt2, cfg, params, cfg.n_ctx, failures,
-                                       n_requests=n_req)
+        eng, rng, reqs, counts, _ = serve(gpt2, cfg, params, cfg.n_ctx,
+                                          failures, n_requests=n_req)
         check_counts(counts, {kernel_of[layout]: n_req * products,
                               "flash_attention": n_req * L,
                               "flash_backward_tiles": n_req * L}, failures)
@@ -1997,6 +2289,7 @@ def main() -> int:
 
     # ---- 2. kernels against their plain versions
     log("# phase 2: kernels vs plain versions (main-path shapes)")
+    t0 = time.time()
     ck, timer = Checks(), Timer()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -2016,12 +2309,16 @@ def main() -> int:
     del timer                                      # the 256 MB flush buffer
     torch.cuda.empty_cache()
     failures = ck.failures
+    log(f"# phase 2: {time.time() - t0:.1f} s")
     # ---- 3. small models, card vs CPU
     log("# phase 3: small GPT-J and GPT-2, card kernels vs CPU plain versions")
+    t0 = time.time()
     check_small_models(failures)
     check_small_batched(failures)
+    check_small_chunked(failures)
     if failures:
         raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
+    log(f"# phase 3: {time.time() - t0:.1f} s")
 
     from ggml_imax_tpu_torch.models import gpt2, gptj
     from ggml_imax_tpu_torch.ops.qmm import params_repack
@@ -2037,19 +2334,41 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"  weights drawn + prepared in {time.time() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    eng, rng, reqs, counts = serve(gptj, cfg, params, 512, failures)
+    eng, rng, reqs, counts, runs = serve(gptj, cfg, params, 512, failures)
     L = cfg.n_layer
-    check_counts(counts, {"w4a8_gemv": n_dec * (2 * L + 1),
-                          "decode_attention": n_dec * L,
-                          "w4a16_gemm": n_pre * (2 * L + 1),
-                          "flash_attention": n_pre * L,
-                          "flash_backward_tiles": n_pre * L}, failures)
+    expect = {"w4a8_gemv": n_dec * (2 * L + 1), "decode_attention": n_dec * L,
+              "w4a16_gemm": n_pre * (2 * L + 1), "flash_attention": n_pre * L,
+              "flash_backward_tiles": n_pre * L}
+    check_counts(counts, expect, failures)
     if failures:
         raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
-    profile_engine(eng, rng, reqs)
+    busy_ms, _ = profile_engine(eng, rng, reqs)
     launches["gptj"], engines["gptj"] = counts, reqs
+    # the same requests through captured spans of CHUNK decode steps
+    creqs, ccounts, summary = serve_chunked(eng, runs, failures)
+    check_counts(ccounts, expect, failures)
+    if ccounts != counts:
+        failures.append(f"chunk-{CHUNK} launches {ccounts} differ from chunk "
+                        f"1's {counts}")
+    med = lambda rs: float(np.median([r["decode_tok_s"] for r in rs]))
+    step_busy = busy_ms.get("decode step")
+    span_ms, span_busy, how = profile_span(eng, step_busy)
+    summary.update(tok_s=med(creqs), ms_per_token=1e3 / med(creqs),
+                   chunk1_tok_s=med(reqs), span_ms=span_ms,
+                   span_busy_ms=span_busy, span_busy_method=how)
+    log(f"  chunk {CHUNK}: {med(creqs):.2f} tok/s = {1e3 / med(creqs):.3f} ms a "
+        f"token (median), {med(creqs) / med(reqs):.2f}x chunk 1's "
+        f"{med(reqs):.2f} tok/s; 1.25 x the eager step's profiled device "
+        "time " + ("not measured" if step_busy is None else
+                   f"{1.25 * step_busy:.3f} ms"))
+    frozen_n_past_control(eng, runs, failures)
+    if failures:
+        raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
+    launches["gptj_chunked"], engines["gptj_chunked"] = ccounts, dict(
+        summary, requests=creqs)
     del eng, params
     torch.cuda.empty_cache()
+    log(f"# phase 4: {time.time() - t0:.1f} s")
 
     # ---- 5. engine at GPT-2 XL width
     log("# phase 5: GPT-2 1558M Q8_0 engine (synthetic weights on device)")
@@ -2060,7 +2379,7 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"  weights drawn + prepared in {time.time() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    eng, rng, reqs, counts = serve(gpt2, cfg, params, 1024, failures)
+    eng, rng, reqs, counts, runs = serve(gpt2, cfg, params, 1024, failures)
     L = cfg.n_layer
     check_counts(counts, {"nat8_w8a8": n_dec * L, "nat8_w8a16": n_pre * L,
                           "flash_attention": n_pre * L,
@@ -2072,33 +2391,51 @@ def main() -> int:
          for w in (lp["attn_w"], lp["proj_w"], lp["out_w"])] + [params["wte"]],
         *profile_engine(eng, rng, reqs))
     launches["gpt2"], engines["gpt2"] = counts, reqs
+    # one request through captured spans: the nat8 W8A8 GEMV in a graph
+    creqs, ccounts, summary = serve_chunked(eng, runs, failures, n=1)
+    check_counts(ccounts, {"nat8_w8a8": (N_PREDICT - 1) * L,
+                           "nat8_w8a16": L, "flash_attention": L,
+                           "flash_backward_tiles": L}, failures)
+    log(f"  chunk {CHUNK}: {creqs[0]['decode_tok_s']:.2f} tok/s = "
+        f"{1e3 / creqs[0]['decode_tok_s']:.3f} ms a token")
+    if failures:
+        raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
+    launches["gpt2_chunked"], engines["gpt2_chunked"] = ccounts, dict(
+        summary, requests=creqs)
     del eng, params
     torch.cuda.empty_cache()
+    log(f"# phase 5: {time.time() - t0:.1f} s")
 
     # ---- 6. continuous-batching serving at GPT-J-6B width
     log("# phase 6: GPT-J-6B Q4_0 serving (BatchedEngine, q8_0 KV, n_ctx "
         f"{SERVE['n_ctx']})")
+    t0 = time.time()
     engines["serving"], by_path = serve_gptj(failures)
     launches.update(by_path)
     if failures:
         raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
     torch.cuda.empty_cache()
+    log(f"# phase 6: {time.time() - t0:.1f} s")
 
     # ---- 7. GPT-2 117M training steps
     log(f"# phase 7: GPT-2 117M training (F32, B {TRAIN['batch']}, T "
         f"{TRAIN['seq']}, AdamW)")
+    t0 = time.time()
     engines["train"], launches["train"] = train_gpt2(failures)
     if failures:
         raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
     torch.cuda.empty_cache()
+    log(f"# phase 7: {time.time() - t0:.1f} s")
 
     # ---- 8. GPT-2 117M K-quants and the legacy layouts
     log("# phase 8: GPT-2 117M Q3_K / Q2_K engine, row-pair Q4_0 and u-order "
         "Q8_0 (synthetic weights quantized on the host)")
+    t0 = time.time()
     engines["gpt2_117m"], by_run = kquant_gpt2(failures)
     launches.update(by_run)
     if failures:
         raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
+    log(f"# phase 8: {time.time() - t0:.1f} s")
 
     kernels = []
     for k in KERNELS:

@@ -9,10 +9,12 @@ build raises with nvcc's output.
 
 Each C entry returns ``cudaGetLastError()`` right after its launch;
 `check` raises on a nonzero code. `LAUNCHES` counts the launches of each
-kernel; a wrapper adds one where, and only where, it launches its kernel.
+kernel; a wrapper adds one where, and only where, it launches its kernel,
+and `CapturedLaunches` adds a captured graph's launches at each replay.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -85,6 +87,31 @@ BUILD_LOG = ""          # nvcc's output (incl. -Xptxas -v) of the last build
 def reset_launches():
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+class CapturedLaunches:
+    """The launches of a captured CUDA graph. A wrapper counts its launch on
+    the host when it is called, and during a capture it is called but
+    launches nothing; a replay launches every captured kernel but calls no
+    wrapper. So `capture()` records the counts a capture added and takes
+    them back, and `replayed()` adds them once a replay."""
+
+    def __init__(self):
+        self.delta: dict[str, int] = {}
+
+    @contextlib.contextmanager
+    def capture(self):
+        before = dict(LAUNCHES)
+        try:
+            yield self
+        finally:
+            self.delta = {k: LAUNCHES[k] - n for k, n in before.items()
+                          if LAUNCHES[k] != n}
+            LAUNCHES.update(before)
+
+    def replayed(self):
+        for k, n in self.delta.items():
+            LAUNCHES[k] += n
 
 
 def _nvcc() -> str:

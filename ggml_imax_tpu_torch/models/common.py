@@ -92,23 +92,31 @@ def read_kv(cache: KVCache, layer: int, dtype=torch.bfloat16):
     return k.reshape(b, t, h, hd // h), v.reshape(b, t, h, hd // h)
 
 
-def update_kv(cache: KVCache, layer: int, k_new, v_new, n_past: int) -> KVCache:
+def update_kv(cache: KVCache, layer: int, k_new, v_new, n_past) -> KVCache:
     """Write k_new/v_new (B, T, H, D) at rows [n_past, n_past + T) of the
     layer, in place. Like the reference's dynamic_update_slice, a start
-    past n_ctx - T is clamped to n_ctx - T."""
+    past n_ctx - T is clamped to n_ctx - T. n_past: an int, or a 0-d int64
+    tensor on the cache's device (a captured decode step reads it there;
+    the rows are then written by index_copy_)."""
     B, T = k_new.shape[:2]
-    start = max(0, min(int(n_past), cache.n_ctx - T))
-    rows = slice(start, start + T)
+    if isinstance(n_past, torch.Tensor):
+        start = torch.clamp(n_past, 0, cache.n_ctx - T)
+        rows = start + torch.arange(T, device=n_past.device)
+        put = lambda arena, new: arena[layer].index_copy_(1, rows, new)
+    else:
+        start = max(0, min(int(n_past), cache.n_ctx - T))
+        rows = slice(start, start + T)
+        put = lambda arena, new: arena[layer, :, rows].copy_(new)
     if cache.quantized:
         k8, kd = _q8_rows(k_new)
         v8, vd = _q8_rows(v_new)
-        cache.k[layer, :, rows] = k8.reshape(B, T, -1)
-        cache.v[layer, :, rows] = v8.reshape(B, T, -1)
-        cache.ks[layer, :, rows] = kd.reshape(B, T, -1)
-        cache.vs[layer, :, rows] = vd.reshape(B, T, -1)
+        put(cache.k, k8.reshape(B, T, -1))
+        put(cache.v, v8.reshape(B, T, -1))
+        put(cache.ks, kd.reshape(B, T, -1))
+        put(cache.vs, vd.reshape(B, T, -1))
     else:
-        cache.k[layer, :, rows] = k_new.reshape(B, T, -1).to(cache.k.dtype)
-        cache.v[layer, :, rows] = v_new.reshape(B, T, -1).to(cache.v.dtype)
+        put(cache.k, k_new.reshape(B, T, -1).to(cache.k.dtype))
+        put(cache.v, v_new.reshape(B, T, -1).to(cache.v.dtype))
     return cache
 
 
@@ -146,12 +154,14 @@ def cells_attention_mask(tok_pos, tok_seq, cell_pos, cell_seq):
     return mask[:, None]
 
 
-def attention_mask(positions, n_ctx: int, n_past: int):
+def attention_mask(positions, n_ctx: int, n_past):
     """(B, T) query positions -> (B, 1, T, n_ctx) additive mask: visible iff
-    k_pos <= q_pos and k_pos < n_past + T."""
+    k_pos <= q_pos and k_pos < n_past + T. n_past: an int or a 0-d int64
+    tensor on the positions' device."""
     b, t = positions.shape
     k_pos = torch.arange(n_ctx, device=positions.device)[None, None, :]
-    visible = (k_pos <= positions[:, :, None]) & (k_pos < int(n_past) + t)
+    end = n_past + t if isinstance(n_past, torch.Tensor) else int(n_past) + t
+    visible = (k_pos <= positions[:, :, None]) & (k_pos < end)
     mask = torch.where(visible, 0.0, float("-inf")).to(torch.float32)
     return mask[:, None]
 

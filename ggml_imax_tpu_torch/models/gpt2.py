@@ -127,12 +127,15 @@ def init_cache(cfg: GPT2Config, batch: int = 1, n_ctx: int | None = None,
 
 
 def forward(cfg: GPT2Config, params, tokens, positions, cache: KVCache,
-            n_past: int, *, compute_dtype=torch.bfloat16, mask=None,
+            n_past: int | torch.Tensor, *, compute_dtype=torch.bfloat16,
+            mask=None,
             cells=None, cells_kernel=False, fused_kv_update=False):
     """tokens/positions (B, T) int on the params' device -> (logits
     (B, T, n_vocab) f32, cache). The KV cache is updated in place: rows
     [n_past, n_past + T), or the cells (B, T) of a celled arena with `mask`
-    their per-cell mask (continuous batching, runtime/batched.py).
+    their per-cell mask (continuous batching, runtime/batched.py). n_past:
+    an int, or a 0-d int64 tensor on the params' device (a captured decode
+    step).
 
     cells_kernel and fused_kv_update are gptj.forward's route keywords, so
     the engines pass one set to every model. The decode kernels take head

@@ -199,7 +199,8 @@ def init_cache(cfg: GPTJConfig, batch: int = 1, n_ctx: int | None = None,
 
 
 def forward(cfg: GPTJConfig, params, tokens, positions, cache: KVCache,
-            n_past: int, *, compute_dtype=torch.bfloat16, mask=None,
+            n_past: int | torch.Tensor, *, compute_dtype=torch.bfloat16,
+            mask=None,
             cells=None, cells_kernel=False, fused_kv_update=False):
     """tokens/positions (B, T) int on the params' device -> (logits
     (B, T, n_vocab) f32, cache). The KV cache is updated in place.
@@ -208,7 +209,8 @@ def forward(cfg: GPTJConfig, params, tokens, positions, cache: KVCache,
     (q_w, k_w, v_w, o_w, fc_in_w, fc_out_w). cells (B, T) are destination
     cells of a celled arena (continuous batching, runtime/batched.py) with
     `mask` their per-cell mask; otherwise rows [n_past, n_past + T) are
-    written. Each layer's KV write and attention take the route of
+    written (n_past an int, or a 0-d int64 tensor on the params' device, as
+    a captured decode step passes it: the route depends on shapes only). Each layer's KV write and attention take the route of
     ops.decode_attention.select_decode_path: a decode-only celled ubatch
     (cells_kernel) the cells kernels, a single-token step the decode
     kernel (both fused with fused_kv_update), anything else flash

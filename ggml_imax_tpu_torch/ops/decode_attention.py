@@ -328,12 +328,13 @@ def _update(cache, li, q, k_new, v_new, rows, m2, scale):
     return fn(*args), cache
 
 
-def decode_attention_update(cache, li: int, q, k_new, v_new, n_past: int,
-                            mask, *, scale=None):
+def decode_attention_update(cache, li: int, q, k_new, v_new, n_past, mask,
+                            *, scale=None):
     """Flat mode: single-token KV write at row n_past of every batch row of
     layer li plus attention (counterpart of decode_attention_update_stacked).
-    q/k_new/v_new (B, 1, H, D); mask additive, broadcastable to (B, 1, 1,
-    n_ctx). Returns (attn (B, 1, Hq, D) f32, cache), the arena written in
+    q/k_new/v_new (B, 1, H, D); n_past an int or a 0-d int64 tensor on q's
+    device (a captured decode step); mask additive, broadcastable to (B, 1,
+    1, n_ctx). Returns (attn (B, 1, Hq, D) f32, cache), the arena written in
     place."""
     B, Tq, Hq, D = q.shape
     if Tq != 1:
@@ -341,7 +342,11 @@ def decode_attention_update(cache, li: int, q, k_new, v_new, n_past: int,
     T = cache.n_ctx
     m2 = torch.clamp(torch.broadcast_to(mask.reshape(B, -1)[:, -T:], (B, T))
                      .float(), min=NEG)
-    rows = torch.full((B,), int(n_past), dtype=torch.int64, device=q.device)
+    if isinstance(n_past, torch.Tensor):
+        rows = n_past.reshape(1).expand(B)
+    else:
+        rows = torch.full((B,), int(n_past), dtype=torch.int64,
+                          device=q.device)
     out, cache = _update(cache, li, q, k_new, v_new, rows, m2, scale)
     return out.reshape(B, 1, Hq, D), cache
 

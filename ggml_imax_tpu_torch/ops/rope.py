@@ -19,8 +19,10 @@ def _tables(x, pos, n_dims, freq_base):
     n_dims = n_dims or D
     if n_dims % 2:
         raise ValueError("n_dims must be even")
-    theta_scale = torch.tensor(freq_base ** (-2.0 / n_dims), dtype=torch.float32,
-                               device=x.device)
+    # torch.full, not torch.tensor: no copy from the host, which a captured
+    # decode step could not hold
+    theta_scale = torch.full((), freq_base ** (-2.0 / n_dims),
+                             dtype=torch.float32, device=x.device)
     i = torch.arange(D // 2, dtype=torch.float32, device=x.device)
     p = pos.float()[..., None, None]                 # (..., T, 1, 1)
     theta = p * theta_scale ** i

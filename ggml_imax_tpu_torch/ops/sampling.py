@@ -7,7 +7,8 @@ a draw — the reference CLI flow.
   temp/top_k/top_p and a Gumbel-max draw from a torch.Generator;
   `sample_gumbel` is the same function with the noise given, so a test can
   feed the JAX package and the port the same noise (a JAX key and a torch
-  generator never give the same bits).
+  generator never give the same bits), and a captured decode step reads
+  noise drawn before its replay (`gumbel`).
 """
 from __future__ import annotations
 
@@ -77,12 +78,20 @@ def sample_gumbel(logits, noise, *, top_k, top_p, temp):
     return torch.gather(idx, -1, z.argmax(-1, keepdim=True))[..., 0]
 
 
+def gumbel(u):
+    """Standard Gumbel noise from uniform draws u in [0, 1): -log(-log(u)),
+    u clamped to [tiny, 1)."""
+    u = torch.clamp(u, min=float(np.finfo(np.float32).tiny))
+    return -torch.log(-torch.log(u))
+
+
 def sample_device(logits, generator: torch.Generator, *, top_k, top_p, temp,
                   k_max: int = 64):
     """sample_gumbel with (nb, k_max) Gumbel noise drawn from `generator`
-    on the logits' device: -log(-log(u)), u uniform in [tiny, 1)."""
+    on the logits' device. A captured decode step draws no numbers: its
+    uniform draws are made before the replay into a buffer it reads, and it
+    calls sample_gumbel on gumbel(buffer)."""
     u = torch.rand((logits.shape[0], k_max), generator=generator,
                    device=logits.device)
-    u = torch.clamp(u, min=float(np.finfo(np.float32).tiny))
-    return sample_gumbel(logits, -torch.log(-torch.log(u)), top_k=top_k,
-                         top_p=top_p, temp=temp)
+    return sample_gumbel(logits, gumbel(u), top_k=top_k, top_p=top_p,
+                         temp=temp)

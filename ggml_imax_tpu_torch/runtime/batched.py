@@ -19,23 +19,32 @@ Differences from the reference:
   the same attention routes (a decode-only ubatch goes to the cells kernels
   through ``cells_kernel``), so what ``stacked=True`` selected is the only
   behaviour here;
-- ``step_chunk(k)`` is a Python loop of k forwards: the sampled tokens stay
-  on the card from one step to the next and the (k, nb) ids are fetched
-  once per chunk;
-- ``run_pipelined`` (dispatching chunk j + 1 before fetching chunk j) is not
-  ported: its point is to overlap the host fetch with the next dispatch,
-  which waits for CUDA-graph capture of the decode step.
+- a k-step decode chunk (the reference's jitted lax.scan, `step_chunk` and
+  `run_pipelined`) is k forwards and k on-device draws against static
+  tensors of its (k, nb): the packed upload in, the (k, nb) ids out. On the
+  card it is captured once into a CUDA graph and replayed; on the CPU it
+  runs eagerly. Its uniform draws come from the engine's generator into a
+  buffer before each run (one torch.rand), so the step/step_chunk key
+  schedule of the reference is not reproduced, only its distribution;
+- the upload goes through a ring of two pinned staging buffers and copies
+  that do not wait for the stream, and a chunk's ids come back the same
+  way into one of two pinned slots, so `run_pipelined` can run chunk j + 1
+  (fed chunk j's last ids on the card) before the host reads chunk j.
 """
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass, field
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
 from ..models.common import cells_attention_mask
-from ..ops.sampling import sample_device, sample_greedy, sample_host
+from ..ops.sampling import (gumbel, sample_device, sample_greedy,
+                            sample_gumbel, sample_host)
+from .engine import CapturedStep
 
 MAX_SEQ = 32
 _BUCKETS = (8, 16, 32, 64, 128, 256, 512)
@@ -66,6 +75,37 @@ class Request:
     next_tok: int | None = None
 
 
+class _Staging:
+    """Copies of packed int32 inputs to the card that do not wait for the
+    stream: through a ring of two pinned host buffers, each refilled only
+    once its last copy has landed (an event recorded on the copy). A copy
+    from pageable memory would wait for every launch queued before it. On
+    the CPU, a plain copy."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.bufs = [None, None]
+        self.events = [None, None]
+        self.i = 0
+
+    def __call__(self, arr: np.ndarray, dst: torch.Tensor):
+        src = torch.from_numpy(arr)
+        if self.device.type != "cuda":
+            dst.copy_(src)
+            return
+        i, self.i = self.i, self.i ^ 1
+        if self.events[i] is not None:
+            self.events[i].synchronize()
+        if self.bufs[i] is None or self.bufs[i].numel() < src.numel():
+            self.bufs[i] = torch.empty(src.numel(), dtype=src.dtype,
+                                       pin_memory=True)
+        buf = self.bufs[i][:src.numel()]
+        buf.copy_(src)
+        dst.copy_(buf, non_blocking=True)
+        self.events[i] = torch.cuda.Event()
+        self.events[i].record()
+
+
 class BatchedEngine:
     """Continuous-batching server loop over a model module exposing
     forward(..., cells=, mask=, cells_kernel=, fused_kv_update=) and
@@ -81,7 +121,12 @@ class BatchedEngine:
     route; a model without that route raises).
 
     `n_ubatches` counts the ubatches run, "mixed" (a prompt chunk joined)
-    and "decode" (decode rows only; each step of a chunk counts)."""
+    and "decode" (decode rows only; each step of a chunk counts, a
+    discarded pipelined chunk too).
+
+    The KV arena is allocated once (the captured chunks hold its
+    addresses); the chunks are cached per (k, nb) and share one graph
+    memory pool."""
 
     def __init__(self, model_module, cfg, params, *, n_ctx: int | None = None,
                  compute_dtype=torch.bfloat16, kv_dtype=torch.bfloat16,
@@ -114,6 +159,10 @@ class BatchedEngine:
         self._next_seq = 0
         self.cache = model_module.init_cache(cfg, batch=1, n_ctx=self.n_ctx,
                                              dtype=kv_dtype, device=self.device)
+        self.graph_pool = torch.cuda.graph_pool_handle() \
+            if self.device.type == "cuda" else None   # the chunks' graphs
+        self._chunks: dict = {}
+        self._staging = _Staging(self.device)
 
     # -- cell registry ------------------------------------------------------
     def _find_slot(self, n: int) -> int:
@@ -224,16 +273,89 @@ class BatchedEngine:
             self.cfg, self.params, tokens[None], positions[None], self.cache,
             0, compute_dtype=self.compute_dtype, cells=cells[None], mask=mask,
             cells_kernel=decode_only, fused_kv_update=self.fused_kv_update)
-        self.n_ubatches["decode" if decode_only else "mixed"] += 1
         return logits[0].float()
 
-    def _pick(self, lg, samp):
-        """Token ids (nb,) on the card: greedy where temp <= 0, else drawn."""
+    def _pick(self, lg, samp, noise=None):
+        """Token ids (nb,) on the card: greedy where temp <= 0, else drawn
+        (Gumbel `noise` (nb, k_max) given, or drawn from the generator)."""
         temps, kks, pps = samp
-        drawn = sample_device(lg, self._gen, top_k=kks.long()[:, None],
-                              top_p=pps[:, None], temp=temps[:, None],
-                              k_max=self._k_max)
+        kw = dict(top_k=kks.long()[:, None], top_p=pps[:, None],
+                  temp=temps[:, None])
+        drawn = sample_device(lg, self._gen, k_max=self._k_max, **kw) \
+            if noise is None else sample_gumbel(lg, noise, **kw)
         return torch.where(temps <= 0, lg.argmax(-1), drawn)
+
+    # -- k-step decode chunks --------------------------------------------------
+    def _chunk(self, k: int, nb: int):
+        """(static tensors, CapturedStep) of a (k, nb) chunk."""
+        if (k, nb) not in self._chunks:
+            dev = self.device
+            pin = dev.type == "cuda"
+            ch = SimpleNamespace(
+                k=k, nb=nb,
+                packed=torch.zeros((6 + k) * nb + 2 * self.n_ctx,
+                                   dtype=torch.int32, device=dev),
+                u=torch.zeros((k, nb, self._k_max), device=dev),
+                ids=torch.zeros((k, nb), dtype=torch.int64, device=dev),
+                host=[torch.zeros((k, nb), dtype=torch.int64, pin_memory=pin)
+                      for _ in range(2)],
+                events=[None, None], slot=0)
+            me = weakref.ref(self)
+            self._chunks[(k, nb)] = (ch, CapturedStep(
+                lambda: me()._run_chunk(ch), dev, self.graph_pool))
+        return self._chunks[(k, nb)]
+
+    def _run_chunk(self, ch):
+        """k decode-only ubatches from ch.packed, [tok0|pos0|seqs|cells
+        (k x nb)|cell_pos|cell_seq|samp (3 x nb) as f32 bits]: step i feeds
+        the previous step's picks at pos0 + i into cells row i, its picks
+        into ch.ids[i]. The registry holds all k steps' cells: step i cannot
+        see the cells of later steps, their pos is past its tokens' pos."""
+        k, nb, n_ctx, p = ch.k, ch.nb, self.n_ctx, ch.packed
+        tok, pos0, seqs = (p[i * nb:(i + 1) * nb].long() for i in range(3))
+        cells = p[3 * nb:(3 + k) * nb].long().reshape(k, nb)
+        off = (3 + k) * nb
+        cell_pos = p[off:off + n_ctx].long()
+        cell_seq = p[off + n_ctx:off + 2 * n_ctx].long()
+        samp = p[off + 2 * n_ctx:].view(torch.float32).reshape(3, nb)
+        for i in range(k):
+            lg = self._forward(tok, pos0 + i, seqs, cells[i], cell_pos,
+                               cell_seq, decode_only=True)
+            tok = self._pick(lg, samp, gumbel(ch.u[i]))
+            ch.ids[i].copy_(tok)
+
+    def _launch_chunk(self, k: int, nb: int, parts, samp, carry=None):
+        """Upload the chunk's inputs (parts as _upload's, the first the
+        tokens; `carry`, a (nb,) tensor on the card, replaces them: the
+        previous chunk's last picks), draw its uniforms, run it, and start
+        the copy of its ids to the host. Returns (chunk, slot) for
+        `_fetch`; nothing here waits for the card."""
+        ch, run = self._chunk(k, nb)
+        flat = [np.asarray(q, np.int32).reshape(-1) for q in parts]
+        self._staging(np.concatenate(flat + [samp.reshape(-1).view(np.int32)]),
+                      ch.packed)
+        if carry is not None:
+            ch.packed[:nb].copy_(carry)
+        torch.rand(ch.u.shape, generator=self._gen, device=self.device,
+                   out=ch.u)
+        run()
+        self.n_ubatches["decode"] += k
+        slot, ch.slot = ch.slot, ch.slot ^ 1
+        if ch.events[slot] is not None:
+            ch.events[slot].synchronize()    # the slot's last copy landed
+        ch.host[slot].copy_(ch.ids, non_blocking=True)
+        if self.device.type == "cuda":
+            ch.events[slot] = torch.cuda.Event()
+            ch.events[slot].record()
+        return ch, slot
+
+    @staticmethod
+    def _fetch(handle) -> np.ndarray:
+        """Wait for a launched chunk's ids: (k, nb) int64 on the host."""
+        ch, slot = handle
+        if ch.events[slot] is not None:
+            ch.events[slot].synchronize()
+        return ch.host[slot].numpy().copy()
 
     # -- the step -------------------------------------------------------------
     def step(self) -> bool:
@@ -299,6 +421,7 @@ class BatchedEngine:
                  np.pad(seqs, (0, pad), constant_values=MAX_SEQ - 1),
                  np.pad(cells, (0, pad), constant_values=self.trash_cell),
                  self.cell_pos, self.cell_seq.view(np.int32)]
+        self.n_ubatches["mixed" if mixed else "decode"] += 1
         if self.on_device_sampling:
             *dev, samp = self._upload(parts, self._samp(nb, sample_rows))
             lg = self._forward(*dev, decode_only=not mixed)
@@ -367,17 +490,8 @@ class BatchedEngine:
         parts = [np.pad(toks0, (0, pad)), np.pad(pos0, (0, pad)),
                  np.pad(seqs, (0, pad), constant_values=MAX_SEQ - 1),
                  cells_k, self.cell_pos, self.cell_seq.view(np.int32)]
-        tok, p0, sq, ck, cp, cs, samp = self._upload(
-            parts, self._samp(nb, enumerate(rows)))
-        # the registry holds all k steps' cells: step i cannot see the cells
-        # of later steps, their pos is past its tokens' pos
-        ids = []
-        for i in range(k):
-            lg = self._forward(tok, p0 + i, sq, ck[i * nb:(i + 1) * nb], cp,
-                               cs, decode_only=True)
-            tok = self._pick(lg, samp)
-            ids.append(tok)
-        ids = torch.stack(ids).cpu().numpy()             # (k, nb)
+        ids = self._fetch(self._launch_chunk(
+            k, nb, parts, self._samp(nb, enumerate(rows))))      # (k, nb)
         for row, r in enumerate(rows):
             for i in range(k):
                 tok = int(ids[i, row])
@@ -394,6 +508,123 @@ class BatchedEngine:
                     self.seq_rm(r.seq)   # frees the unused chunk cells too
                     break
         return any(not r.done for r in self.requests.values())
+
+    # -- double-buffered decode ----------------------------------------------
+    def _dispatch_chunk(self, rows, tok, k: int):
+        """Run one k-step decode chunk for `rows` and return its handle for
+        `_fetch` without waiting for it. `tok` is a host list of first
+        tokens (the pipeline head) or a (nb,) tensor on the card, the
+        previous chunk's last picks: then no token crosses to the host.
+        Registers the k cells of each row and advances r.pos."""
+        n = len(rows)
+        nb = min(_bucket(n), self.n_ctx)
+        pad = nb - n
+        cells_k = np.full((k, nb), self.trash_cell, np.int32)
+        for row, r in enumerate(rows):
+            for i in range(k):
+                c = self._find_slot(1)
+                self.cell_pos[c] = r.pos + i
+                self.cell_seq[c] = np.uint32(1 << r.seq)
+                cells_k[i, row] = c
+        head = np.pad(tok, (0, pad)) if isinstance(tok, list) \
+            else np.zeros(nb, np.int32)
+        parts = [head, np.pad([r.pos for r in rows], (0, pad)),
+                 np.pad([r.seq for r in rows], (0, pad),
+                        constant_values=MAX_SEQ - 1),
+                 cells_k, self.cell_pos, self.cell_seq.view(np.int32)]
+        for r in rows:
+            r.pos += k
+        return self._launch_chunk(k, nb, parts,
+                                  self._samp(nb, enumerate(rows)),
+                                  carry=None if isinstance(tok, list) else tok)
+
+    def run_pipelined(self, k: int) -> dict[int, list]:
+        """Drive every request to the end with double-buffered k-step
+        chunks: chunk j + 1 is run from chunk j's last picks on the card
+        before the host reads chunk j's ids, so the fetch and the EOS and
+        limit bookkeeping overlap chunk j + 1. Greedy tokens equal the
+        step()/step_chunk loop's. A row that ends while a successor chunk
+        is in flight has that chunk's tokens for it discarded (step_chunk's
+        past-EOS discard, one chunk further) and its cells freed after the
+        drain. Takes step() for prefill and mixed ubatches, so it can be
+        the whole serving loop."""
+        if not self.on_device_sampling:
+            raise ValueError("run_pipelined needs on_device_sampling")
+        while any(not r.done for r in self.requests.values()):
+            live = [r for r in self.requests.values() if not r.done]
+            if any(r.n_prompt_done < len(r.prompt)
+                   or (r.next_tok is None and r.logits is None)
+                   for r in live):
+                self.step()
+                continue
+            kk = min([k] + [self.n_ctx - 1 - r.pos for r in live])
+            if kk <= 1:
+                self.step()
+                continue
+            # the pipeline head: each pending token consumed on the host,
+            # as at step_chunk's chunk start
+            rows, toks0 = [], []
+            for r in live:
+                tok = self._sample(r)
+                r.out.append(tok)
+                if ((r.eos_id is not None and tok == r.eos_id)
+                        or len(r.out) >= r.n_predict
+                        or r.pos >= self.n_ctx - 1):
+                    r.done = True
+                    self.seq_rm(r.seq)
+                    continue
+                rows.append(r)
+                toks0.append(tok)
+            if not rows:
+                continue
+            starts = [r.pos for r in rows]      # chunk-start positions
+            inflight = self._dispatch_chunk(rows, toks0, kk)
+            pending_rm: list[Request] = []
+            while True:
+                # a successor runs iff every row can take kk more tokens
+                # past the chunk in flight without crossing its n_predict
+                # or the arena (EOS is the one stop the host cannot see
+                # coming) and no row ended at the last retire
+                can_pipe = all(
+                    not r.done
+                    and len(r.out) + 2 * kk <= r.n_predict
+                    and r.pos + kk <= self.n_ctx - 1 for r in rows)
+                nxt = None
+                if can_pipe:
+                    nstarts = [r.pos for r in rows]
+                    ch = inflight[0]
+                    nxt = self._dispatch_chunk(rows, ch.ids[kk - 1], kk)
+                ids = self._fetch(inflight)     # (kk, nb); nxt runs meanwhile
+                for row, r in enumerate(rows):
+                    if r.done:                  # ended: discard the chunk
+                        continue
+                    for i in range(kk):
+                        tok = int(ids[i, row])
+                        if i == kk - 1 and nxt is None:
+                            # the pipeline drains: the last pick waits, as
+                            # in step_chunk (sampled, not yet fed)
+                            r.next_tok = tok
+                            break
+                        r.out.append(tok)
+                        # the ctx check per token: token i is fed at
+                        # starts[row] + i + 1 (r.pos is past the chunks in
+                        # flight)
+                        if ((r.eos_id is not None and tok == r.eos_id)
+                                or len(r.out) >= r.n_predict
+                                or starts[row] + i + 1 >= self.n_ctx - 1):
+                            r.done = True
+                            r.next_tok = None
+                            if nxt is None:
+                                self.seq_rm(r.seq)
+                            else:
+                                pending_rm.append(r)   # cells still in use
+                            break
+                if nxt is None:
+                    break                       # the outer loop compacts
+                inflight, starts = nxt, nstarts
+            for r in pending_rm:
+                self.seq_rm(r.seq)
+        return {rid: r.out for rid, r in self.requests.items()}
 
     def _sample(self, r: Request) -> int:
         if self.on_device_sampling:

@@ -1571,3 +1571,97 @@ def test_small_gpt2_kquants_on_card_match_cpu(gen, wtype):
         outs[dev] = (lg.cpu(), lg2.cpu())
     for a, b in zip(outs["cuda"], outs["cpu"]):
         assert float((a - b).abs().max()) < 5e-2
+
+
+# ---- decode spans and chunks as CUDA graphs (runtime/engine.py, batched.py)
+
+SMALL_GPTJ = dict(n_vocab=512, n_ctx=256, n_embd=512, n_head=2, n_layer=2,
+                  n_rot=64)
+
+
+def small_gptj_card():
+    cfg = gptj.GPTJConfig(**SMALL_GPTJ)
+    return cfg, qmm.params_repack(gptj.prepare_fused(
+        gptj.synthetic_params(cfg, seed=5, device="cuda"), cfg))
+
+
+def arena_copy(cache):
+    return [None if t is None else t.clone()
+            for t in (cache.k, cache.v, cache.ks, cache.vs)]
+
+
+def arena_load(cache, saved):
+    for t, s in zip((cache.k, cache.v, cache.ks, cache.vs), saved):
+        if t is not None:
+            t.copy_(s)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("kv", [torch.bfloat16, "q8_0"])
+def test_captured_span_replays_the_eager_span_bit_for_bit(gen, kv, fused):
+    """A span's first run is eager (the warm-up), the second a replay of
+    its graph: from the same arena and the same uniforms, the same ids,
+    last-step logits and arena, bit for bit; greedy, the chunk-1 tokens."""
+    from ggml_imax_tpu_torch.runtime.engine import Engine
+    cfg, p = small_gptj_card()
+    eng = Engine(gptj, cfg, p, kv_dtype=kv, fused_kv_update=fused)
+    prompt = list(np.random.default_rng(2).integers(0, 512, 40))
+    want = eng.generate(prompt, 9, temp=0)            # the prompt's rows
+    saved = arena_copy(eng.arena)
+    runs = []
+    for _ in range(2):
+        arena_load(eng.arena, saved)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(9)
+        ids = eng.decode_span([want[0]], 40, 8, temp=0.9, top_k=40,
+                              top_p=0.95, generator=g)
+        st, run = eng._spans[(8, 1, 64)]
+        runs.append((ids, st.logits.clone(), arena_copy(eng.arena)))
+    assert run.graph is not None
+    (ids_e, lg_e, ar_e), (ids_r, lg_r, ar_r) = runs
+    assert np.array_equal(ids_e, ids_r), (ids_e[:, 0], ids_r[:, 0])
+    assert torch.equal(lg_e, lg_r), float((lg_e - lg_r).abs().max())
+    for i, (a, b) in enumerate(zip(ar_e, ar_r)):
+        assert a is None or torch.equal(a, b), \
+            (i, (a != b).nonzero()[:8].tolist())
+    chunked = eng.generate(prompt, 9, temp=0, chunk=8)
+    assert chunked == want, (chunked, want)
+
+
+def test_replays_count_the_eager_steps_launches(gen):
+    from ggml_imax_tpu_torch.runtime.engine import Engine
+    cfg, p = small_gptj_card()
+    eng = Engine(gptj, cfg, p)
+    eng.generate(list(range(3, 43)), 5, temp=0, chunk=4)   # capture (4, 1)
+    _build.reset_launches()
+    eng.decode_step(eng.arena, np.array([7]), 44)
+    step = dict(_build.LAUNCHES)
+    assert step["w4a8_gemv"] == 2 * 2 + 1 and step["decode_attention"] == 2
+    _build.reset_launches()
+    for i in range(3):
+        eng.decode_span([7], 40 + 4 * i, 4)
+    assert _build.LAUNCHES == {k: 3 * 4 * n for k, n in step.items()}
+    _build.reset_launches()
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_run_pipelined_on_card_matches_step_loop(gen, fused):
+    from ggml_imax_tpu_torch.runtime.batched import BatchedEngine
+    cfg, p = small_gptj_card()
+    prompts = [list(np.random.default_rng(s).integers(0, 512, n))
+               for s, n in ((1, 21), (2, 9), (3, 30))]
+    outs = []
+    for pipelined in (False, True):
+        be = BatchedEngine(gptj, cfg, p, kv_dtype="q8_0",
+                           on_device_sampling=True, fused_kv_update=fused)
+        rids = [be.add_request(pr, n, temp=0.0)
+                for pr, n in zip(prompts, (11, 7, 18))]
+        if pipelined:
+            res = be.run_pipelined(4)
+            assert be._chunks and all(run.graph is not None
+                                      for _, run in be._chunks.values())
+        else:
+            res = be.run()
+        outs.append([res[r] for r in rids])
+        assert (be.cell_pos[:-1] == -1).all()
+    assert outs[0] == outs[1]

@@ -121,8 +121,7 @@ def test_engine_generate_matches_forward_loop():
                                   torch.tensor([[n]]), cache, n)
         want.append(int(lg[0, -1].argmax()))
     assert got == want
-    with pytest.raises(NotImplementedError):
-        eng.generate(prompt, 4, temp=0, chunk=4)
+    assert eng.generate(prompt, 6, temp=0, chunk=4) == want   # spans 4, 1
     sampled = eng.generate(prompt, 4, temp=0.8, seed=1)
     assert len(sampled) == 4 and all(0 <= t < cfg.n_vocab for t in sampled)
 
