@@ -1,5 +1,5 @@
-"""Activations (counterpart of ggml_imax_tpu/ops/activations.py): ggml's
-GELU is the tanh form, evaluated here in f32."""
+"""Activations (counterpart of ggml_imax_tpu/ops/activations.py), evaluated
+in f32: ggml's GELU is the tanh form; SiLU is x / (1 + exp(-x))."""
 from __future__ import annotations
 
 import math
@@ -15,3 +15,8 @@ def gelu(x):
     y = 0.5 * xf * (1.0 + torch.tanh(
         SQRT_2_OVER_PI * xf * (1.0 + GELU_COEF_A * xf * xf)))
     return y.to(x.dtype)
+
+
+def silu(x):
+    xf = x.float()
+    return (xf / (1.0 + torch.exp(-xf))).to(x.dtype)

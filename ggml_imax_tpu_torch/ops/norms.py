@@ -17,3 +17,14 @@ def layer_norm(x, weight=None, bias=None, eps: float = GGML_EPS_DEFAULT):
     if bias is not None:
         y = y + bias.float()
     return y.to(x.dtype)
+
+
+def rms_norm(x, weight=None, eps: float = GGML_EPS_DEFAULT):
+    """x / sqrt(mean(x^2) + eps), times weight: the reciprocal of the
+    square root, as the reference computes it."""
+    xf = x.float()
+    ms = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf * torch.reciprocal(torch.sqrt(ms + eps))
+    if weight is not None:
+        y = y * weight.float()
+    return y.to(x.dtype)

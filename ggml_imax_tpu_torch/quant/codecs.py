@@ -1,5 +1,5 @@
 """Bit-exact numpy codecs for the ggml block formats the port loads (its own
-copy of ggml_imax_tpu/quant/codecs.py: Q4_0, Q8_0, Q2_K and Q3_K).
+copy of ggml_imax_tpu/quant/codecs.py: Q4_0, Q8_0, Q2_K, Q3_K and Q4_K).
 
 The encoded bytes match ggml-common.h's block layouts, so blocks round-trip
 bit for bit with GGUF files. Rounding, as in ggml's scalar C code:
@@ -68,6 +68,9 @@ BLOCK_DTYPES: dict[GGMLType, np.dtype] = {
     GGMLType.Q3_K: np.dtype([("hmask", "u1", (QK_K // 8,)),
                              ("qs", "u1", (QK_K // 4,)),
                              ("scales", "u1", (12,)), ("d", "<f2")]),
+    GGMLType.Q4_K: np.dtype([("d", "<f2"), ("dmin", "<f2"),
+                             ("scales", "u1", (12,)),
+                             ("qs", "u1", (QK_K // 2,))]),
 }
 
 for _t, _dt in BLOCK_DTYPES.items():
@@ -270,6 +273,10 @@ _Q2_BYTE = (_E % 32) + 32 * (_E // 128)
 _Q2_SHIFT = 2 * ((_E % 128) // 32)
 _Q3_HBYTE = _E % 32
 _Q3_HBIT = _E // 32
+# q4_K: 32 bytes per 64-element chunk, the chunk's first 32 elements in the
+# low nibbles, the next 32 in the high ones
+_Q4K_BYTE = (_E % 32) + 32 * (_E // 64)
+_Q4K_SHIFT = 4 * ((_E % 64) // 32)
 
 
 def _pack_2bit_fast(L: np.ndarray) -> np.ndarray:
@@ -387,17 +394,125 @@ def dequantize_q3_K(raw: np.ndarray) -> np.ndarray:
     return (dl * q3k_levels(b).astype(f32)).reshape(-1)
 
 
+def _pack_scale_min_k4(ls: np.ndarray, lm: np.ndarray) -> np.ndarray:
+    """8 six-bit (scale, min) pairs (nb, 8) -> the 12-byte q4_K field:
+    bytes 0-3 scales 0-3, bytes 4-7 mins 0-3 (each with the top two bits of
+    scale or min j + 4 in bits 6-7), bytes 8-11 the low nibbles of scale
+    and min j + 4 (ggml-quants.c get_scale_min_k4, inverted)."""
+    sc = np.zeros((len(ls), 12), dtype=np.uint8)
+    sc[:, 0:4] = ls[:, 0:4] | ((ls[:, 4:8] >> 4) << 6)
+    sc[:, 4:8] = lm[:, 0:4] | ((lm[:, 4:8] >> 4) << 6)
+    sc[:, 8:12] = (ls[:, 4:8] & 0xF) | ((lm[:, 4:8] & 0xF) << 4)
+    return sc
+
+
+def _unpack_scale_min_k4(sc: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The 12-byte q4_K field (..., 12) -> (scales, mins), (..., 8) uint8
+    in [0, 64)."""
+    d6 = np.empty(sc.shape[:-1] + (8,), dtype=np.uint8)
+    m6 = np.empty_like(d6)
+    d6[..., 0:4] = sc[..., 0:4] & 63
+    m6[..., 0:4] = sc[..., 4:8] & 63
+    d6[..., 4:8] = (sc[..., 8:12] & 0xF) | ((sc[..., 0:4] >> 6) << 4)
+    m6[..., 4:8] = (sc[..., 8:12] >> 4) | ((sc[..., 4:8] >> 6) << 4)
+    return d6, m6
+
+
+def _pack_4bit_k(L: np.ndarray) -> np.ndarray:
+    """(nb, 256) values in [0, 15] -> (nb, 128) bytes of the q4_K layout."""
+    Lu = L.astype(np.uint8)
+    qs = np.zeros((len(L), QK_K // 2), dtype=np.uint8)
+    for shift in (0, 4):
+        sel = _Q4K_SHIFT == shift
+        qs[:, _Q4K_BYTE[sel]] |= Lu[:, sel] << shift
+    return qs
+
+
+def _qkx_scales_for_k45(xb: np.ndarray, nmax: int, rmin: float, nstep: int):
+    """The affine search of each 32-element sub-block, weighted by
+    sqrt(mean x^2) + |x| (ggml-quants.c quantize_row_q4_K_ref). xb (nb, 256)
+    -> scales (nb, 8), mins (nb, 8) and levels (nb, 256)."""
+    nb = len(xb)
+    xs = xb.reshape(nb * 8, 32)
+    # numpy's own sum, as the JAX package's numpy twin computes it
+    av_x = np.sqrt((xs * xs).sum(axis=1) / f32(32.0)).astype(f32)
+    weights = av_x[:, None] + np.abs(xs)
+    scales, mins, L = _make_qkx2_quants(xs, weights, nmax, rmin, 0.1, nstep,
+                                        False)
+    return scales.reshape(nb, 8), mins.reshape(nb, 8), L.reshape(nb, QK_K)
+
+
+def _k45_store_scales(scales, mins):
+    """6-bit sub-block scales and mins against super-scales d = max/63 and
+    dmin = max/63. The + 0.0 turns a -0.0 maximum into +0.0, as the C scan
+    (``if (v > max)`` from 0.0f) never adopts -0.0. Returns (the 12-byte
+    field, d, dmin)."""
+    max_scale = scales.max(axis=1) + f32(0.0)
+    max_min = mins.max(axis=1) + f32(0.0)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        inv_scale = np.where(max_scale > 0, f32(63.0) / max_scale,
+                             f32(0.0)).astype(f32)
+        inv_min = np.where(max_min > 0, f32(63.0) / max_min,
+                           f32(0.0)).astype(f32)
+    ls = np.minimum(63, _nearest_int(inv_scale[:, None] * scales)) \
+        .astype(np.uint8)
+    lm = np.minimum(63, _nearest_int(inv_min[:, None] * mins)) \
+        .astype(np.uint8)
+    return (_pack_scale_min_k4(ls, lm), (max_scale / f32(63.0)).astype(f32),
+            (max_min / f32(63.0)).astype(f32))
+
+
+def quantize_q4_K(x: np.ndarray) -> np.ndarray:
+    """Q4_K: 8 sub-blocks of 32 with a 6-bit scale and a 6-bit min each,
+    under fp16 super-scales d and dmin; 4-bit quants, w = d sc q - dmin m."""
+    xb = _blocks_in(x, QK_K)
+    nb = len(xb)
+    scales, mins, L = _qkx_scales_for_k45(xb, 15, -1.0, 20)
+    packed, d, dmin = _k45_store_scales(scales, mins)
+
+    # quantize again against the stored scales and mins
+    d6, m6 = _unpack_scale_min_k4(packed)
+    dl = np.repeat(_fp16_f32(d)[:, None] * d6.astype(f32), 32, axis=1)
+    ml = np.repeat(_fp16_f32(dmin)[:, None] * m6.astype(f32), 32, axis=1)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        l_new = np.clip(_nearest_int((xb + ml) / dl), 0, 15)
+    L = np.where(dl != 0, l_new, L)
+
+    out = np.zeros(nb, dtype=BLOCK_DTYPES[GGMLType.Q4_K])
+    out["d"] = _fp16(d)
+    out["dmin"] = _fp16(dmin)
+    out["scales"] = packed
+    out["qs"] = _pack_4bit_k(L)
+    return out.view(np.uint8)
+
+
+def q4k_levels(b: np.ndarray) -> np.ndarray:
+    """Structured Q4_K blocks -> (..., 256) uint8 levels in [0, 15]."""
+    return (b["qs"][..., _Q4K_BYTE] >> _Q4K_SHIFT) & 0xF
+
+
+def dequantize_q4_K(raw: np.ndarray) -> np.ndarray:
+    b = blocks_view(raw, GGMLType.Q4_K)
+    d6, m6 = _unpack_scale_min_k4(b["scales"])
+    dl = (b["d"].astype(f32)[:, None] * d6.astype(f32))[:, _E // 32]
+    ml = (b["dmin"].astype(f32)[:, None] * m6.astype(f32))[:, _E // 32]
+    return (dl * q4k_levels(b).astype(f32) - ml).reshape(-1)
+
+
 _QUANTIZERS = {GGMLType.Q4_0: quantize_q4_0, GGMLType.Q8_0: quantize_q8_0,
-               GGMLType.Q2_K: quantize_q2_K, GGMLType.Q3_K: quantize_q3_K}
+               GGMLType.Q2_K: quantize_q2_K, GGMLType.Q3_K: quantize_q3_K,
+               GGMLType.Q4_K: quantize_q4_K}
 _DEQUANTIZERS = {GGMLType.Q4_0: dequantize_q4_0,
                  GGMLType.Q8_0: dequantize_q8_0,
                  GGMLType.Q2_K: dequantize_q2_K,
-                 GGMLType.Q3_K: dequantize_q3_K}
+                 GGMLType.Q3_K: dequantize_q3_K,
+                 GGMLType.Q4_K: dequantize_q4_K}
 
 
 def quantize(x: np.ndarray, t: GGMLType) -> np.ndarray:
     """Float array (rows along the last axis, a whole number of blocks) ->
-    flat uint8 buffer of encoded blocks. F32, Q4_0, Q8_0, Q2_K and Q3_K."""
+    flat uint8 buffer of encoded blocks. F32, Q4_0, Q8_0, Q2_K, Q3_K and
+    Q4_K."""
     if t == GGMLType.F32:
         return np.ascontiguousarray(x, dtype=f32).view(np.uint8).reshape(-1)
     if t not in _QUANTIZERS:

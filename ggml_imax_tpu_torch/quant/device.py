@@ -95,8 +95,9 @@ def _nib4_from_u8(vals: np.ndarray) -> np.ndarray:
 def to_device_format(raw: np.ndarray, t: GGMLType, shape_ne: tuple[int, ...],
                      *, device=None) -> QTensor:
     """Decode a ggml-encoded 2-D weight into the device layout (counterpart
-    of quant/device.to_device_format for F32, Q4_0, Q8_0, Q2_K and Q3_K;
-    the K-quants as per-16 nib4). shape_ne is
+    of quant/device.to_device_format for F32, Q4_0, Q8_0, Q2_K, Q3_K and
+    Q4_K; Q2_K and Q3_K as per-16 nib4, Q4_K as per-32 nib4 with a bias).
+    shape_ne is
     the ggml shape, row length K first; the tensors land on `device` (the
     card unless "cpu" is passed)."""
     dev = resolve_device(device)
@@ -106,7 +107,8 @@ def to_device_format(raw: np.ndarray, t: GGMLType, shape_ne: tuple[int, ...],
         w = codecs.dequantize(raw, t, shape=(n, k)).T
         return QTensor("dense", put(np.ascontiguousarray(w)), None, None, k,
                        n, t)
-    if t not in (GGMLType.Q4_0, GGMLType.Q8_0, GGMLType.Q2_K, GGMLType.Q3_K):
+    if t not in (GGMLType.Q4_0, GGMLType.Q8_0, GGMLType.Q2_K, GGMLType.Q3_K,
+                 GGMLType.Q4_K):
         raise NotImplementedError(f"no device layout for {t.name} yet")
     if k % FORMATS[t].block_size:
         raise ValueError(f"{t.name}: K={k} is not a whole number of blocks")
@@ -131,6 +133,17 @@ def to_device_format(raw: np.ndarray, t: GGMLType, shape_ne: tuple[int, ...],
         return QTensor("nib4", put(_nib4_from_u8(q.reshape(n, k))),
                        put(np.ascontiguousarray(scale.reshape(n, -1).T)), None,
                        k, n, t, zero=4)
+    if t == GGMLType.Q4_K:
+        # per-32 scale d*sc and bias -dmin*m (rows (K/32, N)); levels
+        # [0, 15] with zero 0
+        d6, m6 = codecs._unpack_scale_min_k4(b["scales"])
+        scale = b["d"].astype(f32)[..., None] * d6.astype(f32)
+        mn = b["dmin"].astype(f32)[..., None] * m6.astype(f32)
+        q = codecs.q4k_levels(b)
+        return QTensor("nib4", put(_nib4_from_u8(q.reshape(n, k))),
+                       put(np.ascontiguousarray(scale.reshape(n, -1).T)),
+                       put(np.ascontiguousarray(-mn.reshape(n, -1).T)), k, n,
+                       t, zero=0)
     d = np.ascontiguousarray(b["d"].T.astype(f32))            # (K/32, N)
     if t == GGMLType.Q4_0:
         qs = b["qs"]                                  # (N, K/32, 16)
@@ -216,3 +229,27 @@ def pad_qtensor_cols(qt: QTensor, multiple: int = 128) -> tuple[QTensor, int]:
     return (QTensor(qt.kind, pad(qt.q), pad(qt.scale), pad(qt.bias), qt.k,
                     qt.n + npad, qt.ggml_type, qt.zero, 0, qt.q4_layout,
                     qt.name, lut=qt.lut, signs=pad(qt.signs)), npad)
+
+
+def pad_qtensor_rows(qt: QTensor, multiple: int = 1024) -> tuple[QTensor, int]:
+    """Zero-pad the contraction (K) dim up to a multiple, in whole 32-row
+    quant blocks (LLaMA's down projection: 11008 -> 11264). Padded rows
+    carry scale 0 and bias 0, so they decode to exactly 0 whatever the
+    activations; the caller feeds activations widened to the padded K.
+    Returns (padded_qt, k_pad)."""
+    if qt.interleaved_bk != 0 or qt.n_stack != 0:
+        raise ValueError("pad before repacking")
+    if multiple % 32:
+        raise ValueError("K pads in whole 32-row quant blocks")
+    kpad = (-qt.k) % multiple
+    if kpad == 0:
+        return qt, 0
+    rows = lambda a, r: torch.nn.functional.pad(a, (0, 0, 0, r))
+    if qt.kind not in ("nib4", "int8") or qt.signs is not None:
+        raise NotImplementedError(f"pad_qtensor_rows: {qt.kind}")
+    group = qt.k // qt.scale.shape[0]
+    q = rows(qt.q, kpad // 2 if qt.kind == "nib4" else kpad)
+    opt = lambda a: None if a is None else rows(a, kpad // group)
+    return (QTensor(qt.kind, q, opt(qt.scale), opt(qt.bias), qt.k + kpad,
+                    qt.n, qt.ggml_type, qt.zero, 0, qt.q4_layout, qt.name,
+                    lut=qt.lut), kpad)

@@ -1,6 +1,6 @@
 """Block-quantization format metadata (the port's own copy of
-ggml_imax_tpu/quant/formats.py, trimmed to what the GPT-J and GPT-2 slices
-need).
+ggml_imax_tpu/quant/formats.py, trimmed to what the GPT-J, GPT-2 and
+LLaMA slices need).
 
 `GGMLType` keeps ggml's integer values so a type read from the JAX package
 or a GGUF file maps by value.
@@ -66,4 +66,6 @@ FORMATS: dict[GGMLType, FormatInfo] = {
     # hmask, 2-bit quants, 12 bytes of 6-bit scales, d
     GGMLType.Q3_K: FormatInfo("q3_K", QK_K, QK_K // 8 + QK_K // 4 + 12 + 2,
                               True),
+    # d, dmin, 12 bytes of 6-bit scales and mins, 4-bit quants
+    GGMLType.Q4_K: FormatInfo("q4_K", QK_K, 2 + 2 + 12 + QK_K // 2, True),
 }

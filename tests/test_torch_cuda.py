@@ -276,6 +276,9 @@ DECODE_CASES = {
     "T 9, ranks 5-7 empty": (1, 16, 16, 256, 9, 9, 8),
     "tiny T 5 at split 8": (1, 16, 16, 256, 5, 5, "8"),
     "b8 x 16 heads": (8, 16, 16, 256, 512, 400, 1),  # V past 128 staged rows
+    # LLaMA-2 7B: 32 kv heads of 128 (S 4), and a GQA 2:1 shape at D 128
+    "llama 32:32 D 128": (1, 32, 32, 128, 512, 500, 4),
+    "llama gqa 32:16 D 128": (1, 32, 16, 128, 512, 300, 8),
 }
 
 
@@ -1021,6 +1024,12 @@ UPDATE_CASES = {
                                     [5, 900, 1500, 2047], (1,)),
     # 20 kv heads: S 6, which does not divide D into the ranks' columns
     "cells S 6": ("cells", 4, 20, 20, 128, 512, [5, 100, 300, 511], ()),
+    # LLaMA-2 7B: 32 kv heads of 128 (S 4, 128 keys a rank), and GQA 2:1
+    "llama flat 32:32 n_past 499": ("flat", 1, 32, 32, 128, 512, [499], ()),
+    "llama flat 32:32 first key of a rank": ("flat", 1, 32, 32, 128, 512,
+                                             [384], ()),
+    "llama flat gqa 32:16": ("flat", 1, 32, 16, 128, 512, [300], ()),
+    "llama cells gqa 2:1": ("cells", 2, 2, 1, 128, 256, [17, 255], ()),
 }
 
 
@@ -1665,3 +1674,196 @@ def test_run_pipelined_on_card_matches_step_loop(gen, fused):
         outs.append([res[r] for r in rids])
         assert (be.cell_pos[:-1] == -1).all()
     assert outs[0] == outs[1]
+
+
+# ---- the LLaMA slice: Q4_K natpair products, its ops, the small model
+
+# the LLaMA-2 7B products after prepare_fused (qkv_w, o_w, gu_w, down_w,
+# output), a small one and one with an odd number of quant blocks
+Q4K_SHAPES = [(4096, 12288), (4096, 4096), (4096, 22528), (11264, 4096),
+              (4096, 32000), (512, 256), (1056, 384)]
+
+
+def q4k_natpair(K, N, gen, scale_dtype):
+    """A Q4_K weight as models/llama.synthetic_params_device draws it
+    (uniform bytes, scale |N| 0.02 / 9, bias -|N| 0.02 / 3, zero 0),
+    repacked to natpair: the bias takes 8 * scale before the cast."""
+    q = torch.randint(0, 256, (K // 2, N), dtype=torch.uint8, generator=gen,
+                      device="cuda")
+    s = torch.randn((K // 32, N), generator=gen, device="cuda").abs() * 0.02 / 9
+    b = torch.randn((K // 32, N), generator=gen, device="cuda").abs() \
+        * -0.02 / 3
+    qt = QTensor("nib4", q, s, b, K, N, GGMLType.Q4_K, zero=0)
+    return qmm.repack_natpair(qt, 512 if K % 512 == 0 else 32,
+                              scale_dtype=scale_dtype)
+
+
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n", Q4K_SHAPES)
+def test_w4a8_on_q4k_weights_matches_plain(gen, scale_dtype, k, n):
+    qt = q4k_natpair(k, n, gen, scale_dtype)
+    assert qt.bias is not None and qt.bias.dtype == scale_dtype
+    check_w4a8(qt, torch.randn(1, k, generator=gen, device="cuda"),
+               launches=2)
+
+
+def test_w4a8_instances_ptxas(gen, tmp_path):
+    """w4a8_gemv.cu compiled alone with the library's flags: ptxas reports
+    its four instances (f32 / bf16 scales, with and without a bias), each
+    line shown with -s (the f32 + bias instance spilled in an earlier
+    design)."""
+    import subprocess
+    res = subprocess.run(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-c",
+         str(_build.CSRC / "w4a8_gemv.cu"), "-o", str(tmp_path / "w4a8.o")],
+        capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stdout + res.stderr
+    lines = [ln.strip() for ln in (res.stdout + res.stderr).splitlines()
+             if any(w in ln for w in ("Compiling entry", "spill",
+                                      "registers"))]
+    print("\n".join(lines))
+    assert sum("Compiling entry" in ln and "w4a8_split_k" in ln
+               for ln in lines) == 4
+
+
+@pytest.mark.parametrize("m", [8, 100, 512])
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n", [(4096, 12288), (4096, 22528), (11264, 4096),
+                                 (512, 256)])
+def test_w4a16_on_q4k_weights_matches_plain(gen, m, scale_dtype, k, n):
+    qt = q4k_natpair(k, n, gen, scale_dtype)
+    check_w4a16(qt, torch.randn(m, k, generator=gen, device="cuda"),
+                launches=2)
+
+
+def test_llama_ops_on_card_match_cpu(gen):
+    from ggml_imax_tpu_torch.ops import activations, norms, rope
+    x = torch.randn(2, 9, 4, 128, generator=gen, device="cuda") * 3
+    w = torch.randn(128, generator=gen, device="cuda") * 0.1 + 1
+    pos = torch.arange(9, device="cuda")[None].expand(2, 9) * 57
+    for dt in (torch.float32, torch.bfloat16):
+        xd = x.to(dt)
+        pairs = [(norms.rms_norm(xd, w), norms.rms_norm(xd.cpu(), w.cpu())),
+                 (activations.silu(xd), activations.silu(xd.cpu()))]
+        for mode, nd, fs in ((2, None, 1.0), (2, 64, 0.5), (0, None, 0.25)):
+            kw = dict(n_dims=nd, mode=mode, freq_scale=fs)
+            pairs.append((rope.rope(xd, pos, **kw),
+                          rope.rope(xd.cpu(), pos.cpu(), **kw)))
+        for got, ref in pairs:
+            assert got.dtype == dt and got.device.type == "cuda"
+            # f32: rope's theta reaches ~456 rad here, where the two
+            # devices' pow and cos part by a few ulps of theta (3e-5 rad):
+            # 1.04e-5 on an H100
+            tol = 1e-4 if dt == torch.float32 else 2 ** -7
+            assert rel(got.cpu(), ref) < tol
+
+
+SMALL_LLAMA = dict(n_vocab=512, n_ctx=256, n_embd=256, n_head=2, n_head_kv=1,
+                   n_layer=2, n_ff=768)
+
+
+def small_llama(dev):
+    """The CPU tests' small LLaMA (head_dim 128, GQA 2:1, n_ff 768 padded to
+    1024): normal weights of std 0.08 quantized to Q4_K on the host (the
+    same weights on both devices; the benchmark's structural draw gives
+    every token the same top logit at this size), fused, repacked, moved to
+    `dev`."""
+    from ggml_imax_tpu_torch.models import llama
+    from ggml_imax_tpu_torch.quant.device import quantize_for_device
+    cfg = llama.LlamaConfig(**SMALL_LLAMA)
+    rng = np.random.default_rng(5)
+    E, F, kv = cfg.n_embd, cfg.n_ff, cfg.n_head_kv * cfg.head_dim
+
+    def q(k, n):
+        w = (rng.standard_normal((k, n)) * 0.08).astype(np.float32)
+        return quantize_for_device(w, GGMLType.Q4_K, device="cpu")
+
+    def norm(n):
+        return torch.from_numpy((1 + 0.1 * rng.standard_normal(n))
+                                .astype(np.float32))
+
+    p = {"tok_embd": q(E, cfg.n_vocab), "out_norm": norm(E),
+         "output": q(E, cfg.n_vocab), "layers": []}
+    for _ in range(cfg.n_layer):
+        p["layers"].append({
+            "attn_norm": norm(E), "q_w": q(E, E), "k_w": q(E, kv),
+            "v_w": q(E, kv), "o_w": q(E, E), "ffn_norm": norm(E),
+            "gate_w": q(E, F), "up_w": q(E, F), "down_w": q(F, E)})
+    p = llama.fuse_gate_up(llama.fuse_qkv(p), pad_multiple=1024)
+    return cfg, moved(qmm.params_repack(p), dev)
+
+
+def moved(d, dev):
+    if isinstance(d, dict):
+        return {k: moved(v, dev) for k, v in d.items()}
+    if isinstance(d, list):
+        return [moved(v, dev) for v in d]
+    if isinstance(d, QTensor):
+        return replace(d, q=d.q.to(dev), scale=d.scale.to(dev),
+                       bias=None if d.bias is None else d.bias.to(dev))
+    return d.to(dev)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("kv", [torch.bfloat16, "q8_0"])
+def test_small_llama_on_card_matches_cpu(gen, kv, fused):
+    """A 24-token prefill and two decode steps; on the card each layer's
+    four products and the head take W4A16 (prefill) or W4A8 (decode).
+    Logits within 3.5% of the largest |logit| (chip_smoke's ROUTE_TOL): the
+    kernels sum in another order than the plain versions (W4A16 ~2e-6
+    apart), which flips bf16 and int8 roundings of the activations
+    downstream; such noise alone moves this model's logits by up to 2.2%
+    of the largest on the CPU, and an H100 read 1.2-2.1%."""
+    from ggml_imax_tpu_torch.models import llama
+    prompt = np.random.default_rng(1).integers(0, 512, 24)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        cfg, p = small_llama(dev)
+        cache = llama.init_cache(cfg, dtype=kv, device=dev)
+        _build.reset_launches()
+        lg, cache = llama.forward(cfg, p, torch.as_tensor(prompt[None],
+                                                          device=dev),
+                                  torch.arange(24, device=dev)[None], cache,
+                                  0, fused_kv_update=fused)
+        steps = [lg.cpu()]
+        for i, tok in enumerate((7, 300)):
+            lg, cache = llama.forward(
+                cfg, p, torch.tensor([[tok]], device=dev),
+                torch.tensor([[24 + i]], device=dev), cache, 24 + i,
+                fused_kv_update=fused)
+            steps.append(lg.cpu())
+        if dev == "cuda":
+            counts = {k: n for k, n in _build.LAUNCHES.items() if n}
+        outs[dev] = steps
+    attn = "decode_attention_update" if fused else "decode_attention"
+    assert counts == {"w4a16_gemm": 9, "flash_attention": 2,
+                      "flash_backward_tiles": 2, "w4a8_gemv": 18, attn: 4}
+    limit = 3.5e-2 * max(float(b.abs().max()) for b in outs["cpu"])
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) < limit
+    _build.reset_launches()
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("kv", [torch.bfloat16, "q8_0"])
+def test_small_llama_captured_span_replays_the_eager_span(gen, kv, fused):
+    """The small LLaMA's decode span of 4: its replay gives the eager run's
+    ids and arena bit for bit; generate(chunk=4) the chunk-1 tokens."""
+    from ggml_imax_tpu_torch.models import llama
+    from ggml_imax_tpu_torch.runtime.engine import Engine
+    cfg, p = small_llama("cuda")
+    eng = Engine(llama, cfg, p, kv_dtype=kv, fused_kv_update=fused)
+    prompt = list(np.random.default_rng(2).integers(0, 512, 40))
+    want = eng.generate(prompt, 9, temp=0)
+    saved = arena_copy(eng.arena)
+    runs = []
+    for _ in range(2):
+        arena_load(eng.arena, saved)
+        ids = eng.decode_span([want[0]], 40, 4)
+        runs.append((ids, arena_copy(eng.arena)))
+    assert eng._spans[(4, 1, 64)][1].graph is not None
+    (ids_e, ar_e), (ids_r, ar_r) = runs
+    assert np.array_equal(ids_e, ids_r)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(ar_e, ar_r))
+    assert eng.generate(prompt, 9, temp=0, chunk=4) == want

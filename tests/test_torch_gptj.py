@@ -154,6 +154,7 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stderr
     assert len(mods) >= 20
     assert {"ggml_imax_tpu_torch.models.gpt2",
+            "ggml_imax_tpu_torch.models.llama",
             "ggml_imax_tpu_torch.quant.codecs",
             "ggml_imax_tpu_torch.runtime.batched",
             "ggml_imax_tpu_torch.ops.decode_attention",
