@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's main paths on one NVIDIA GPU: GPT-J-6B Q4_0
-(one stream, and continuous-batching serving), GPT-2 1558M (XL) Q8_0,
-GPT-2 117M training steps, GPT-2 117M in Q3_K and Q2_K (with the
-row-pair and u-order int8 layouts), and LLaMA-2 7B Q4_K.
+(one stream, and continuous-batching serving), GPT-2 1558M (XL) Q8_0 and
+Q5_K, GPT-2 117M training steps, GPT-2 117M in Q3_K and Q2_K (with the
+row-pair and u-order int8 layouts) and in Q4_0, Q4_1, Q5_0, Q5_1, Q5_K and
+Q6_K, and LLaMA-2 7B in Q4_K and in the Q4_K_M mix.
 
     python3 chip_smoke.py
 
@@ -40,10 +41,15 @@ Phases (any failure exits nonzero and prints no result line):
    with the route and K split it took, and a 4096x16384 sizing shape that
    is on no path); LLaMA-2 7B Q4_K: natpair W4A8 with bf16 scales and a
    bias at the fused graph's five products, W4A16 with the bias at M 512
-   on qkv_w, gu_w and down_w, decode attention at 32 kv heads of 128 (S 4,
+   on qkv_w, gu_w, down_w and the head, decode attention at 32 kv heads of 128 (S 4,
    bf16 and q8_0, and its time at splits 1, 2, 4, 8) and the fused
    KV-update kernel in flat mode there, flash at 512 x 512 over 32 heads
-   of 128), with its time (CUDA
+   of 128); the instances the new formats put on a path: nat8 W8A8 and
+   W8A16 at g 16, bf16 scales, no bias on LLaMA-2 7B Q4_K_M's Q6_K v_w,
+   down_w and head (M 1, 8, 512), at g 32 with f32 scales and a bias on
+   GPT-2 XL Q5_K's fc_w (M 1, 5, 8, 128, 512), and W4A8 / W4A16 with f32
+   scales and a bias on GPT-2 117M Q4_1's attn_w (M 1, 8, 512)), with its
+   time (CUDA
    events, L2 flushed before each launch), the plain version's time, one
    PyTorch library call computing the same function (a yardstick only: the
    port never calls it) and the least time the card could take (bound);
@@ -84,6 +90,12 @@ Phases (any failure exits nonzero and prints no result line):
    (attn_w, proj_w, out_w, the tied LM head) against the step's device
    time; then one request through generate(chunk=8) (the W8A8 GEMV inside
    a graph): tokens equal to chunk 1's, 48 W8A8 launches a decode token;
+5b. GPT-2 XL Q5_K: the reference benchmark's structural Q5_K draw on the
+   card (raw levels [0, 31], per-32 f32 scale and bias -min),
+   params_repack, Engine(n_ctx=1024), one request of phase 4's shape with
+   exact launch counts (48 nat8 W8A8 a decode step, 48 W8A16 a prefill:
+   fc_w only), profiled as phase 5, then through generate(chunk=8): tokens
+   and KV arena bit-equal to chunk 1's;
 6. GPT-J serving: synthetic GPT-J-6B Q4_0, BatchedEngine(n_ctx=2048, q8_0
    KV arena, on-device sampling) under the workload of the reference's
    `examples/serve.py --bench` (8 requests arriving every 4 engine steps,
@@ -116,7 +128,9 @@ Phases (any failure exits nonzero and prints no result line):
    step with every plain version on the card (TRAIN_TOL), and a planted
    fault (dK without its scale) that must fail that check;
 8. GPT-2 117M K-quants: synthetic GPT2Config() weights drawn on the host
-   in Q3_K (the reference's numpy stream and codecs), params_repack (every
+   in Q3_K (the reference's numpy stream and codecs, the quantization
+   spread over HOST_WORKERS processes, bit-identical to
+   gpt2.synthetic_params; 8b too), params_repack (every
    layer weight to the plane-split layout), Engine(n_ctx=1024) serving the
    3 requests of phases 4-5 with exact launch counts, the device busy
    share of a prefill and of a decode step and the device time of the
@@ -126,6 +140,14 @@ Phases (any failure exits nonzero and prints no result line):
    held to the same with every plain version on the card (KQ_ROUTE_TOL),
    and a planted fault (the plane-split kernel with its low and high
    scale rows swapped) that must fail that check;
+8b. GPT-2 117M formats: synthetic GPT2Config() weights drawn on the host
+   and quantized by the port's codecs in Q4_0 (the default natpair route),
+   Q4_1 (natpair with a bias), Q5_0, Q5_1, Q5_K and Q6_K (nat8), each
+   params_repack-ed and served by Engine(n_ctx=1024), one request each
+   with exact launch counts and the seconds of the host quantization; then
+   a short greedy pass of each with the kernels held to every plain
+   version on the card (KQ_ROUTE_TOL), and a planted fault (the nat8 W8A8
+   GEMV without its bias term, on Q5_K) that must fail that check;
 9. LLaMA-2 7B Q4_K: synthetic weights drawn on the card (the reference
    benchmark's llama2-7b-q4_k: uniform nibbles, per-32 scales and mins),
    prepare_fused (q/k/v fused, gate/up fused with n_ff 11008 padded to
@@ -137,7 +159,19 @@ Phases (any failure exits nonzero and prints no result line):
    teacher-forced pass (64-token prompt + 8 steps) with the kernels held
    to the same pass with every plain version on the card
    (LLAMA_ROUTE_TOL), and a planted fault (W4A8 without its bias term)
-   that must fail that check.
+   that must fail that check;
+9b. LLaMA-2 7B Q4_K_M: the structural draw with llama.cpp's Q4_K_M mix
+   (`output` Q6_K, attn_v and ffn_down Q6_K in the 16 layers use_more_bits
+   picks, the rest Q4_K), prepare_fused refused (a mixed layer's q/k/v
+   differ in type), fuse_gate_up alone, params_repack with bf16 scales
+   (Q4_K natpair, Q6_K nat8 g 16), Engine(n_ctx=512) serving phase 9's 3
+   requests with exact launch counts (a decode step 160 W4A8, 33 nat8 W8A8
+   and 32 decode attention; a prefill 160 W4A16, 33 nat8 W8A16, 32 flash
+   with their maps), profiled; then through generate(chunk=8), tokens and
+   KV arena bit-equal; a teacher-forced pass held to every plain version
+   on the card (Q4KM_ROUTE_TOL; the plain pass read beside itself with
+   the A16 products summed in f64), and a planted fault (the Q6_K W8A8 fed
+   g 32 in place of g 16) that must fail that check.
 
     python3 chip_smoke.py --serving-kernels [ROOT]
     python3 chip_smoke.py --gpt2-kernels [ROOT]
@@ -148,8 +182,8 @@ unled, with its time at each K split the plan may take), on the port of
 the checkout at ROOT (default: this one): the same script times another
 commit's kernels.
 
-Each engine phase, and the timed training steps, sets the launch counters
-to 0 just before its run and reads them just after; a replayed graph adds
+Each engine phase (5b, 8b and 9b too), and the timed training steps, sets
+the launch counters to 0 just before its run and reads them just after; a replayed graph adds
 the launches its capture recorded (_build.CapturedLaunches). Each phase
 prints its seconds. Every flash forward
 launches the tile map of its mask (flash_backward_tiles) before its kernel,
@@ -233,6 +267,19 @@ LLAMA2_7B = dict(n_vocab=32000, n_ctx=512, n_embd=4096, n_head=32,
 # at the prefill's last row, 1.5e-5 a decode step), the planted fault (W4A8
 # without its bias term) 1.08. 1e-4 is 21x the one, 1/10,000 of the other.
 LLAMA_ROUTE_TOL = 1e-4
+# Phase 9b's route check (the Q4_K_M mix), as phase 9's. Its Q6_K head has
+# no bias, so the largest |logit| is ~7 where phase 9's is ~51, and the
+# prefill's A16 products, summed in another order than the plain versions
+# sum them, part the prefill's logits by more than LLAMA_ROUTE_TOL (decode
+# steps, exact integer dots, by 1.3e-7). Readings of this script on an
+# H100 (PERF.md): sound 2.86e-4 (the prefill; the plain versions against
+# themselves with the A16 products summed in f64 are logged beside), the
+# planted fault (the Q6_K W8A8 at g 32) 0.487. 2e-3 is 7x the one, 1/240
+# of the other.
+Q4KM_ROUTE_TOL = 2e-3
+# phases 8 and 8b quantize their host-drawn weights in this many worker
+# processes (the card's machine has 8 cores)
+HOST_WORKERS = 8
 # kernel -> (source under ggml_imax_tpu_torch/csrc, the TPU kernel it replaces)
 KERNELS = {
     "w4a8_gemv": ("w4a8_gemv.cu", "ggml_imax_tpu/ops/pallas_qmm.py:960"),
@@ -1154,7 +1201,7 @@ def check_llama_kernels(ck, timer, gen):
     """LLaMA-2 7B Q4_K's shapes (phase 9): natpair W4A8 with bf16 scales and
     a bias at the five products of the fused graph (each with the K split
     w4a8_plan took), W4A16 with the bias at the prefill bucket M 512 on
-    qkv_w, gu_w and down_w, decode attention over 32 kv heads of 128 at T
+    qkv_w, gu_w, down_w and the head (row 4's kernel), decode attention over 32 kv heads of 128 at T
     512 (S 4; bf16 and q8_0, with the time at splits 1, 2, 4, 8), the fused
     KV-update kernel in flat mode at that shape, and flash at 512 x 512 over
     32 heads of 128, causal. Each timed (the GEMVs and attention led)
@@ -1186,7 +1233,7 @@ def check_llama_kernels(ck, timer, gen):
                   timer(lambda: torch.matmul(xb, wd), iters=50, lead=True),
                   K * N // 2 + sbytes + K + 2 * (K // 32) * 4 + N * 4,
                   2 * K * N, PEAK_INT8)
-        if label in ("qkv_w", "gu_w", "down_w"):
+        if label in ("qkv_w", "gu_w", "down_w", "output"):
             xm = torch.randn(512, K, generator=gen, device="cuda")
             xmb = xm.to(torch.bfloat16)
             route, split = qmm.natpair_plan(512, K, N)
@@ -1267,6 +1314,109 @@ def check_llama_kernels(ck, timer, gen):
         del cache, ar, twin
     flash_case(ck, timer, gen, f"llama B=1 T=512 H={H} D={D}", 1, 512, 512,
                H, H, D, {}, timed=True)
+
+
+def format_weight(fmt, K, N, gen, scale_dtype):
+    """A weight in one of the formats this script's later phases run,
+    drawn as they draw it and repacked: "Q6_K" per-16 int8 levels in
+    [-32, 31], no bias (models/llama.synthetic_params_device); "Q5_K"
+    per-32 raw levels [0, 31] with a bias -min (models/gpt2
+    .synthetic_params_device); "Q4_1" per-32 nib4, zero 0, with a bias m
+    (natpair)."""
+    from ggml_imax_tpu_torch.ops import qmm
+    from ggml_imax_tpu_torch.quant.device import QTensor
+    from ggml_imax_tpu_torch.quant.formats import GGMLType
+    normal = lambda shape: torch.randn(shape, generator=gen, device="cuda")
+    tag = 512 if K % 512 == 0 else (256 if K % 256 == 0 else K)
+    if fmt == "Q4_1":
+        q = torch.randint(0, 256, (K // 2, N), dtype=torch.uint8,
+                          generator=gen, device="cuda")
+        qt = QTensor("nib4", q, normal((K // 32, N)).abs_().mul_(0.02 / 7.5),
+                     normal((K // 32, N)).abs_().mul_(-0.02), K, N,
+                     GGMLType.Q4_1, zero=0)
+        return qmm.repack_natpair(qt, tag, scale_dtype=scale_dtype)
+    lo, hi, g, div, bias = {"Q6_K": (-32, 32, 16, 18.5, False),
+                            "Q5_K": (0, 32, 32, 18, True)}[fmt]
+    q = torch.randint(lo, hi, (K, N), dtype=torch.int8, generator=gen,
+                      device="cuda")
+    qt = QTensor("int8", q, normal((K // g, N)).abs_().mul_(0.02 / div),
+                 normal((K // g, N)).abs_().mul_(-0.02 / 3) if bias else None,
+                 K, N, GGMLType[fmt])
+    return qmm.repack_nat8(qt, tag, scale_dtype=scale_dtype)
+
+
+def time_instance(ck, timer, gen, label, qt, ms):
+    """One natpair or nat8 weight through its wrappers at each M (W4A8 /
+    W8A8 at M 1, W4A16 / W8A16 above, with the route and K split each
+    took) against the plain versions, timed (the GEMVs led) beside the
+    plain version, bf16 torch.matmul on the weight dequantized beforehand
+    with its bias (a yardstick the port never calls) and the bound."""
+    from ggml_imax_tpu_torch.ops import qmm
+    nat8 = qt.q4_layout == 4
+    g = qt.k // qt.scale.shape[0]
+    gemv, gemv_plain, gemm, gemm_plain, name1, name2, plan1, plan2 = (
+        (qmm.nat8_w8a8_gemv, qmm.nat8_w8a8_gemv_plain, qmm.nat8_w8a16_gemm,
+         qmm.nat8_w8a16_gemm_plain, "nat8_w8a8", "nat8_w8a16",
+         lambda: qmm.nat8_gemv_plan(qt.k, qt.n, g), qmm.nat8_plan)
+        if nat8 else
+        (qmm.w4a8_gemv, qmm.w4a8_gemv_plain, qmm.w4a16_gemm,
+         qmm.w4a16_gemm_plain, "w4a8_gemv", "w4a16_gemm",
+         lambda: qmm.w4a8_plan(qt.k, qt.n), qmm.natpair_plan))
+    wd = qmm.dequant_bf16(qt)
+    if qt.bias is not None:
+        wd = wd + qt.bias.to(torch.bfloat16).repeat_interleave(g, 0)
+    wbytes = sum(t.numel() * t.element_size()
+                 for t in (qt.q, qt.scale, qt.bias) if t is not None)
+    dt = str(qt.scale.dtype)[6:] + ("+bias" if qt.bias is not None else "")
+    for M in ms:
+        x = torch.randn(M, qt.k, generator=gen, device="cuda")
+        xb = x.to(torch.bfloat16)
+        lib = timer(lambda: torch.matmul(xb, wd), iters=50, lead=M == 1)
+        if M == 1:
+            x8, dx = qmm.quantize_activations_q8(x, g if nat8 else 32)
+            x8, dx = x8[:, 0].contiguous(), dx[:, 0].contiguous()
+            xs = None if qt.bias is None else \
+                (dx * x8.float().sum(-1)).contiguous()
+            ck.record(name1, f"{label} m=1 K={qt.k} N={qt.n} g{g} {dt} split "
+                      f"{plan1()} (led)", gemv(x8, dx, qt, xs),
+                      gemv_plain(x8, dx, qt, xs), 1e-4,
+                      timer(lambda: gemv(x8, dx, qt, xs), iters=50, lead=True),
+                      timer(lambda: gemv_plain(x8, dx, qt, xs), iters=3), lib,
+                      wbytes + qt.k + dx.numel() * 4 * (1 if xs is None else 2)
+                      + qt.n * 4, 2 * qt.k * qt.n, PEAK_INT8)
+            continue
+        route, split = plan2(M, qt.k, qt.n)
+        ck.record(name2, f"{label} M={M} K={qt.k} N={qt.n} g{g} {dt} "
+                  f"{route}/{split}", gemm(x, qt), gemm_plain(x, qt), 1e-3,
+                  timer(lambda: gemm(x, qt)),
+                  timer(lambda: gemm_plain(x, qt), iters=3), lib,
+                  M * qt.k * 2 + wbytes + M * qt.n * 4, 2 * M * qt.k * qt.n,
+                  PEAK_BF16)
+    del wd
+
+
+def check_format_kernels(ck, timer, gen):
+    """The kernel instances the formats of phases 5b, 8b and 9b put on a
+    path: nat8 W8A8 / W8A16 at g 16 with bf16 scales and no bias at
+    LLaMA-2 7B Q4_K_M's Q6_K products (v_w 4096 x 4096, down_w 11264 x
+    4096, the head 4096 x 32000; M 1, 8 and 512); at g 32 with f32 scales
+    and a bias at GPT-2 XL Q5_K's fc_w (1600 x 6400; M 1, 5, 8, 128 and
+    512); W4A8 / W4A16 with f32 scales and a bias at GPT-2 117M Q4_1's
+    attn_w (768 x 2304; M 1, 8 and 512)."""
+    E, F, V = LLAMA2_7B["n_embd"], 11264, LLAMA2_7B["n_vocab"]
+    for label, (K, N) in (("llama Q6_K v_w", (E, E)),
+                          ("llama Q6_K down_w", (F, E)),
+                          ("llama Q6_K output", (E, V))):
+        qt = format_weight("Q6_K", K, N, gen, torch.bfloat16)
+        time_instance(ck, timer, gen, label, qt, (1, 8, 512))
+        del qt
+    X = GPT2_XL["n_embd"]
+    time_instance(ck, timer, gen, "gpt2-xl Q5_K fc_w",
+                  format_weight("Q5_K", X, 4 * X, gen, None),
+                  (1, 5, 8, 128, 512))
+    S = GPT2_117M["n_embd"]
+    time_instance(ck, timer, gen, "gpt2-117m Q4_1 attn_w",
+                  format_weight("Q4_1", S, 3 * S, gen, None), (1, 8, 512))
 
 
 def legacy_repack(params, layout):
@@ -1991,8 +2141,9 @@ def without_tiles(plain):
 
 
 def plain_on_card():
-    """Patches pointing every kernel entry of the GPT-J and GPT-2 117M
-    K-quant paths at its plain version, so that the wrappers run the plain
+    """Patches pointing every kernel entry of the GPT-J, GPT-2 117M and
+    LLaMA paths (natpair, nat8, the permuted layouts, attention) at its
+    plain version, so that the wrappers run the plain
     versions on CUDA tensors (a check of the whole path only; the port
     never does this)."""
     from ggml_imax_tpu_torch.ops import decode_attention as da
@@ -2001,6 +2152,8 @@ def plain_on_card():
     from ggml_imax_tpu_torch.ops import qmm
     return [(qmm, "w4a16_gemm", qmm.w4a16_gemm_plain),
             (qmm, "w4a8_gemv", qmm.w4a8_gemv_plain),
+            (qmm, "nat8_w8a16_gemm", qmm.nat8_w8a16_gemm_plain),
+            (qmm, "nat8_w8a8_gemv", qmm.nat8_w8a8_gemv_plain),
             (qmm, "planes_w4a16", qmm.planes_w4a16_plain),
             (qmm, "rowpair_w4a16", qmm.rowpair_w4a16_plain),
             (qmm, "int8_rows_w8a16", qmm.int8_rows_w8a16_plain),
@@ -2496,10 +2649,12 @@ def swapped_planes():
     return [(qmm, "planes_w4a16", fault)]
 
 
-def kquant_gpt2(failures):
+def kquant_gpt2(failures, pool):
     """Phase 8. GPT-2 117M at full width in Q3_K (N_REQUESTS requests), Q2_K,
     row-pair Q4_0 and u-order Q8_0 (one request each): weights drawn on the
-    host (the reference's numpy stream and codecs), repacked, served by
+    host (the reference's numpy stream and codecs, quantized in `pool`'s
+    processes by host_params, a weight held to the serial codec's bytes),
+    repacked, served by
     Engine(n_ctx=1024) with exact launch counts; the Q3_K run profiled;
     then each run's route check, kernels against plain versions on the
     card, and the planted fault on Q3_K. Returns (summary, launch counts),
@@ -2520,13 +2675,17 @@ def kquant_gpt2(failures):
     for key, label, wtype, layout, n_req in runs:
         log(f"  -- {label}")
         t0 = time.time()
-        raw = gpt2.synthetic_params(cfg, wtype, seed=0)
+        raw, quant_s, same = host_params(cfg, wtype, pool)
+        if not same:
+            failures.append(f"{label}: host_params' proj_w differs from "
+                            "quantize_for_device's")
         params = params_repack(raw) if layout is None else \
             legacy_repack(raw, layout)
         del raw
         torch.cuda.synchronize()
-        log(f"  weights drawn and quantized on the host, repacked in "
-            f"{time.time() - t0:.1f} s, "
+        log(f"  weights drawn and quantized on the host in {quant_s:.1f} s "
+            f"({HOST_WORKERS} processes; proj_w equal to quantize_for_"
+            f"device's {same}), repacked, {time.time() - t0:.1f} s in all, "
             f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
         eng, rng, reqs, counts, _ = serve(gpt2, cfg, params, cfg.n_ctx,
                                           failures, n_requests=n_req)
@@ -2639,6 +2798,359 @@ def llama_7b(failures):
     return summary, {"llama": counts, "llama_chunked": ccounts}
 
 
+def gpt2_xl_q5k(failures):
+    """Phase 5b. GPT-2 1558M Q5_K at full width and depth: the reference
+    benchmark's structural Q5_K draw on the card, params_repack (f32
+    scales and bias), Engine(n_ctx=1024) serving one request of phase 4's
+    shape with exact launch counts (48 nat8 W8A8 a decode step and 48 W8A16
+    a prefill, fc_w only: the N % 128 gate leaves attn_w, proj_w, out_w and
+    the head to dequantize + matmul), profiled; the same request through
+    generate(chunk=8), tokens and KV arena bit-equal. Returns (summary,
+    launch counts by run)."""
+    from ggml_imax_tpu_torch.models import gpt2
+    from ggml_imax_tpu_torch.ops.qmm import params_repack
+    from ggml_imax_tpu_torch.quant.formats import GGMLType
+    cfg = gpt2.GPT2Config(**GPT2_XL)
+    t0 = time.time()
+    params = params_repack(gpt2.prepare_fused(gpt2.synthetic_params_device(
+        cfg, seed=0, wtype=GGMLType.Q5_K), cfg))
+    torch.cuda.synchronize()
+    fc = params["layers"][0]["fc_w"]
+    log(f"  weights drawn + prepared in {time.time() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated (fc_w "
+        f"{fc.ggml_type.name} nat8 g{fc.k // fc.scale.shape[0]}, "
+        f"{str(fc.scale.dtype)[6:]} scale and bias)")
+    eng, rng, reqs, counts, runs = serve(gpt2, cfg, params, cfg.n_ctx,
+                                         failures, n_requests=1)
+    L = cfg.n_layer
+    expect = {"nat8_w8a8": (N_PREDICT - 1) * L, "nat8_w8a16": L,
+              "flash_attention": L, "flash_backward_tiles": L}
+    check_counts(counts, expect, failures)
+    if failures:
+        return None, None
+    busy_ms, walls = profile_engine(eng, rng, reqs)
+    creqs, ccounts, summary = serve_chunked(eng, runs, failures, n=1)
+    check_counts(ccounts, expect, failures)
+    tok_s = creqs[0]["decode_tok_s"]
+    log(f"  chunk {CHUNK}: {tok_s:.2f} tok/s = {1e3 / tok_s:.3f} ms a token, "
+        f"{tok_s / reqs[0]['decode_tok_s']:.2f}x chunk 1's "
+        f"{reqs[0]['decode_tok_s']:.2f} tok/s")
+    summary.update(requests=creqs, chunk1_requests=reqs, busy_ms=busy_ms,
+                   wall_ms=walls, max_memory_allocated_gib=
+                   torch.cuda.max_memory_allocated() / 2**30)
+    del eng, params, runs
+    torch.cuda.empty_cache()
+    return summary, {"gpt2_q5_k": counts, "gpt2_q5_k_chunked": ccounts}
+
+
+def dropped_nat8_bias():
+    """Phase 8b's route-check control: the nat8 W8A8 GEMV with its bias term
+    (xs * bias: Q5_K's -min, Q5_1's m) dropped."""
+    from dataclasses import replace
+
+    from ggml_imax_tpu_torch.ops import qmm
+    real = qmm.nat8_w8a8_gemv
+
+    def fault(x8, dx, qt, xs=None):
+        return real(x8, dx, replace(qt, bias=None))
+    return [(qmm, "nat8_w8a8_gemv", fault)]
+
+
+# phase 8b: GPT-2 117M in each format quantized on the host, and the
+# kernels its repacked weights take (natpair: Q4_0 at zero 8, Q4_1 with a
+# bias; nat8: Q5_0 g 32, Q5_1 and Q5_K g 32 with a bias, Q6_K g 16)
+FORMATS_117M = (("Q4_0", "w4a8_gemv", "w4a16_gemm"),
+                ("Q4_1", "w4a8_gemv", "w4a16_gemm"),
+                ("Q5_0", "nat8_w8a8", "nat8_w8a16"),
+                ("Q5_1", "nat8_w8a8", "nat8_w8a16"),
+                ("Q5_K", "nat8_w8a8", "nat8_w8a16"),
+                ("Q6_K", "nat8_w8a8", "nat8_w8a16"))
+
+
+def _quantize_piece(job):
+    """A worker process's share of host_params: columns of one (K, N)
+    weight through the port's codec -> their ggml bytes."""
+    from ggml_imax_tpu_torch.quant import codecs
+    from ggml_imax_tpu_torch.quant.formats import GGMLType
+    cols, wtype = job
+    return codecs.quantize(np.ascontiguousarray(cols.T), GGMLType(wtype))
+
+
+def host_pool():
+    """The worker processes host_params quantizes in (HOST_WORKERS, spawned
+    once for phases 8 and 8b)."""
+    import concurrent.futures
+    import multiprocessing
+    return concurrent.futures.ProcessPoolExecutor(
+        HOST_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+
+
+def host_params(cfg, wtype, pool, seed=0, scale=0.02, piece=1 << 20):
+    """gpt2.synthetic_params(cfg, wtype, seed) on the card, its host
+    quantization spread over `pool`: the weights drawn in the package's
+    order (gpt2._param_tree, the same numpy stream), cut into pieces of
+    about `piece` elements along N (a codec's blocks run along K, so the
+    pieces' bytes, in order, are the whole weight's), each quantized by the
+    port's codec in a worker, laid out by to_device_format as
+    quantize_for_device lays it out. Returns (params, seconds, whether the
+    first layer's proj_w equals quantize_for_device's, the serial codec's,
+    on the same draw)."""
+    from ggml_imax_tpu_torch.models import gpt2
+    from ggml_imax_tpu_torch.quant.device import (quantize_for_device,
+                                                  to_device_format)
+    t0 = time.time()
+    rng = np.random.default_rng(seed)
+    ws = []
+
+    def q(shape_kn):
+        ws.append((rng.standard_normal(shape_kn) * scale).astype(np.float32))
+        return len(ws) - 1
+
+    def vec(n):
+        return torch.from_numpy((rng.standard_normal(n) * scale)
+                                .astype(np.float32)).to(device="cuda")
+
+    tree = gpt2._param_tree(cfg, q, vec)
+    jobs = [(i, lo, lo + max(1, piece // w.shape[0]))
+            for i, w in enumerate(ws)
+            for lo in range(0, w.shape[1], max(1, piece // w.shape[0]))]
+    raws = pool.map(_quantize_piece, [(ws[i][:, lo:hi], int(wtype))
+                                      for i, lo, hi in jobs])
+    parts = [[] for _ in ws]
+    for (i, _, _), raw in zip(jobs, raws):
+        parts[i].append(raw)
+    qts = [to_device_format(np.concatenate(pp), wtype, w.shape)
+           for pp, w in zip(parts, ws)]
+    seconds = time.time() - t0
+    k = tree["layers"][0]["proj_w"]
+    one = quantize_for_device(ws[k], wtype)
+    same = all((getattr(one, a) is None and getattr(qts[k], a) is None)
+               or torch.equal(getattr(one, a), getattr(qts[k], a))
+               for a in ("q", "scale", "bias"))
+
+    def walk(d):
+        if isinstance(d, dict):
+            return {k: walk(v) for k, v in d.items()}
+        if isinstance(d, list):
+            return [walk(v) for v in d]
+        return qts[d] if isinstance(d, int) else d
+    return walk(tree), seconds, same
+
+
+def formats_gpt2(failures, pool):
+    """Phase 8b. GPT-2 117M at full width in Q4_0 (the default natpair
+    route), Q4_1, Q5_0, Q5_1, Q5_K and Q6_K: weights drawn on the host (the
+    reference's numpy stream) and quantized by the port's codecs in
+    HOST_WORKERS processes (host_params; a weight held to
+    quantize_for_device's bytes), params_repack, Engine(n_ctx=1024) serving one request of phase 4's
+    shape with exact launch counts (every layer product, 48 a forward, on
+    a kernel; the tied head gated); then a short greedy pass of each with
+    the kernels held to the same pass with every plain version on the card
+    (KQ_ROUTE_TOL), and the nat8 W8A8 GEMV without its bias term on Q5_K,
+    which must fail that check. Returns (summary, launch counts by run)."""
+    from ggml_imax_tpu_torch.models import gpt2
+    from ggml_imax_tpu_torch.ops.qmm import params_repack
+    from ggml_imax_tpu_torch.quant.formats import GGMLType
+    cfg = gpt2.GPT2Config(**GPT2_117M)
+    L = cfg.n_layer
+    summary, launches = {}, {}
+    for fmt, gemv, gemm in FORMATS_117M:
+        log(f"  -- {fmt}")
+        raw, quant_s, same = host_params(cfg, GGMLType[fmt], pool)
+        if not same:
+            failures.append(f"{fmt}: host_params' proj_w differs from "
+                            "quantize_for_device's")
+        params = params_repack(raw)
+        del raw
+        torch.cuda.synchronize()
+        fc = params["layers"][0]["fc_w"]
+        log(f"  weights drawn and quantized on the host in {quant_s:.1f} s "
+            f"({HOST_WORKERS} processes; proj_w equal to quantize_for_device"
+            f"'s {same}), "
+            f"repacked ({fc.kind} q4_layout {fc.q4_layout}, g"
+            f"{fc.k // fc.scale.shape[0]}, bias {fc.bias is not None}), "
+            f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
+        eng, rng, reqs, counts, _ = serve(gpt2, cfg, params, cfg.n_ctx,
+                                          failures, n_requests=1)
+        check_counts(counts, {gemv: (N_PREDICT - 1) * 4 * L, gemm: 4 * L,
+                              "flash_attention": L,
+                              "flash_backward_tiles": L}, failures)
+        launches[f"gpt2_117m_{fmt.lower()}"] = counts
+        summary[fmt] = {"host_quantize_s": quant_s,
+                        "ttft_ms": reqs[0]["ttft_ms"],
+                        "decode_tok_s": reqs[0]["decode_tok_s"]}
+        del eng
+        greedy = lambda patches=(), feed=None: engine_greedy(
+            cfg, params, False, patches, model=gpt2, n_prompt=PROMPT,
+            n_ctx=cfg.n_ctx, feed=feed)
+        ref = greedy()
+        check_forced(f"GPT-2 117M {fmt}, kernels vs plain versions on the "
+                     "card", ref, greedy(plain_on_card(), ref[0]), failures,
+                     KQ_ROUTE_TOL)
+        if fmt == "Q5_K":
+            check_forced("control: GPT-2 117M Q5_K, nat8 W8A8 without its "
+                         "bias term", ref, greedy(dropped_nat8_bias(), ref[0]),
+                         failures, KQ_ROUTE_TOL, control=True)
+        del params
+        torch.cuda.empty_cache()
+    return summary, launches
+
+
+def use_more_bits(layer: int, n_layer: int) -> bool:
+    """llama.cpp's use_more_bits (llama_tensor_get_type, mid-2024)."""
+    return (layer < n_layer // 8 or layer >= 7 * n_layer // 8
+            or (layer - n_layer // 8) % 3 == 2)
+
+
+def q4_k_m(n_layer: int):
+    """The Q4_K_M mix as models/llama.synthetic_params_device's `types`:
+    `output` Q6_K, attn_v and ffn_down Q6_K where use_more_bits (16 of 32
+    layers), every other weight Q4_K."""
+    from ggml_imax_tpu_torch.quant.formats import GGMLType
+
+    def types(name, layer):
+        if name == "output" or (name in ("v_w", "down_w")
+                                and use_more_bits(layer, n_layer)):
+            return GGMLType.Q6_K
+        return GGMLType.Q4_K
+    return types
+
+
+def q6k_fed_g32():
+    """Phase 9b's route-check control: the Q6_K W8A8 GEMV run at g 32 in
+    place of g 16 (activations quantized per 32, every other per-16 scale
+    row), a fault that still gives plausible numbers."""
+    from dataclasses import replace
+
+    from ggml_imax_tpu_torch.ops import qmm
+    real = qmm.nat8_w8a8_gemv
+
+    def fault(x8, dx, qt, xs=None):
+        if qmm.nat8_group(qt) != 16:
+            return real(x8, dx, qt, xs)
+        x8b, dxb = qmm.quantize_activations_q8(
+            (x8.float() * dx[:, None]).reshape(1, -1), 32)
+        return real(x8b[:, 0].contiguous(), dxb[:, 0].contiguous(),
+                    replace(qt, scale=qt.scale[0::2].contiguous()), None)
+    return [(qmm, "nat8_w8a8_gemv", fault)]
+
+
+def a16_in_f64():
+    """The W4A16 and nat8 W8A16 entries as their plain version with the
+    sums taken in f64 and rounded to f32 once: the same function summed in
+    another order, to show how far the order alone moves a path's
+    logits."""
+    from ggml_imax_tpu_torch.ops import qmm
+
+    def f64(x2, qt):
+        xb = x2.to(torch.bfloat16).double()
+        out = xb @ qmm.dequant_bf16(qt).double()
+        if qt.bias is not None:
+            nb = qt.bias.shape[0]
+            xs = xb.reshape(x2.shape[0], nb, qt.k // nb).sum(-1)
+            out = out + xs @ qt.bias.double()
+        return out.float()
+    return [(qmm, "w4a16_gemm", f64), (qmm, "nat8_w8a16_gemm", f64)]
+
+
+def llama_q4km(failures):
+    """Phase 9b. LLaMA-2 7B Q4_K_M at full width and depth: the structural
+    draw on the card with the Q4_K_M mix (Q6_K `output`, and v_w and down_w
+    in 16 of 32 layers), prepare_fused refused (q/k/v of a mixed layer
+    differ in type), fuse_gate_up alone (F 11008 -> 11264; the Q6_K
+    down_w's int8 rows padded too), params_repack with bf16 scales and bias
+    (Q4_K natpair, Q6_K nat8 at g 16), Engine(n_ctx=512) serving the 3
+    requests of phase 4 with exact launch counts (a decode step 160 W4A8,
+    33 nat8 W8A8 and 32 decode attention; a prefill 160 W4A16, 33 nat8
+    W8A16 and 32 flash with their maps), profiled; the same requests
+    through generate(chunk=8), tokens and KV arena bit-equal request by
+    request; then a teacher-forced pass with the kernels held to the same
+    pass with every plain version on the card (Q4KM_ROUTE_TOL), the plain
+    pass beside itself with the A16 products summed in f64 (a reading),
+    and the Q6_K W8A8 fed g 32 in place of g 16, which must fail the
+    check.
+    Returns (summary, launch counts by run)."""
+    from ggml_imax_tpu_torch.models import llama
+    from ggml_imax_tpu_torch.ops.qmm import params_repack
+    from ggml_imax_tpu_torch.quant.device import QTensor
+    cfg = llama.LlamaConfig(**LLAMA2_7B)
+    L = cfg.n_layer
+    t0 = time.time()
+    raw = llama.synthetic_params_device(cfg, seed=0, types=q4_k_m(L))
+    try:
+        llama.prepare_fused(raw)
+        failures.append("prepare_fused fused a Q4_K_M model's q/k/v")
+    except ValueError as e:
+        log(f"  prepare_fused refuses the mix: {e}")
+    params = params_repack(llama.fuse_gate_up(raw), scale_dtype=torch.bfloat16)
+    del raw
+    torch.cuda.synchronize()
+    ws = [params["output"]] + [w for lp in params["layers"] for w in lp.values()
+                               if isinstance(w, QTensor)]
+    n_q6k = sum(w.q4_layout == 4 for w in ws)
+    n_q4k = sum(w.q4_layout == 3 for w in ws)
+    wbytes = sum(t.numel() * t.element_size() for w in ws + [params["tok_embd"]]
+                 for t in (w.q, w.scale, w.bias) if t is not None)
+    read = sum(t.numel() * t.element_size() for w in ws
+               for t in (w.q, w.scale, w.bias) if t is not None)
+    log(f"  weights drawn + prepared in {time.time() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated, weights "
+        f"{wbytes / 2**30:.3f} GiB with tok_embd; a decode step's products "
+        f"{n_q4k} Q4_K natpair + {n_q6k} Q6_K nat8 g16 reading "
+        f"{read / 1e9:.3f} GB (bound {read / HBM_BYTES_S * 1e3:.3f} ms); gu_w "
+        f"{params['layers'][0]['gu_w'].n} columns, down_w K "
+        f"{params['layers'][0]['down_w'].k}")
+    if (n_q4k, n_q6k) != (160, 33):
+        failures.append(f"Q4_K_M products: {n_q4k} Q4_K, {n_q6k} Q6_K, "
+                        "expected 160 and 33")
+        return None, None
+    eng, rng, reqs, counts, runs = serve(llama, cfg, params, cfg.n_ctx,
+                                         failures)
+    n_dec, n_pre = N_REQUESTS * (N_PREDICT - 1), N_REQUESTS
+    expect = {"w4a8_gemv": n_dec * 160, "nat8_w8a8": n_dec * 33,
+              "decode_attention": n_dec * L, "w4a16_gemm": n_pre * 160,
+              "nat8_w8a16": n_pre * 33, "flash_attention": n_pre * L,
+              "flash_backward_tiles": n_pre * L}
+    check_counts(counts, expect, failures)
+    if failures:
+        return None, None
+    busy_ms, walls = profile_engine(eng, rng, reqs)
+    creqs, ccounts, summary = serve_chunked(eng, runs, failures)
+    check_counts(ccounts, expect, failures)
+    med = lambda rs: float(np.median([r["decode_tok_s"] for r in rs]))
+    span_ms, span_busy, how = profile_span(eng, busy_ms.get("decode step"))
+    log(f"  chunk {CHUNK}: {med(creqs):.2f} tok/s = {1e3 / med(creqs):.3f} ms "
+        f"a token (median), {med(creqs) / med(reqs):.2f}x chunk 1's "
+        f"{med(reqs):.2f} tok/s")
+    summary.update(requests=creqs, tok_s=med(creqs), chunk1_requests=reqs,
+                   chunk1_tok_s=med(reqs), busy_ms=busy_ms, wall_ms=walls,
+                   span_ms=span_ms, span_busy_ms=span_busy,
+                   span_busy_method=how, weight_gib=wbytes / 2**30,
+                   step_read_gb=read / 1e9,
+                   max_memory_allocated_gib=torch.cuda.max_memory_allocated()
+                   / 2**30)
+    del eng
+    greedy = lambda patches=(), feed=None: engine_greedy(
+        cfg, params, False, patches, n=9, model=llama, n_prompt=64,
+        n_ctx=cfg.n_ctx, feed=feed)
+    ref = greedy()
+    plain = greedy(plain_on_card(), ref[0])
+    check_forced("LLaMA-2 7B Q4_K_M, kernels vs plain versions on the card",
+                 ref, plain, failures, Q4KM_ROUTE_TOL)
+    # a reading of how far the sums' order alone moves this model's logits
+    # (logged, not a check of the port)
+    check_forced("reading: LLaMA-2 7B Q4_K_M, plain versions vs the same "
+                 "with the A16 products summed in f64", plain,
+                 greedy(plain_on_card() + a16_in_f64(), ref[0]), [],
+                 Q4KM_ROUTE_TOL)
+    check_forced("control: LLaMA-2 7B Q4_K_M, the Q6_K W8A8 fed g 32 in "
+                 "place of g 16", ref, greedy(q6k_fed_g32(), ref[0]),
+                 failures, Q4KM_ROUTE_TOL, control=True)
+    del params
+    torch.cuda.empty_cache()
+    return summary, {"llama_q4km": counts, "llama_q4km_chunked": ccounts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2660,6 +3172,7 @@ def main() -> int:
     from ggml_imax_tpu_torch import _build
 
     # ---- 1. setup
+    t_start = time.time()
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2694,6 +3207,7 @@ def main() -> int:
     check_train_kernels(ck, timer, gen)
     check_kquant_kernels(ck, timer, gen)
     check_llama_kernels(ck, timer, gen)
+    check_format_kernels(ck, timer, gen)
     del timer                                      # the 256 MB flush buffer
     torch.cuda.empty_cache()
     failures = ck.failures
@@ -2796,6 +3310,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"# phase 5: {time.time() - t0:.1f} s")
 
+    # ---- 5b. GPT-2 XL in Q5_K
+    log("# phase 5b: GPT-2 1558M Q5_K engine (synthetic weights on device)")
+    t0 = time.time()
+    engines["gpt2_q5_k"], by_run = gpt2_xl_q5k(failures)
+    if failures:
+        raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
+    launches.update(by_run)
+    log(f"# phase 5b: {time.time() - t0:.1f} s")
+
     # ---- 6. continuous-batching serving at GPT-J-6B width
     log("# phase 6: GPT-J-6B Q4_0 serving (BatchedEngine, q8_0 KV, n_ctx "
         f"{SERVE['n_ctx']})")
@@ -2821,11 +3344,26 @@ def main() -> int:
     log("# phase 8: GPT-2 117M Q3_K / Q2_K engine, row-pair Q4_0 and u-order "
         "Q8_0 (synthetic weights quantized on the host)")
     t0 = time.time()
-    engines["gpt2_117m"], by_run = kquant_gpt2(failures)
+    pool = host_pool()
+    try:
+        engines["gpt2_117m"], by_run = kquant_gpt2(failures, pool)
+        launches.update(by_run)
+        if failures:
+            raise SystemExit("chip_smoke FAILED:\n  "
+                             + "\n  ".join(failures))
+        log(f"# phase 8: {time.time() - t0:.1f} s")
+
+        # ---- 8b. GPT-2 117M in the other block formats
+        log("# phase 8b: GPT-2 117M Q4_0 / Q4_1 / Q5_0 / Q5_1 / Q5_K / Q6_K "
+            "engine (synthetic weights quantized on the host)")
+        t0 = time.time()
+        engines["gpt2_117m_formats"], by_run = formats_gpt2(failures, pool)
+    finally:
+        pool.shutdown()
     launches.update(by_run)
     if failures:
         raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
-    log(f"# phase 8: {time.time() - t0:.1f} s")
+    log(f"# phase 8b: {time.time() - t0:.1f} s")
 
     # ---- 9. LLaMA-2 7B Q4_K
     log("# phase 9: LLaMA-2 7B Q4_K engine (synthetic weights on device, "
@@ -2836,6 +3374,17 @@ def main() -> int:
         raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
     launches.update(by_run)
     log(f"# phase 9: {time.time() - t0:.1f} s")
+
+    # ---- 9b. LLaMA-2 7B Q4_K_M
+    log("# phase 9b: LLaMA-2 7B Q4_K_M engine (synthetic weights on device, "
+        "Q6_K output and half the attn_v / ffn_down, bf16 scales)")
+    t0 = time.time()
+    engines["llama_q4km"], by_run = llama_q4km(failures)
+    if failures:
+        raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
+    launches.update(by_run)
+    log(f"# phase 9b: {time.time() - t0:.1f} s")
+    log(f"# phases 1-9b: {time.time() - t_start:.1f} s")
 
     kernels = []
     for k in KERNELS:

@@ -5,8 +5,9 @@ head tied to ``wte`` unless ``lm_head`` is set.
 
 Per-layer weights stay in ``params["layers"]``, a Python list. Run
 ops.qmm.params_repack on the params before `forward` to reach the kernels:
-Q8_0 weights become nat8, Q4_0 natpair, Q2_K and Q3_K block-interleaved
-planes. As in the reference, only weights whose N is a multiple of 128
+Q8_0, Q8_1, Q5_0, Q5_1, Q5_K and Q6_K weights become nat8, Q4_0 and Q4_1
+natpair, Q2_K and Q3_K block-interleaved planes; F32, F16 and BF16 stay
+dense. As in the reference, only weights whose N is a multiple of 128
 take them (at GPT-2 XL's n_embd 1600: fc_w; at 117M's 768 every layer
 weight); the others, the tied LM head among them, dequantize and
 multiply. Attention is flash for a multi-token
@@ -26,7 +27,7 @@ from ..ops.embedding import get_rows
 from ..ops.flash_attention import attention
 from ..ops.norms import layer_norm
 from ..ops.qmatmul import qmatmul
-from ..quant.device import QTensor, quantize_for_device
+from ..quant.device import LAID_OUT, QTensor, quantize_for_device
 from ..quant.formats import GGMLType
 from .common import (KVCache, attention_mask, init_kv_cache, read_kv,
                      update_kv, update_kv_cells)
@@ -67,11 +68,11 @@ def synthetic_params(cfg: GPT2Config, wtype: GGMLType = GGMLType.F32,
                      seed: int = 0, scale: float = 0.02, *, device=None):
     """Random weights at model geometry, drawn on the host with the same
     numpy stream as the reference's synthetic_params and quantized through
-    the port's bit-exact codecs (F32, Q4_0, Q8_0, Q2_K, Q3_K), so both
-    packages build identical weights from one seed. The K-quants need
-    n_embd % 256 == 0 (GPT-2 117M's 768, not XL's 1600)."""
-    if wtype not in (GGMLType.F32, GGMLType.Q4_0, GGMLType.Q8_0, GGMLType.Q2_K,
-                     GGMLType.Q3_K):
+    the port's bit-exact codecs (F32, F16, BF16 and every block format with
+    a device layout), so both packages build identical weights from one
+    seed. The K-quants need n_embd % 256 == 0 (GPT-2 117M's 768, not XL's
+    1600)."""
+    if wtype not in (GGMLType.F32, GGMLType.F16, GGMLType.BF16) + LAID_OUT:
         raise NotImplementedError(f"synthetic weights in {wtype.name}")
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
@@ -91,22 +92,35 @@ def synthetic_params(cfg: GPT2Config, wtype: GGMLType = GGMLType.F32,
 
 
 def synthetic_params_device(cfg: GPT2Config, seed: int = 0,
-                            scale: float = 0.02, *, device=None):
-    """Like synthetic_params, but Q8_0 drawn on the device with a
-    torch.Generator (no multi-GB host-to-device copy): int8 values uniform
-    in [-127, 127] with positive f32 scales that give the weights a
-    standard deviation near `scale`. Other numbers than the host stream."""
+                            scale: float = 0.02, *,
+                            wtype: GGMLType = GGMLType.Q8_0, device=None):
+    """Like synthetic_params, but drawn on the device with a
+    torch.Generator (no multi-GB host-to-device copy), every 2-D weight int8
+    with per-32 f32 scales: Q8_0 values uniform in [-127, 127] with
+    positive scales that give the weights a standard deviation near
+    `scale`; Q5_K (the reference benchmark's structural draw,
+    tools/bench_models.py DeviceGen) raw levels uniform in [0, 31], scale
+    |N| s / 18 and bias -|N| s / 3. Other numbers than the host stream."""
+    if wtype not in (GGMLType.Q8_0, GGMLType.Q5_K):
+        raise NotImplementedError(f"device-drawn weights in {wtype.name}")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
+    normal = lambda shape: torch.randn(shape, generator=gen, device=dev)
 
     def q(shape_kn):
         k, n = shape_kn
+        if wtype == GGMLType.Q5_K:
+            qs = torch.randint(0, 32, (k, n), dtype=torch.int8,
+                               generator=gen, device=dev)
+            sc = normal((k // 32, n)).abs_().mul_(scale / 18)
+            bias = normal((k // 32, n)).abs_().mul_(-scale / 3)
+            return QTensor("int8", qs, sc, bias, k, n, wtype)
         qs = torch.randint(-127, 128, (k, n), dtype=torch.int8,
                            generator=gen, device=dev)
-        sc = torch.randn((k // 32, n), generator=gen, device=dev).abs_() \
+        sc = normal((k // 32, n)).abs_() \
             .mul_(scale / 73.6)                # std of uniform [-127, 127]
-        return QTensor("int8", qs, sc, None, k, n, GGMLType.Q8_0)
+        return QTensor("int8", qs, sc, None, k, n, wtype)
 
     def vec(n):
         return torch.randn(n, generator=gen, device=dev).mul_(scale)

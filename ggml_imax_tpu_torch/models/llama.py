@@ -10,7 +10,10 @@ package's stacked TPU layout (stack_model) is not ported. The decode graph
 GEMV (``qkv_w``, split by the GQA widths E, Hkv*D, Hkv*D), gate and up
 fused into one (``gu_w``) with F padded to a multiple of 1024 at
 production width (the down projection's K padded to match); then
-ops.qmm.params_repack puts every weight in the natpair layout.
+ops.qmm.params_repack puts every weight in the natpair layout. A model whose
+q/k/v differ in type (a Q4_K_M file keeps attn_v in Q6_K in half its
+layers) is prepared by `fuse_gate_up` alone, as the JAX package runs it:
+q/k/v stay unfused, Q4_K weights go natpair and Q6_K ones nat8.
 """
 from __future__ import annotations
 
@@ -57,51 +60,76 @@ class LlamaConfig:
 
 def synthetic_params_device(cfg: LlamaConfig, wtype: GGMLType = GGMLType.Q4_K,
                             seed: int = 0, scale: float = 0.02, *,
-                            device=None):
-    """Random Q4_K weights at full model size, drawn on the device with a
+                            types=None, device=None):
+    """Random weights at full model size, drawn on the device with a
     torch.Generator (no multi-GB host copy), in the reference benchmark's
-    structural draw (tools/bench_models.py DeviceGen, llama_params): every
-    2-D weight nib4 with uniform bytes, per-32 scale |N| s / 9 and bias
-    -|N| s / 3 (the format's min), zero 0; norm weights N s + 1. Other
-    numbers than the reference's stream, the same distribution."""
-    if wtype != GGMLType.Q4_K:
-        raise NotImplementedError(f"synthetic weights in {wtype.name}")
+    structural draw (tools/bench_models.py DeviceGen, llama_params). Each
+    2-D weight takes the type `types(name, layer)` gives (name a params key
+    such as "v_w" or "output", layer its index or None), `wtype` for every
+    one by default:
+
+    - Q4_K: nib4 with uniform bytes, per-32 scale |N| s / 9 and bias
+      -|N| s / 3 (the format's min), zero 0;
+    - Q6_K: int8 levels uniform in [-32, 31], per-16 scale |N| s / 18.5
+      (the levels' standard deviation), no bias.
+
+    Norm weights are N s + 1. Other numbers than the reference's stream,
+    the same distribution."""
+    types = types or (lambda name, layer: wtype)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     normal = lambda shape: torch.randn(shape, generator=gen, device=dev)
 
-    def q(k, n):
+    def q(name, layer, k, n):
+        t = types(name, layer)
+        if t == GGMLType.Q6_K:
+            qs = torch.randint(-32, 32, (k, n), dtype=torch.int8,
+                               generator=gen, device=dev)
+            sc = normal((k // 16, n)).abs_().mul_(scale / 18.5)
+            return QTensor("int8", qs, sc, None, k, n, t)
+        if t != GGMLType.Q4_K:
+            raise NotImplementedError(f"synthetic weights in {t.name}")
         qs = torch.randint(0, 256, (k // 2, n), dtype=torch.uint8,
                            generator=gen, device=dev)
         sc = normal((k // 32, n)).abs_().mul_(scale / 9)
         bias = normal((k // 32, n)).abs_().mul_(-scale / 3)
-        return QTensor("nib4", qs, sc, bias, k, n, wtype, zero=0)
+        return QTensor("nib4", qs, sc, bias, k, n, t, zero=0)
 
     def norm(n):
         return normal(n).mul_(scale).add_(1.0)
 
     E, V, F = cfg.n_embd, cfg.n_vocab, cfg.n_ff
     kv = cfg.n_head_kv * cfg.head_dim
-    params = {"tok_embd": q(E, V), "out_norm": norm(E), "output": q(E, V),
-              "layers": []}
-    for _ in range(cfg.n_layer):
+    params = {"tok_embd": q("tok_embd", None, E, V), "out_norm": norm(E),
+              "output": q("output", None, E, V), "layers": []}
+    for li in range(cfg.n_layer):
         params["layers"].append({
             "attn_norm": norm(E),
-            "q_w": q(E, E), "k_w": q(E, kv), "v_w": q(E, kv), "o_w": q(E, E),
+            "q_w": q("q_w", li, E, E), "k_w": q("k_w", li, E, kv),
+            "v_w": q("v_w", li, E, kv), "o_w": q("o_w", li, E, E),
             "ffn_norm": norm(E),
-            "gate_w": q(E, F), "up_w": q(E, F), "down_w": q(F, E)})
+            "gate_w": q("gate_w", li, E, F), "up_w": q("up_w", li, E, F),
+            "down_w": q("down_w", li, F, E)})
     return params
 
 
 def fuse_qkv(params):
     """Concatenate each layer's q/k/v projections ((E, E) + (E, Hkv*D) +
     (E, Hkv*D)) along N into one GEMV (``qkv_w``); forward splits it by
-    the GQA widths."""
+    the GQA widths. Raises ValueError for a layer whose q/k/v differ in
+    type (prepare such a model with fuse_gate_up alone)."""
     out = dict(params)
     out["layers"] = []
-    for lp in params["layers"]:
+    for li, lp in enumerate(params["layers"]):
         lp = dict(lp)
+        kinds = {(w.kind, w.ggml_type) for w in
+                 (lp["q_w"], lp["k_w"], lp["v_w"])}
+        if len(kinds) > 1:
+            raise ValueError(
+                f"fuse_qkv: layer {li} has q/k/v of types "
+                f"{[lp[k].ggml_type.name for k in ('q_w', 'k_w', 'v_w')]}; "
+                "a mixed model is prepared by fuse_gate_up alone")
         lp["qkv_w"] = concat_qtensors([lp.pop("q_w"), lp.pop("k_w"),
                                        lp.pop("v_w")])
         out["layers"].append(lp)
@@ -135,7 +163,8 @@ def fuse_gate_up(params, pad_multiple: int | None = None):
 
 def prepare_fused(params, cfg: LlamaConfig | None = None):
     """The decode graph: fuse_qkv, then fuse_gate_up (the default pad
-    rule). Call before ops.qmm.params_repack."""
+    rule). Call before ops.qmm.params_repack. Raises ValueError where
+    fuse_qkv does (q/k/v of different types)."""
     return fuse_gate_up(fuse_qkv(params))
 
 

@@ -1,12 +1,14 @@
 """Bit-exact numpy codecs for the ggml block formats the port loads (its own
-copy of ggml_imax_tpu/quant/codecs.py: Q4_0, Q8_0, Q2_K, Q3_K and Q4_K).
+copy of ggml_imax_tpu/quant/codecs.py's numpy twins: Q4_0, Q4_1, Q5_0,
+Q5_1, Q8_0, Q8_1, Q2_K, Q3_K, Q4_K, Q5_K, Q6_K and Q8_K, and the F16 and
+BF16 float formats).
 
 The encoded bytes match ggml-common.h's block layouts, so blocks round-trip
 bit for bit with GGUF files. Rounding, as in ggml's scalar C code:
 
-- Q4_0: ``(int8_t)(x * id + 8.5f)`` truncates a non-negative operand, so
-  it is a floor;
-- Q8_0: C ``roundf``, round half away from zero;
+- Q4_0, Q4_1, Q5_0, Q5_1: ``(int8_t)(x * id + 8.5f)`` and its kin
+  truncate a non-negative operand, so they are a floor;
+- Q8_0, Q8_1: C ``roundf``, round half away from zero;
 - the K-quants: ggml's ``nearest_int``, round half to even;
 - block scales are IEEE fp16 (round to nearest even).
 
@@ -61,7 +63,14 @@ def _safe_inv(d: np.ndarray) -> np.ndarray:
 # on-disk block layouts (ggml-common.h)
 BLOCK_DTYPES: dict[GGMLType, np.dtype] = {
     GGMLType.Q4_0: np.dtype([("d", "<f2"), ("qs", "u1", (QK // 2,))]),
+    GGMLType.Q4_1: np.dtype([("d", "<f2"), ("m", "<f2"),
+                             ("qs", "u1", (QK // 2,))]),
+    GGMLType.Q5_0: np.dtype([("d", "<f2"), ("qh", "<u4"),
+                             ("qs", "u1", (QK // 2,))]),
+    GGMLType.Q5_1: np.dtype([("d", "<f2"), ("m", "<f2"), ("qh", "<u4"),
+                             ("qs", "u1", (QK // 2,))]),
     GGMLType.Q8_0: np.dtype([("d", "<f2"), ("qs", "i1", (QK,))]),
+    GGMLType.Q8_1: np.dtype([("d", "<f2"), ("s", "<f2"), ("qs", "i1", (QK,))]),
     GGMLType.Q2_K: np.dtype([("scales", "u1", (QK_K // 16,)),
                              ("qs", "u1", (QK_K // 4,)),
                              ("d", "<f2"), ("dmin", "<f2")]),
@@ -71,6 +80,15 @@ BLOCK_DTYPES: dict[GGMLType, np.dtype] = {
     GGMLType.Q4_K: np.dtype([("d", "<f2"), ("dmin", "<f2"),
                              ("scales", "u1", (12,)),
                              ("qs", "u1", (QK_K // 2,))]),
+    GGMLType.Q5_K: np.dtype([("d", "<f2"), ("dmin", "<f2"),
+                             ("scales", "u1", (12,)),
+                             ("qh", "u1", (QK_K // 8,)),
+                             ("qs", "u1", (QK_K // 2,))]),
+    GGMLType.Q6_K: np.dtype([("ql", "u1", (QK_K // 2,)),
+                             ("qh", "u1", (QK_K // 4,)),
+                             ("scales", "i1", (QK_K // 16,)), ("d", "<f2")]),
+    GGMLType.Q8_K: np.dtype([("d", "<f4"), ("qs", "i1", (QK_K,)),
+                             ("bsums", "<i2", (QK_K // 16,))]),
 }
 
 for _t, _dt in BLOCK_DTYPES.items():
@@ -111,6 +129,103 @@ def dequantize_q4_0(raw: np.ndarray) -> np.ndarray:
     return (np.concatenate([lo, hi], axis=1).astype(f32) * d).reshape(-1)
 
 
+def quantize_q4_1(x: np.ndarray) -> np.ndarray:
+    """Q4_1: an fp16 scale d = (max - min) / 15 and min m a block, 4-bit
+    quants floor((x - min) / d + 0.5); w = d q + m."""
+    xb = _blocks_in(x, QK)
+    mn = xb.min(axis=1)
+    mxv = xb.max(axis=1)
+    d = ((mxv - mn) / f32(15.0)).astype(f32)
+    idv = _safe_inv(d)
+    xi = np.minimum(15, np.floor((xb - mn[:, None]) * idv[:, None]
+                                 + f32(0.5)).astype(np.int32)).astype(np.uint8)
+    out = np.zeros(len(xb), dtype=BLOCK_DTYPES[GGMLType.Q4_1])
+    out["d"] = _fp16(d)
+    out["m"] = _fp16(mn)
+    out["qs"] = xi[:, :QK // 2] | (xi[:, QK // 2:] << 4)
+    return out.view(np.uint8)
+
+
+def dequantize_q4_1(raw: np.ndarray) -> np.ndarray:
+    b = blocks_view(raw, GGMLType.Q4_1)
+    d = b["d"].astype(f32)[:, None]
+    m = b["m"].astype(f32)[:, None]
+    lo = (b["qs"] & 0x0F).astype(f32)
+    hi = (b["qs"] >> 4).astype(f32)
+    return (np.concatenate([lo, hi], axis=1) * d + m).reshape(-1)
+
+
+def _pack_q5(xi: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(nb, 32) values in [0, 31] -> (qs, the low four bits of elements j
+    and j + 16 in byte j; qh, bit 4 of element e at bit e of a u32)."""
+    lo = xi[:, :QK // 2]
+    hi = xi[:, QK // 2:]
+    qs = (lo & 0x0F).astype(np.uint8) | ((hi & 0x0F).astype(np.uint8) << 4)
+    j = np.arange(QK // 2, dtype=np.uint32)
+    qh = (((lo.astype(np.uint32) & 0x10) >> 4) << j).sum(axis=1,
+                                                         dtype=np.uint32) \
+        | (((hi.astype(np.uint32) & 0x10) >> 4) << (j + QK // 2)) \
+        .sum(axis=1, dtype=np.uint32)
+    return qs, qh
+
+
+def _unpack_q5(qs: np.ndarray, qh: np.ndarray) -> np.ndarray:
+    """(qs (nb, 16), qh (nb,)) -> (nb, 32) unsigned 5-bit values."""
+    j = np.arange(QK // 2, dtype=np.uint32)
+    xh0 = (((qh[:, None] >> j) << 4) & 0x10).astype(np.uint8)
+    xh1 = ((qh[:, None] >> (j + 12)) & 0x10).astype(np.uint8)
+    return np.concatenate([(qs & 0x0F) | xh0, (qs >> 4) | xh1], axis=1)
+
+
+def quantize_q5_0(x: np.ndarray) -> np.ndarray:
+    """Q5_0: as Q4_0 with 5-bit quants, d = max / -16."""
+    xb = _blocks_in(x, QK)
+    mx = _signed_absmax(xb)
+    d = (mx / f32(-16.0)).astype(f32)
+    idv = _safe_inv(d)
+    xi = np.minimum(31, np.floor(xb * idv[:, None] + f32(16.5))
+                    .astype(np.int32)).astype(np.uint8)
+    qs, qh = _pack_q5(xi)
+    out = np.zeros(len(xb), dtype=BLOCK_DTYPES[GGMLType.Q5_0])
+    out["d"] = _fp16(d)
+    out["qs"] = qs
+    out["qh"] = qh
+    return out.view(np.uint8)
+
+
+def dequantize_q5_0(raw: np.ndarray) -> np.ndarray:
+    b = blocks_view(raw, GGMLType.Q5_0)
+    d = b["d"].astype(f32)[:, None]
+    q = _unpack_q5(b["qs"], b["qh"]).astype(np.int32) - 16
+    return (q.astype(f32) * d).reshape(-1)
+
+
+def quantize_q5_1(x: np.ndarray) -> np.ndarray:
+    """Q5_1: as Q4_1 with 5-bit quants, d = (max - min) / 31."""
+    xb = _blocks_in(x, QK)
+    mn = xb.min(axis=1)
+    mxv = xb.max(axis=1)
+    d = ((mxv - mn) / f32(31.0)).astype(f32)
+    idv = _safe_inv(d)
+    xi = np.floor((xb - mn[:, None]) * idv[:, None] + f32(0.5)) \
+        .astype(np.int32).astype(np.uint8)
+    qs, qh = _pack_q5(xi)
+    out = np.zeros(len(xb), dtype=BLOCK_DTYPES[GGMLType.Q5_1])
+    out["d"] = _fp16(d)
+    out["m"] = _fp16(mn)
+    out["qs"] = qs
+    out["qh"] = qh
+    return out.view(np.uint8)
+
+
+def dequantize_q5_1(raw: np.ndarray) -> np.ndarray:
+    b = blocks_view(raw, GGMLType.Q5_1)
+    d = b["d"].astype(f32)[:, None]
+    m = b["m"].astype(f32)[:, None]
+    q = _unpack_q5(b["qs"], b["qh"]).astype(f32)
+    return (q * d + m).reshape(-1)
+
+
 def quantize_q8_0(x: np.ndarray) -> np.ndarray:
     xb = _blocks_in(x, QK)
     amax = np.abs(xb).max(axis=1)
@@ -125,6 +240,25 @@ def quantize_q8_0(x: np.ndarray) -> np.ndarray:
 
 def dequantize_q8_0(raw: np.ndarray) -> np.ndarray:
     b = blocks_view(raw, GGMLType.Q8_0)
+    return (b["qs"].astype(f32) * b["d"].astype(f32)[:, None]).reshape(-1)
+
+
+def quantize_q8_1(x: np.ndarray) -> np.ndarray:
+    """Q8_1: Q8_0's quants and scale, and s = d * sum(q) in fp16."""
+    xb = _blocks_in(x, QK)
+    amax = np.abs(xb).max(axis=1)
+    d = (amax / f32(127.0)).astype(f32)
+    idv = _safe_inv(d)
+    q = _roundf(xb * idv[:, None]).astype(np.int8)
+    out = np.zeros(len(xb), dtype=BLOCK_DTYPES[GGMLType.Q8_1])
+    out["d"] = _fp16(d)
+    out["s"] = _fp16(d * q.sum(axis=1, dtype=np.int32).astype(f32))
+    out["qs"] = q
+    return out.view(np.uint8)
+
+
+def dequantize_q8_1(raw: np.ndarray) -> np.ndarray:
+    b = blocks_view(raw, GGMLType.Q8_1)
     return (b["qs"].astype(f32) * b["d"].astype(f32)[:, None]).reshape(-1)
 
 
@@ -191,6 +325,40 @@ def _make_qkx2_quants(x, weights, nmax: int, rmin: float, rdelta: float,
     L = np.where(flat[:, None], 0, L)
     the_min = np.where(flat, -mn, -cur_min).astype(f32)
     return scale, the_min, L.astype(np.int32)
+
+
+def _make_qx_quants(x, nmax: int):
+    """Symmetric quantizer with a search over 19 trial scales (ggml's
+    make_qx_quants, rmse_type 1, weights x^2). x (nb, n) -> (scale, L in
+    [0, 2 nmax - 1])."""
+    mx = np.take_along_axis(x, np.argmax(np.abs(x), axis=1)[:, None],
+                            axis=1)[:, 0]
+    dead = np.abs(mx) < f32(1e-30)
+    mx_safe = np.where(dead, f32(1.0), mx)
+    w = x * x
+
+    def trial(iscale):
+        l = np.clip(_nearest_int(iscale[:, None] * x), -nmax, nmax - 1)
+        lf = l.astype(f32)
+        return l, _seqsum(w * x * lf), _seqsum(w * lf * lf)
+
+    L, sumlx, suml2 = trial((f32(-nmax) / mx_safe).astype(f32))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        scale = (sumlx / suml2).astype(f32)        # unguarded, as in C
+    best = scale * sumlx
+    for step in range(-9, 10):
+        if step == 0:
+            continue
+        l, slx, sl2 = trial(-(f32(nmax) + f32(0.1) * f32(step)) / mx_safe)
+        better = (sl2 > 0) & (slx * slx > best * sl2)
+        L = np.where(better[:, None], l, L)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            scale = np.where(better, slx / sl2, scale).astype(f32)
+        best = np.where(better, scale * slx, best)
+
+    scale = np.where(dead, f32(0.0), scale).astype(f32)
+    L = np.where(dead[:, None], 0, L + nmax)
+    return scale, L.astype(np.int32)
 
 
 def _make_q3_quants(x, nmax: int):
@@ -277,6 +445,17 @@ _Q3_HBIT = _E // 32
 # low nibbles, the next 32 in the high ones
 _Q4K_BYTE = (_E % 32) + 32 * (_E // 64)
 _Q4K_SHIFT = 4 * ((_E % 64) // 32)
+# q5_K: the fifth bit of element e at bit e // 32 of byte e % 32 of qh
+_Q5K_HBIT = _E // 32
+# q6_K: per 128-half, the low nibbles of four 32-element groups in 64
+# bytes (groups 0, 1 low, 2, 3 high) and their top two bits in 32 bytes
+_Q6_H = _E // 128
+_Q6_L = _E % 128
+_Q6_G = _Q6_L // 32
+_Q6_QL_BYTE = 64 * _Q6_H + (_Q6_L % 32) + 32 * (_Q6_G % 2)
+_Q6_QL_SHIFT = 4 * (_Q6_G // 2)
+_Q6_QH_BYTE = 32 * _Q6_H + (_Q6_L % 32)
+_Q6_QH_SHIFT = 2 * _Q6_G
 
 
 def _pack_2bit_fast(L: np.ndarray) -> np.ndarray:
@@ -499,22 +678,168 @@ def dequantize_q4_K(raw: np.ndarray) -> np.ndarray:
     return (dl * q4k_levels(b).astype(f32) - ml).reshape(-1)
 
 
-_QUANTIZERS = {GGMLType.Q4_0: quantize_q4_0, GGMLType.Q8_0: quantize_q8_0,
+def quantize_q5_K(x: np.ndarray) -> np.ndarray:
+    """Q5_K: Q4_K's sub-blocks, scales and mins with 5-bit quants, the fifth
+    bit in qh."""
+    xb = _blocks_in(x, QK_K)
+    nb = len(xb)
+    scales, mins, L = _qkx_scales_for_k45(xb, 31, -0.5, 15)
+    packed, d, dmin = _k45_store_scales(scales, mins)
+
+    # quantize again against the stored scales and mins
+    d6, m6 = _unpack_scale_min_k4(packed)
+    dl = np.repeat(_fp16_f32(d)[:, None] * d6.astype(f32), 32, axis=1)
+    ml = np.repeat(_fp16_f32(dmin)[:, None] * m6.astype(f32), 32, axis=1)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        l_new = np.clip(_nearest_int((xb + ml) / dl), 0, 31)
+    L = np.where(dl != 0, l_new, L)
+
+    hibit = L > 15
+    qh = np.zeros((nb, QK_K // 8), dtype=np.uint8)
+    for bit in range(8):
+        sel = _Q5K_HBIT == bit
+        qh[:, (_E % 32)[sel]] |= hibit[:, sel].astype(np.uint8) << bit
+
+    out = np.zeros(nb, dtype=BLOCK_DTYPES[GGMLType.Q5_K])
+    out["d"] = _fp16(d)
+    out["dmin"] = _fp16(dmin)
+    out["scales"] = packed
+    out["qh"] = qh
+    out["qs"] = _pack_4bit_k(np.where(hibit, L - 16, L))
+    return out.view(np.uint8)
+
+
+def q5k_levels(b: np.ndarray) -> np.ndarray:
+    """Structured Q5_K blocks -> (..., 256) int16 levels in [0, 31]."""
+    hb = (b["qh"][..., _E % 32] >> _Q5K_HBIT) & 1
+    return q4k_levels(b).astype(np.int16) + 16 * hb.astype(np.int16)
+
+
+def dequantize_q5_K(raw: np.ndarray) -> np.ndarray:
+    b = blocks_view(raw, GGMLType.Q5_K)
+    d6, m6 = _unpack_scale_min_k4(b["scales"])
+    dl = (b["d"].astype(f32)[:, None] * d6.astype(f32))[:, _E // 32]
+    ml = (b["dmin"].astype(f32)[:, None] * m6.astype(f32))[:, _E // 32]
+    return (dl * q5k_levels(b).astype(f32) - ml).reshape(-1)
+
+
+def quantize_q6_K(x: np.ndarray) -> np.ndarray:
+    """Q6_K: 16 sub-blocks of 16 with an int8 scale each under an fp16
+    super-scale d; 6-bit quants q + 32 split into low nibbles and high
+    2-bit pairs, w = d sc q."""
+    xb = _blocks_in(x, QK_K)
+    nb = len(xb)
+    scales, L = _make_qx_quants(xb.reshape(nb * 16, 16), 32)
+    scales = scales.reshape(nb, 16)
+    L = L.reshape(nb, QK_K)                           # in [0, 63]
+
+    # the C scan (``if (fabsf(scale) > max_abs_scale)``) skips NaN scales
+    # (0 / 0 from sub-block sums that underflow); an all-NaN block is zero
+    scan = np.where(np.isnan(scales), f32(0.0), scales)
+    max_scale = np.take_along_axis(
+        scan, np.argmax(np.abs(scan), axis=1)[:, None], axis=1)[:, 0]
+    nonzero = np.abs(scan).max(axis=1) != 0
+    iscale = f32(-128.0) / np.where(nonzero, max_scale, f32(1.0))
+    d = np.where(nonzero, _safe_inv(iscale), f32(0.0)).astype(f32)
+    sc8 = np.minimum(127, _nearest_int(iscale[:, None] * scales)) \
+        .astype(np.int8)
+    sc8 = np.where(nonzero[:, None], sc8, 0)
+
+    # quantize again against the stored scales
+    dl_e = np.repeat(_fp16_f32(d)[:, None] * sc8.astype(f32), 16, axis=1)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        l_new = np.clip(_nearest_int(xb / dl_e), -32, 31) + 32
+    L = np.where(dl_e != 0, l_new, L)
+    L = np.where(nonzero[:, None], L, 0)
+
+    ql = np.zeros((nb, QK_K // 2), dtype=np.uint8)
+    qh = np.zeros((nb, QK_K // 4), dtype=np.uint8)
+    lo, hi = (L & 0xF).astype(np.uint8), (L >> 4).astype(np.uint8)
+    for shift in (0, 4):
+        sel = _Q6_QL_SHIFT == shift
+        ql[:, _Q6_QL_BYTE[sel]] |= lo[:, sel] << shift
+    for shift in (0, 2, 4, 6):
+        sel = _Q6_QH_SHIFT == shift
+        qh[:, _Q6_QH_BYTE[sel]] |= hi[:, sel] << shift
+
+    out = np.zeros(nb, dtype=BLOCK_DTYPES[GGMLType.Q6_K])
+    out["ql"] = ql
+    out["qh"] = qh
+    out["scales"] = sc8
+    out["d"] = _fp16(d)
+    return out.view(np.uint8)
+
+
+def q6k_levels(b: np.ndarray) -> np.ndarray:
+    """Structured Q6_K blocks -> (..., 256) int16 levels in [-32, 31]."""
+    lo = (b["ql"][..., _Q6_QL_BYTE] >> _Q6_QL_SHIFT) & 0xF
+    hi = (b["qh"][..., _Q6_QH_BYTE] >> _Q6_QH_SHIFT) & 3
+    return (lo.astype(np.int16) | (hi.astype(np.int16) << 4)) - 32
+
+
+def dequantize_q6_K(raw: np.ndarray) -> np.ndarray:
+    b = blocks_view(raw, GGMLType.Q6_K)
+    d = b["d"].astype(f32)[:, None]
+    sc = b["scales"].astype(f32)[:, _E // 16]
+    return (d * sc * q6k_levels(b).astype(f32)).reshape(-1)
+
+
+def quantize_q8_K(x: np.ndarray) -> np.ndarray:
+    """Q8_K, the K-quants' activation format: an f32 scale d = max / -127 a
+    256-block, int8 quants and their sums over each 16."""
+    xb = _blocks_in(x, QK_K)
+    nb = len(xb)
+    mx = _signed_absmax(xb)
+    dead = np.abs(mx) == 0
+    iscale = f32(-127.0) / np.where(dead, f32(1.0), mx)
+    q = np.minimum(127, _nearest_int(iscale[:, None] * xb)).astype(np.int8)
+    q = np.where(dead[:, None], 0, q)
+    out = np.zeros(nb, dtype=BLOCK_DTYPES[GGMLType.Q8_K])
+    out["d"] = np.where(dead, f32(0.0), _safe_inv(iscale))
+    out["qs"] = q
+    out["bsums"] = q.reshape(nb, 16, 16).sum(axis=2, dtype=np.int32) \
+        .astype(np.int16)
+    return out.view(np.uint8)
+
+
+def dequantize_q8_K(raw: np.ndarray) -> np.ndarray:
+    b = blocks_view(raw, GGMLType.Q8_K)
+    return (b["qs"].astype(f32) * b["d"][:, None]).reshape(-1)
+
+
+_QUANTIZERS = {GGMLType.Q4_0: quantize_q4_0, GGMLType.Q4_1: quantize_q4_1,
+               GGMLType.Q5_0: quantize_q5_0, GGMLType.Q5_1: quantize_q5_1,
+               GGMLType.Q8_0: quantize_q8_0, GGMLType.Q8_1: quantize_q8_1,
                GGMLType.Q2_K: quantize_q2_K, GGMLType.Q3_K: quantize_q3_K,
-               GGMLType.Q4_K: quantize_q4_K}
+               GGMLType.Q4_K: quantize_q4_K, GGMLType.Q5_K: quantize_q5_K,
+               GGMLType.Q6_K: quantize_q6_K, GGMLType.Q8_K: quantize_q8_K}
 _DEQUANTIZERS = {GGMLType.Q4_0: dequantize_q4_0,
+                 GGMLType.Q4_1: dequantize_q4_1,
+                 GGMLType.Q5_0: dequantize_q5_0,
+                 GGMLType.Q5_1: dequantize_q5_1,
                  GGMLType.Q8_0: dequantize_q8_0,
+                 GGMLType.Q8_1: dequantize_q8_1,
                  GGMLType.Q2_K: dequantize_q2_K,
                  GGMLType.Q3_K: dequantize_q3_K,
-                 GGMLType.Q4_K: dequantize_q4_K}
+                 GGMLType.Q4_K: dequantize_q4_K,
+                 GGMLType.Q5_K: dequantize_q5_K,
+                 GGMLType.Q6_K: dequantize_q6_K,
+                 GGMLType.Q8_K: dequantize_q8_K}
 
 
 def quantize(x: np.ndarray, t: GGMLType) -> np.ndarray:
     """Float array (rows along the last axis, a whole number of blocks) ->
-    flat uint8 buffer of encoded blocks. F32, Q4_0, Q8_0, Q2_K, Q3_K and
-    Q4_K."""
+    flat uint8 buffer of encoded blocks: F32, F16, BF16 (round to nearest
+    even) and every format of _QUANTIZERS."""
     if t == GGMLType.F32:
         return np.ascontiguousarray(x, dtype=f32).view(np.uint8).reshape(-1)
+    if t == GGMLType.F16:
+        return np.ascontiguousarray(x, dtype=f32).astype(np.float16) \
+            .view(np.uint8).reshape(-1)
+    if t == GGMLType.BF16:
+        u32 = np.ascontiguousarray(x, dtype=f32).view(np.uint32)
+        rounded = ((u32 + 0x7FFF + ((u32 >> 16) & 1)) >> 16).astype(np.uint16)
+        return rounded.view(np.uint8).reshape(-1)
     if t not in _QUANTIZERS:
         raise NotImplementedError(f"quantize to {t.name}")
     return _QUANTIZERS[t](x).reshape(-1)
@@ -525,6 +850,12 @@ def dequantize(raw: np.ndarray, t: GGMLType,
     """Flat uint8 buffer of blocks -> float32 array (flat or shaped)."""
     if t == GGMLType.F32:
         out = np.ascontiguousarray(raw).view(np.uint8).view(f32).copy()
+    elif t == GGMLType.F16:
+        out = np.ascontiguousarray(raw).view(np.uint8).view(np.float16) \
+            .astype(f32)
+    elif t == GGMLType.BF16:
+        u16 = np.ascontiguousarray(raw).view(np.uint8).view(np.uint16)
+        out = (u16.astype(np.uint32) << 16).view(f32).copy()
     elif t in _DEQUANTIZERS:
         out = _DEQUANTIZERS[t](raw)
     else:

@@ -92,28 +92,39 @@ def _nib4_from_u8(vals: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(packed.reshape(n, k // 2).T)
 
 
+# the block formats with a device layout (Q8_K, the K-quants' activation
+# format, has none, as in the JAX package)
+LAID_OUT = (GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1,
+             GGMLType.Q8_0, GGMLType.Q8_1, GGMLType.Q2_K, GGMLType.Q3_K,
+             GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K)
+
+
 def to_device_format(raw: np.ndarray, t: GGMLType, shape_ne: tuple[int, ...],
                      *, device=None) -> QTensor:
     """Decode a ggml-encoded 2-D weight into the device layout (counterpart
-    of quant/device.to_device_format for F32, Q4_0, Q8_0, Q2_K, Q3_K and
-    Q4_K; Q2_K and Q3_K as per-16 nib4, Q4_K as per-32 nib4 with a bias).
-    shape_ne is
-    the ggml shape, row length K first; the tensors land on `device` (the
-    card unless "cpu" is passed)."""
+    of quant/device.to_device_format for the float and non-codebook block
+    formats): F32, F16 and BF16 dense f32; Q4_0 nib4 with zero 8, Q4_1 nib4
+    with zero 0 and a per-32 bias m; Q2_K and Q3_K per-16 nib4, Q4_K per-32
+    nib4 with a bias -min; Q8_0, Q8_1 and Q5_0 (q - 16) int8, Q5_1 (raw
+    [0, 31], bias m) and Q5_K (raw [0, 31], bias -min) per-32 int8 and Q6_K
+    per-16 int8. shape_ne is the ggml shape, row length K first; the
+    tensors land on `device` (the card unless "cpu" is passed)."""
     dev = resolve_device(device)
     k, n = shape_ne[0], int(np.prod(shape_ne[1:]))
     put = lambda a: torch.from_numpy(a).to(dev)
-    if t == GGMLType.F32:
+    if t in (GGMLType.F32, GGMLType.F16, GGMLType.BF16):
         w = codecs.dequantize(raw, t, shape=(n, k)).T
         return QTensor("dense", put(np.ascontiguousarray(w)), None, None, k,
                        n, t)
-    if t not in (GGMLType.Q4_0, GGMLType.Q8_0, GGMLType.Q2_K, GGMLType.Q3_K,
-                 GGMLType.Q4_K):
+    if t not in LAID_OUT:
         raise NotImplementedError(f"no device layout for {t.name} yet")
     if k % FORMATS[t].block_size:
         raise ValueError(f"{t.name}: K={k} is not a whole number of blocks")
     b = codecs.blocks_view(raw, t).reshape(n, k // FORMATS[t].block_size)
     f32 = np.float32
+    per32 = lambda a: put(np.ascontiguousarray(a.T.astype(f32)))
+    int8 = lambda q: put(np.ascontiguousarray(q.reshape(n, k).astype(np.int8)
+                                              .T))
     if t == GGMLType.Q2_K:
         # per-16 scale d*sc and bias -dmin*m, rows (K/16, N); levels [0, 3]
         # with zero 0: the bias carries only the format's own minimum
@@ -144,14 +155,32 @@ def to_device_format(raw: np.ndarray, t: GGMLType, shape_ne: tuple[int, ...],
                        put(np.ascontiguousarray(scale.reshape(n, -1).T)),
                        put(np.ascontiguousarray(-mn.reshape(n, -1).T)), k, n,
                        t, zero=0)
-    d = np.ascontiguousarray(b["d"].T.astype(f32))            # (K/32, N)
-    if t == GGMLType.Q4_0:
+    if t == GGMLType.Q5_K:
+        # per-32 scale d*sc and bias -dmin*m; raw levels [0, 31]
+        d6, m6 = codecs._unpack_scale_min_k4(b["scales"])
+        scale = b["d"].astype(f32)[..., None] * d6.astype(f32)
+        mn = b["dmin"].astype(f32)[..., None] * m6.astype(f32)
+        return QTensor("int8", int8(codecs.q5k_levels(b)),
+                       per32(scale.reshape(n, -1)), per32(-mn.reshape(n, -1)),
+                       k, n, t)
+    if t == GGMLType.Q6_K:
+        # per-16 scale d*sc, no bias; levels [-32, 31]
+        scale = b["d"].astype(f32)[..., None] * b["scales"].astype(f32)
+        return QTensor("int8", int8(codecs.q6k_levels(b)),
+                       per32(scale.reshape(n, -1)), None, k, n, t)
+    d = per32(b["d"])                                 # (K/32, N)
+    bias = per32(b["m"]) if t in (GGMLType.Q4_1, GGMLType.Q5_1) else None
+    if t in (GGMLType.Q4_0, GGMLType.Q4_1):
         qs = b["qs"]                                  # (N, K/32, 16)
         vals = np.concatenate([qs & 0x0F, qs >> 4], axis=2).reshape(n, k)
-        return QTensor("nib4", put(_nib4_from_u8(vals)), put(d), None, k, n,
-                       t, zero=8)
-    qdev = np.ascontiguousarray(b["qs"].reshape(n, k).T)
-    return QTensor("int8", put(qdev), put(d), None, k, n, t)
+        return QTensor("nib4", put(_nib4_from_u8(vals)), d, bias, k, n, t,
+                       zero=8 if t == GGMLType.Q4_0 else 0)
+    if t in (GGMLType.Q5_0, GGMLType.Q5_1):
+        # Q5_0 q5 - 16 in [-16, 15]; Q5_1 raw [0, 31] with the bias m
+        q5 = codecs._unpack_q5(b["qs"].reshape(-1, 16), b["qh"].reshape(-1))
+        q5 = q5.astype(np.int16) - (16 if t == GGMLType.Q5_0 else 0)
+        return QTensor("int8", int8(q5), d, bias, k, n, t)
+    return QTensor("int8", int8(b["qs"]), d, None, k, n, t)   # Q8_0, Q8_1
 
 
 def quantize_for_device(w: np.ndarray, t: GGMLType, *, device=None) -> QTensor:

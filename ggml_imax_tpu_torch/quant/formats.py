@@ -1,6 +1,6 @@
 """Block-quantization format metadata (the port's own copy of
-ggml_imax_tpu/quant/formats.py, trimmed to what the GPT-J, GPT-2 and
-LLaMA slices need).
+ggml_imax_tpu/quant/formats.py, trimmed to the float and the
+non-codebook block formats).
 
 `GGMLType` keeps ggml's integer values so a type read from the JAX package
 or a GGUF file maps by value.
@@ -60,7 +60,10 @@ FORMATS: dict[GGMLType, FormatInfo] = {
     GGMLType.BF16: FormatInfo("bf16", 1, 2, False),
     GGMLType.Q4_0: FormatInfo("q4_0", QK, 2 + QK // 2, True),
     GGMLType.Q4_1: FormatInfo("q4_1", QK, 4 + QK // 2, True),
+    GGMLType.Q5_0: FormatInfo("q5_0", QK, 2 + 4 + QK // 2, True),
+    GGMLType.Q5_1: FormatInfo("q5_1", QK, 4 + 4 + QK // 2, True),
     GGMLType.Q8_0: FormatInfo("q8_0", QK, 2 + QK, True),
+    GGMLType.Q8_1: FormatInfo("q8_1", QK, 4 + QK, True),
     # scales, 2-bit quants, d, dmin
     GGMLType.Q2_K: FormatInfo("q2_K", QK_K, QK_K // 16 + QK_K // 4 + 4, True),
     # hmask, 2-bit quants, 12 bytes of 6-bit scales, d
@@ -68,4 +71,12 @@ FORMATS: dict[GGMLType, FormatInfo] = {
                               True),
     # d, dmin, 12 bytes of 6-bit scales and mins, 4-bit quants
     GGMLType.Q4_K: FormatInfo("q4_K", QK_K, 2 + 2 + 12 + QK_K // 2, True),
+    # d, dmin, 12 bytes of 6-bit scales and mins, high bits, 4-bit quants
+    GGMLType.Q5_K: FormatInfo("q5_K", QK_K,
+                              2 + 2 + 12 + QK_K // 8 + QK_K // 2, True),
+    # low nibbles, high 2-bit pairs, 16 int8 scales, d
+    GGMLType.Q6_K: FormatInfo("q6_K", QK_K,
+                              QK_K // 2 + QK_K // 4 + QK_K // 16 + 2, True),
+    # f32 d, int8 quants, 16 int16 sums of 16
+    GGMLType.Q8_K: FormatInfo("q8_K", QK_K, 4 + QK_K + QK_K // 16 * 2, True),
 }

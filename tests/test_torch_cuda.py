@@ -1867,3 +1867,139 @@ def test_small_llama_captured_span_replays_the_eager_span(gen, kv, fused):
     assert np.array_equal(ids_e, ids_r)
     assert all(a is None or torch.equal(a, b) for a, b in zip(ar_e, ar_r))
     assert eng.generate(prompt, 9, temp=0, chunk=4) == want
+
+
+# ---- the float and non-codebook block formats on the card: each format's
+# weights quantized on the host by the port's codecs, repacked, moved
+
+NEW_FORMATS = ["Q4_1", "Q5_0", "Q5_1", "Q8_1", "Q5_K", "Q6_K"]
+
+
+def host_weight(fmt, k, n, scale_dtype, seed=3):
+    from ggml_imax_tpu_torch.quant.device import quantize_for_device
+    w = (np.random.default_rng(seed).standard_normal((k, n)) * 0.05) \
+        .astype(np.float32)
+    qt = quantize_for_device(w, GGMLType[fmt], device="cpu")
+    return moved(qmm.params_repack({"w": qt}, scale_dtype=scale_dtype)["w"],
+                 "cuda")
+
+
+@pytest.mark.parametrize("m", [1, 5, 64])
+@pytest.mark.parametrize("scale_dtype", [None, torch.bfloat16])
+@pytest.mark.parametrize("fmt", NEW_FORMATS)
+def test_new_format_products_match_plain(gen, fmt, scale_dtype, m):
+    """Q4_1 takes natpair with a bias (W4A8 at m 1, W4A16 above), the rest
+    nat8 (W8A8 / W8A16; Q5_1 and Q5_K with a bias, Q6_K at g 16): one
+    launch a call, within rel 1e-4 of the plain version on the card."""
+    qt = host_weight(fmt, 512, 256, scale_dtype)
+    nat8_w = qt.q4_layout == 4
+    g = qt.k // qt.scale.shape[0]
+    assert (g, qt.bias is not None) == {
+        "Q4_1": (32, True), "Q5_0": (32, False), "Q5_1": (32, True),
+        "Q8_1": (32, False), "Q5_K": (32, True), "Q6_K": (16, False)}[fmt]
+    x = torch.randn(m, 512, generator=gen, device="cuda")
+    name = ("nat8_w8a8" if nat8_w else "w4a8_gemv") if m == 1 else \
+        ("nat8_w8a16" if nat8_w else "w4a16_gemm")
+    _build.reset_launches()
+    got = (qmm.qmatmul_nat8 if nat8_w else qmm.qmatmul_natpair)(x, qt)
+    assert {k: c for k, c in _build.LAUNCHES.items() if c} == {name: 1}
+    if m == 1:
+        x8, dx = qmm.quantize_activations_q8(x, g)
+        xs = None if qt.bias is None else dx[:, 0] * x8[:, 0].float().sum(-1)
+        plain = qmm.nat8_w8a8_gemv_plain if nat8_w else qmm.w4a8_gemv_plain
+        ref = plain(x8[:, 0], dx[:, 0], qt, xs)[None]
+    else:
+        ref = qmm.a16_gemm_plain(x, qt)
+    assert rel(got, ref) < 1e-4
+    _build.reset_launches()
+
+
+def use_more_bits(layer: int, n_layer: int) -> bool:
+    """llama.cpp's use_more_bits (llama_tensor_get_type, mid-2024)."""
+    return (layer < n_layer // 8 or layer >= 7 * n_layer // 8
+            or (layer - n_layer // 8) % 3 == 2)
+
+
+def q4_k_m_types(n_layer):
+    """types(name, layer) of llama.cpp's Q4_K_M mix, as chip_smoke.py
+    phase 9b draws it: `output` Q6_K, v_w and down_w Q6_K where
+    use_more_bits, every other weight Q4_K."""
+    def types(name, layer):
+        if name == "output" or (name in ("v_w", "down_w")
+                                and use_more_bits(layer, n_layer)):
+            return GGMLType.Q6_K
+        return GGMLType.Q4_K
+    return types
+
+
+def small_q4km_llama(dev):
+    """The small LLaMA of small_llama in the Q4_K_M mix (at 2 layers
+    use_more_bits picks layer 1: its v_w and down_w Q6_K, and the head),
+    host-quantized, prepared by fuse_gate_up alone, repacked with bf16
+    scales as phase 9b does, moved to `dev`."""
+    from ggml_imax_tpu_torch.models import llama
+    from ggml_imax_tpu_torch.quant.device import quantize_for_device
+    cfg = llama.LlamaConfig(**SMALL_LLAMA)
+    rng = np.random.default_rng(5)
+    types = q4_k_m_types(cfg.n_layer)
+    E, F, kv = cfg.n_embd, cfg.n_ff, cfg.n_head_kv * cfg.head_dim
+
+    def q(name, layer, k, n):
+        w = (rng.standard_normal((k, n)) * 0.08).astype(np.float32)
+        return quantize_for_device(w, types(name, layer), device="cpu")
+
+    def norm(n):
+        return torch.from_numpy((1 + 0.1 * rng.standard_normal(n))
+                                .astype(np.float32))
+
+    p = {"tok_embd": q("tok_embd", None, E, cfg.n_vocab), "out_norm": norm(E),
+         "output": q("output", None, E, cfg.n_vocab), "layers": []}
+    for li in range(cfg.n_layer):
+        p["layers"].append({
+            "attn_norm": norm(E), "q_w": q("q_w", li, E, E),
+            "k_w": q("k_w", li, E, kv), "v_w": q("v_w", li, E, kv),
+            "o_w": q("o_w", li, E, E), "ffn_norm": norm(E),
+            "gate_w": q("gate_w", li, E, F), "up_w": q("up_w", li, E, F),
+            "down_w": q("down_w", li, F, E)})
+    with pytest.raises(ValueError, match="fuse_gate_up alone"):
+        llama.prepare_fused(p)
+    p = llama.fuse_gate_up(p, pad_multiple=1024)
+    return cfg, moved(qmm.params_repack(p, scale_dtype=torch.bfloat16), dev)
+
+
+def test_small_q4km_llama_launch_counts(gen):
+    """Phase 9b's launch arithmetic at 2 layers, one mixed: a decode step
+    runs 6 L - 2 m Q4_K products on W4A8 and 2 m + 1 Q6_K ones (v_w,
+    down_w, the head) on nat8 W8A8 (L 2, m 1: 10 and 3; L 32, m 16: 160
+    and 33), a prefill the same on W4A16 and W8A16. Logits within 3.5% of
+    the largest |logit| of the CPU run (chip_smoke's ROUTE_TOL, as
+    test_small_llama_on_card_matches_cpu)."""
+    from ggml_imax_tpu_torch.models import llama
+    prompt = np.random.default_rng(1).integers(0, 512, 24)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        cfg, p = small_q4km_llama(dev)
+        cache = llama.init_cache(cfg, device=dev)
+        _build.reset_launches()
+        lg, cache = llama.forward(cfg, p, torch.as_tensor(prompt[None],
+                                                          device=dev),
+                                  torch.arange(24, device=dev)[None], cache, 0)
+        steps = [lg.cpu()]
+        for i, tok in enumerate((7, 300)):
+            lg, cache = llama.forward(cfg, p, torch.tensor([[tok]], device=dev),
+                                      torch.tensor([[24 + i]], device=dev),
+                                      cache, 24 + i)
+            steps.append(lg.cpu())
+        if dev == "cuda":
+            counts = {k: n for k, n in _build.LAUNCHES.items() if n}
+        outs[dev] = steps
+    L, m = 2, 1
+    assert counts == {"w4a16_gemm": 6 * L - 2 * m, "nat8_w8a16": 2 * m + 1,
+                      "flash_attention": L, "flash_backward_tiles": L,
+                      "w4a8_gemv": 2 * (6 * L - 2 * m),
+                      "nat8_w8a8": 2 * (2 * m + 1), "decode_attention": 2 * L}
+    limit = 3.5e-2 * max(float(b.abs().max()) for b in outs["cpu"])
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) < limit
+    _build.reset_launches()
