@@ -3,7 +3,8 @@
 (one stream, and continuous-batching serving), GPT-2 1558M (XL) Q8_0 and
 Q5_K, GPT-2 117M training steps, GPT-2 117M in Q3_K and Q2_K (with the
 row-pair and u-order int8 layouts) and in Q4_0, Q4_1, Q5_0, Q5_1, Q5_K and
-Q6_K, and LLaMA-2 7B in Q4_K and in the Q4_K_M mix.
+Q6_K and in the nine IQ formats, and LLaMA-2 7B in Q4_K, in the Q4_K_M
+mix and in the IQ4_XS mix (with its bf16 residency).
 
     python3 chip_smoke.py
 
@@ -148,6 +149,19 @@ Phases (any failure exits nonzero and prints no result line):
    a short greedy pass of each with the kernels held to every plain
    version on the card (KQ_ROUTE_TOL), and a planted fault (the nat8 W8A8
    GEMV without its bias term, on Q5_K) that must fail that check;
+8c. GPT-2 117M IQ formats: IQ4_NL and IQ4_XS quantized on the host by the
+   port's codecs (HOST_WORKERS processes), params_repack (nat8 g 32, f32
+   scales, no bias), one request each with exact launch counts, a short
+   greedy pass held to every plain version on the card (KQ_ROUTE_TOL) and
+   a planted fault (the W8A8 fed the scales shifted by a group) that must
+   fail it; IQ2_XXS, IQ2_XS, IQ2_S, IQ3_XXS, IQ3_S, IQ1_S and IQ1_M from
+   random blocks (codecs.random_blocks) laid out on the card by
+   to_device_format (nib2, nib4 with a lut, dense; wte too, so get_rows
+   expands them on the card), one request each (flash and its map the only
+   kernels: these layouts take dequantize + matmul), a teacher-forced pass
+   held to the same on the CPU (CODEBOOK_TOL), and a planted fault (a
+   lut's entries 0 and 1 swapped; IQ1: IQ1_DELTA's sign flipped) that must
+   fail it;
 9. LLaMA-2 7B Q4_K: synthetic weights drawn on the card (the reference
    benchmark's llama2-7b-q4_k: uniform nibbles, per-32 scales and mins),
    prepare_fused (q/k/v fused, gate/up fused with n_ff 11008 padded to
@@ -171,7 +185,21 @@ Phases (any failure exits nonzero and prints no result line):
    KV arena bit-equal; a teacher-forced pass held to every plain version
    on the card (Q4KM_ROUTE_TOL; the plain pass read beside itself with
    the A16 products summed in f64), and a planted fault (the Q6_K W8A8 fed
-   g 32 in place of g 16) that must fail that check.
+   g 32 in place of g 16) that must fail that check;
+9c. LLaMA-2 7B IQ4_XS: the structural draw in llama.cpp's IQ4_XS mix
+   (`output` Q6_K, every other 2-D weight IQ4_XS: int8 table values,
+   per-32 f32 scales), prepare_fused (q/k/v fused, gate/up with n_ff
+   padded to 11264), params_repack (nat8 g 32 f32, the head nat8 g 16),
+   Engine(n_ctx=512) serving phase 9's 3 requests with exact launch counts
+   (a decode step 129 nat8 W8A8 and 32 decode attention, a prefill 129
+   nat8 W8A16 and 32 flash with their maps, no W4A8 / W4A16), profiled;
+   then through generate(chunk=8), tokens and KV arena bit-equal; a
+   teacher-forced pass held to every plain version on the card
+   (IQ4XS_ROUTE_TOL) and a planted fault (the W8A8 fed the scales shifted
+   by a group) that must fail it; then Engine(residency="bf16") on the
+   same weights: one request (TTFT, tok/s, resident GiB), the teacher-
+   forced pass held to the plain-version pass (BF16_RESIDENCY_TOL), and
+   its weights freed once the engine is dropped.
 
     python3 chip_smoke.py --serving-kernels [ROOT]
     python3 chip_smoke.py --gpt2-kernels [ROOT]
@@ -182,10 +210,10 @@ unled, with its time at each K split the plan may take), on the port of
 the checkout at ROOT (default: this one): the same script times another
 commit's kernels.
 
-Each engine phase (5b, 8b and 9b too), and the timed training steps, sets
-the launch counters to 0 just before its run and reads them just after; a replayed graph adds
-the launches its capture recorded (_build.CapturedLaunches). Each phase
-prints its seconds. Every flash forward
+Each engine phase (5b, 8b, 8c, 9b and 9c too), and the timed training
+steps, sets the launch counters to 0 just before its run and reads them
+just after; a replayed graph adds the launches its capture recorded
+(_build.CapturedLaunches). Each phase prints its seconds. Every flash forward
 launches the tile map of its mask (flash_backward_tiles) before its kernel,
 so each phase counts one map for each flash call. The line before the
 last is the kernels JSON, the last line is {"ok": true, "device": {...}}.
@@ -1322,7 +1350,8 @@ def format_weight(fmt, K, N, gen, scale_dtype):
     [-32, 31], no bias (models/llama.synthetic_params_device); "Q5_K"
     per-32 raw levels [0, 31] with a bias -min (models/gpt2
     .synthetic_params_device); "Q4_1" per-32 nib4, zero 0, with a bias m
-    (natpair)."""
+    (natpair); "IQ4_XS" per-32 int8 values of KVALUES_IQ4NL, f32 scales, no
+    bias (models/llama.synthetic_params_device)."""
     from ggml_imax_tpu_torch.ops import qmm
     from ggml_imax_tpu_torch.quant.device import QTensor
     from ggml_imax_tpu_torch.quant.formats import GGMLType
@@ -1335,6 +1364,15 @@ def format_weight(fmt, K, N, gen, scale_dtype):
                      normal((K // 32, N)).abs_().mul_(-0.02), K, N,
                      GGMLType.Q4_1, zero=0)
         return qmm.repack_natpair(qt, tag, scale_dtype=scale_dtype)
+    if fmt == "IQ4_XS":
+        from ggml_imax_tpu_torch.quant.codecs import KVALUES_IQ4NL
+        idx = torch.randint(0, 16, (K * N,), dtype=torch.int32,
+                            generator=gen, device="cuda")
+        q = torch.from_numpy(KVALUES_IQ4NL).cuda().index_select(0, idx)
+        qt = QTensor("int8", q.reshape(K, N),
+                     normal((K // 32, N)).abs_().mul_(0.02 / 67.18), None, K,
+                     N, GGMLType.IQ4_XS)
+        return qmm.repack_nat8(qt, tag, scale_dtype=scale_dtype)
     lo, hi, g, div, bias = {"Q6_K": (-32, 32, 16, 18.5, False),
                             "Q5_K": (0, 32, 32, 18, True)}[fmt]
     q = torch.randint(lo, hi, (K, N), dtype=torch.int8, generator=gen,
@@ -1396,13 +1434,16 @@ def time_instance(ck, timer, gen, label, qt, ms):
 
 
 def check_format_kernels(ck, timer, gen):
-    """The kernel instances the formats of phases 5b, 8b and 9b put on a
-    path: nat8 W8A8 / W8A16 at g 16 with bf16 scales and no bias at
+    """The kernel instances the formats of phases 5b, 8b, 8c, 9b and 9c put
+    on a path: nat8 W8A8 / W8A16 at g 16 with bf16 scales and no bias at
     LLaMA-2 7B Q4_K_M's Q6_K products (v_w 4096 x 4096, down_w 11264 x
     4096, the head 4096 x 32000; M 1, 8 and 512); at g 32 with f32 scales
     and a bias at GPT-2 XL Q5_K's fc_w (1600 x 6400; M 1, 5, 8, 128 and
     512); W4A8 / W4A16 with f32 scales and a bias at GPT-2 117M Q4_1's
-    attn_w (768 x 2304; M 1, 8 and 512)."""
+    attn_w (768 x 2304; M 1, 8 and 512); nat8 at g 32 with f32 scales and
+    no bias at LLaMA-2 7B IQ4_XS's fused products (qkv_w 4096 x 12288, o_w
+    4096 x 4096, gu_w 4096 x 22528, down_w 11264 x 4096; M 1, 8 and
+    512)."""
     E, F, V = LLAMA2_7B["n_embd"], 11264, LLAMA2_7B["n_vocab"]
     for label, (K, N) in (("llama Q6_K v_w", (E, E)),
                           ("llama Q6_K down_w", (F, E)),
@@ -1417,6 +1458,12 @@ def check_format_kernels(ck, timer, gen):
     S = GPT2_117M["n_embd"]
     time_instance(ck, timer, gen, "gpt2-117m Q4_1 attn_w",
                   format_weight("Q4_1", S, 3 * S, gen, None), (1, 8, 512))
+    for label, (K, N) in (("qkv_w", (E, 3 * E)), ("o_w", (E, E)),
+                          ("gu_w", (E, 2 * F)), ("down_w", (F, E))):
+        qt = format_weight("IQ4_XS", K, N, gen, None)
+        time_instance(ck, timer, gen, f"llama IQ4_XS {label}", qt,
+                      (1, 8, 512))
+        del qt
 
 
 def legacy_repack(params, layout):
@@ -1541,8 +1588,9 @@ def moved(params, dev):
     if isinstance(params, QTensor):
         opt = lambda t: None if t is None else t.to(dev)
         return replace(params, q=params.q.to(dev), scale=opt(params.scale),
-                       bias=opt(params.bias))
-    return params.to(dev)
+                       bias=opt(params.bias), lut=opt(params.lut),
+                       signs=opt(params.signs))
+    return None if params is None else params.to(dev)
 
 
 def small_llama(dev):
@@ -1914,14 +1962,16 @@ def run_requests(eng, prompts, failures, chunk=1, label="request"):
     return reqs, outs, counts, arenas
 
 
-def serve(model, cfg, params, n_ctx, failures, n_requests=N_REQUESTS):
-    """The engine phase: a warm-up, then n_requests requests of a PROMPT-token
-    prompt + N_PREDICT greedy tokens, one token a step (run_requests).
-    Returns (engine, rng, per-request numbers, launch counts, (the warm-up
-    prompt, the prompts, their tokens, the KV arena after each))."""
+def serve(model, cfg, params, n_ctx, failures, n_requests=N_REQUESTS,
+          residency="as-is"):
+    """The engine phase: Engine(residency=residency), a warm-up, then
+    n_requests requests of a PROMPT-token prompt + N_PREDICT greedy tokens,
+    one token a step (run_requests). Returns (engine, rng, per-request
+    numbers, launch counts, (the warm-up prompt, the prompts, their tokens,
+    the KV arena after each))."""
     from ggml_imax_tpu_torch.runtime.engine import Engine
 
-    eng = Engine(model, cfg, params, n_ctx=n_ctx)
+    eng = Engine(model, cfg, params, n_ctx=n_ctx, residency=residency)
     rng = np.random.default_rng(0)
     warm = rng.integers(0, cfg.n_vocab, PROMPT)
     last = eng.prefill(eng.new_cache(), warm[None])[0]   # drops its cache
@@ -2219,12 +2269,12 @@ def short_serving(cfg, params, fused, patches=()):
 
 
 def engine_greedy(cfg, params, fused, patches=(), n=8, model=None,
-                  n_prompt=8, n_ctx=512, feed=None):
-    """Engine(n_ctx) of `model` (GPT-J by default): an n_prompt-token prompt
-    and n greedy tokens (n - 1 decode steps); feed: the tokens to feed the
-    decode steps instead of its own picks (a teacher-forced pass). Returns
-    (tokens picked, logits per forward, launch counts of the decode steps
-    and the prefill)."""
+                  n_prompt=8, n_ctx=512, feed=None, device=None):
+    """Engine(n_ctx) of `model` (GPT-J by default) on `device` (the card by
+    default): an n_prompt-token prompt and n greedy tokens (n - 1 decode
+    steps); feed: the tokens to feed the decode steps instead of its own
+    picks (a teacher-forced pass). Returns (tokens picked, logits per
+    forward, launch counts of the decode steps and the prefill)."""
     from ggml_imax_tpu_torch import _build
     from ggml_imax_tpu_torch.models import gptj
     from ggml_imax_tpu_torch.runtime.engine import Engine
@@ -2232,7 +2282,7 @@ def engine_greedy(cfg, params, fused, patches=(), n=8, model=None,
                                                     n_prompt))
     with patched(patches):
         eng = Engine(model or gptj, cfg, params, n_ctx=n_ctx,
-                     fused_kv_update=fused)
+                     fused_kv_update=fused, device=device)
         _build.reset_launches()
         lg, cache = eng.prefill(eng.new_cache(), np.asarray([prompt]))
         toks, logs = [int(lg[0].argmax())], [torch.from_numpy(lg)]
@@ -3151,6 +3201,347 @@ def llama_q4km(failures):
     return summary, {"llama_q4km": counts, "llama_q4km_chunked": ccounts}
 
 
+# phase 8c: GPT-2 117M in the IQ formats. IQ4_NL and IQ4_XS are quantized on
+# the host by the port's codecs (host_params) and run nat8 g 32 with f32
+# scales and no bias; the decode-only kinds are drawn as random blocks
+# (codecs.random_blocks) with the super-scale d below, which gives weights
+# of std ~0.02, and run no kernel (IQ2 nib2 and IQ3 nib4 with a lut take
+# dequantize + matmul, IQ1 is dense at load)
+IQ4_117M = ("IQ4_NL", "IQ4_XS")
+CODEBOOK_117M = {"IQ2_XXS": 3.4e-4, "IQ2_XS": 3.5e-4, "IQ2_S": 3.6e-4,
+                 "IQ3_XXS": 1.6e-4, "IQ3_S": 1.35e-4, "IQ1_S": 2.7e-3,
+                 "IQ1_M": 2.7e-3}
+# Phase 8c's check of a decode-only kind: a teacher-forced pass on the card
+# (a 32-token prompt + 4 steps; flash and the plain dequantize + matmul)
+# against the same pass on the CPU, as check_forced holds it. The two sum
+# the products in another order and round P to bf16 in another order.
+# Readings of this script on an H100 (PERF.md): sound 0.37-0.51% of the
+# largest |logit| (IQ3_XXS the most), the planted faults (a lut's entries
+# swapped; IQ1's delta sign flipped) 33% and more. 1% is 2x the one, 1/33
+# of the other.
+CODEBOOK_TOL = 1e-2
+# Phase 9c's route check (LLaMA-2 7B IQ4_XS), as phase 9b's: a teacher-
+# forced pass with the kernels against the same pass with every plain
+# version on the card. Readings of this script on an H100 (PERF.md): sound
+# 6.0e-4 of the largest |logit| (6.97; the prefill 3.5e-4, the decode
+# steps, which read the prefill's KV rows, up to 6.0e-4), the planted fault
+# (the W8A8 fed the scales shifted by a group) 1.66e-2. 1.2e-3 is 2x the
+# one, 1/14 of the other.
+IQ4XS_ROUTE_TOL = 1.2e-3
+# Phase 9c's bf16 residency: the same teacher-forced pass with every
+# weight dequantized to dense bf16 (Engine(residency="bf16")) against the
+# plain-version pass of the quantized model. The two differ by the W8A8
+# route's q8_0 activations and the products' bf16 rounding. Readings of
+# this script on an H100 (PERF.md): 3.5e-3 of the largest |logit| (the
+# decode steps; the prefill, bf16 activations on both sides, 3.7e-4).
+# 7e-3 is 2x that.
+BF16_RESIDENCY_TOL = 7e-3
+
+
+def iq4_scales_shifted():
+    """Phases 8c's and 9c's route-check control: the nat8 W8A8 GEMV fed an
+    IQ4 weight's scales shifted by one group (group r takes group r - 1's,
+    the first the last's), a fault that still gives plausible numbers."""
+    from dataclasses import replace
+
+    from ggml_imax_tpu_torch.ops import qmm
+    from ggml_imax_tpu_torch.quant.formats import GGMLType
+    real = qmm.nat8_w8a8_gemv
+
+    def fault(x8, dx, qt, xs=None):
+        if qt.ggml_type not in (GGMLType.IQ4_NL, GGMLType.IQ4_XS):
+            return real(x8, dx, qt, xs)
+        return real(x8, dx, replace(qt, scale=torch.roll(qt.scale, 1, 0)),
+                    xs)
+    return [(qmm, "nat8_w8a8_gemv", fault)]
+
+
+def codebook_params(cfg, fmt, d, seed=0):
+    """gpt2's params tree on the card in a decode-only kind: each 2-D weight
+    random blocks (codecs.random_blocks, super-scale d) laid out by
+    to_device_format, the vectors drawn as host_params draws them."""
+    from ggml_imax_tpu_torch.models import gpt2
+    from ggml_imax_tpu_torch.quant import codecs
+    from ggml_imax_tpu_torch.quant.device import to_device_format
+    from ggml_imax_tpu_torch.quant.formats import GGMLType
+    rng = np.random.default_rng(seed)
+    t = GGMLType[fmt]
+
+    def q(shape_kn):
+        k, n = shape_kn
+        raw = codecs.random_blocks(t, n * k // 256, rng, d)
+        return to_device_format(raw, t, (k, n), device="cuda")
+
+    def vec(n):
+        return torch.from_numpy((rng.standard_normal(n) * 0.02)
+                                .astype(np.float32)).to(device="cuda")
+    return gpt2._param_tree(cfg, q, vec)
+
+
+def lut_swapped(params):
+    """Phase 8c's control for a codebook layout: every lut with its entries
+    0 and 1 swapped (a wrong magnitude for every code 0 or 1)."""
+    from dataclasses import replace
+
+    from ggml_imax_tpu_torch.quant.device import QTensor
+    if isinstance(params, dict):
+        return {k: lut_swapped(v) for k, v in params.items()}
+    if isinstance(params, list):
+        return [lut_swapped(v) for v in params]
+    if isinstance(params, QTensor) and params.lut is not None:
+        order = [1, 0] + list(range(2, params.lut.numel()))
+        return replace(params, lut=params.lut[order].contiguous())
+    return params
+
+
+def qt_bytes(params):
+    """Bytes of every QTensor tensor in a params tree."""
+    from ggml_imax_tpu_torch.quant.device import QTensor
+    if isinstance(params, dict):
+        return sum(qt_bytes(v) for v in params.values())
+    if isinstance(params, list):
+        return sum(qt_bytes(v) for v in params)
+    if isinstance(params, QTensor):
+        return sum(t.numel() * t.element_size() for t in
+                   (params.q, params.scale, params.bias, params.lut,
+                    params.signs) if t is not None)
+    return 0
+
+
+def codebooks_gpt2(failures, pool):
+    """Phase 8c. GPT-2 117M at full width and depth in the nine IQ kinds.
+    IQ4_NL and IQ4_XS: weights drawn on the host and quantized by the
+    port's codecs in HOST_WORKERS processes (host_params), params_repack
+    (nat8 g 32, f32 scales, no bias), Engine(n_ctx=1024) serving one
+    request of phase 4's shape with exact launch counts (48 W8A8 a decode
+    step, 48 W8A16 a prefill; the tied head gated), a short greedy pass
+    held to every plain version on the card (KQ_ROUTE_TOL), and the W8A8
+    fed the IQ4 scales shifted by a group, which must fail it. The
+    decode-only kinds: random blocks laid out on the card (IQ2 nib2, IQ3
+    nib4 with a lut, wte too, so get_rows expands them on the card; IQ1
+    dense), one request with exact launch counts (flash and its map only),
+    a teacher-forced pass on the card held to the same on the CPU
+    (CODEBOOK_TOL), and the same with a lut's entries 0 and 1 swapped
+    (IQ1: decoded with IQ1_DELTA's sign flipped), which must fail it.
+    Returns (summary, launch counts by run)."""
+    from ggml_imax_tpu_torch.models import gpt2
+    from ggml_imax_tpu_torch.ops.qmm import params_repack
+    from ggml_imax_tpu_torch.quant import codecs
+    from ggml_imax_tpu_torch.quant.formats import GGMLType
+    cfg = gpt2.GPT2Config(**GPT2_117M)
+    L = cfg.n_layer
+    summary, launches = {}, {}
+    for fmt in IQ4_117M:
+        log(f"  -- {fmt}")
+        raw, quant_s, same = host_params(cfg, GGMLType[fmt], pool)
+        if not same:
+            failures.append(f"{fmt}: host_params' proj_w differs from "
+                            "quantize_for_device's")
+        params = params_repack(raw)
+        del raw
+        torch.cuda.synchronize()
+        fc = params["layers"][0]["fc_w"]
+        log(f"  weights drawn and quantized on the host in {quant_s:.1f} s "
+            f"({HOST_WORKERS} processes; proj_w equal to quantize_for_device"
+            f"'s {same}), repacked ({fc.kind} q4_layout {fc.q4_layout}, g"
+            f"{fc.k // fc.scale.shape[0]}, bias {fc.bias is not None}), "
+            f"{qt_bytes(params) / 2**30:.3f} GiB of weights, "
+            f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
+        eng, rng, reqs, counts, _ = serve(gpt2, cfg, params, cfg.n_ctx,
+                                          failures, n_requests=1)
+        check_counts(counts, {"nat8_w8a8": (N_PREDICT - 1) * 4 * L,
+                              "nat8_w8a16": 4 * L, "flash_attention": L,
+                              "flash_backward_tiles": L}, failures)
+        launches[f"gpt2_117m_{fmt.lower()}"] = counts
+        summary[fmt] = {"host_quantize_s": quant_s,
+                        "ttft_ms": reqs[0]["ttft_ms"],
+                        "decode_tok_s": reqs[0]["decode_tok_s"]}
+        del eng
+        greedy = lambda patches=(), feed=None: engine_greedy(
+            cfg, params, False, patches, model=gpt2, n_prompt=PROMPT,
+            n_ctx=cfg.n_ctx, feed=feed)
+        ref = greedy()
+        check_forced(f"GPT-2 117M {fmt}, kernels vs plain versions on the "
+                     "card", ref, greedy(plain_on_card(), ref[0]), failures,
+                     KQ_ROUTE_TOL)
+        check_forced(f"control: GPT-2 117M {fmt}, nat8 W8A8 fed the scales "
+                     "shifted by a group", ref,
+                     greedy(iq4_scales_shifted(), ref[0]), failures,
+                     KQ_ROUTE_TOL, control=True)
+        del params
+        torch.cuda.empty_cache()
+    for fmt, d in CODEBOOK_117M.items():
+        log(f"  -- {fmt}")
+        t0 = time.time()
+        params = codebook_params(cfg, fmt, d)
+        torch.cuda.synchronize()
+        layout_s = time.time() - t0
+        wte = params["wte"]
+        log(f"  random blocks laid out on the card in {layout_s:.1f} s "
+            f"(wte {wte.kind}, lut {wte.lut is not None}, signs "
+            f"{wte.signs is not None}), {qt_bytes(params) / 2**30:.3f} GiB "
+            f"of weights, {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+            "allocated")
+        eng, rng, reqs, counts, _ = serve(gpt2, cfg, params, cfg.n_ctx,
+                                          failures, n_requests=1)
+        check_counts(counts, {"flash_attention": L,
+                              "flash_backward_tiles": L}, failures)
+        launches[f"gpt2_117m_{fmt.lower()}"] = counts
+        summary[fmt] = {"layout_s": layout_s, "ttft_ms": reqs[0]["ttft_ms"],
+                        "decode_tok_s": reqs[0]["decode_tok_s"],
+                        "weight_gib": qt_bytes(params) / 2**30}
+        del eng
+        greedy = lambda p, dev=None, feed=None: engine_greedy(
+            cfg, p, False, (), n=5, model=gpt2, n_prompt=32,
+            n_ctx=cfg.n_ctx, feed=feed, device=dev)
+        t0 = time.time()
+        ref = greedy(moved(params, "cpu"), "cpu")
+        summary[fmt]["cpu_pass_s"] = time.time() - t0
+        check_forced(f"GPT-2 117M {fmt}, the card vs the CPU", ref,
+                     greedy(params, feed=ref[0]), failures, CODEBOOK_TOL)
+        if wte.lut is not None:
+            what, bad = "a lut's entries 0 and 1 swapped", lut_swapped(params)
+        else:
+            what = "decoded with IQ1_DELTA's sign flipped"
+            with patched([(codecs, "IQ1_DELTA", -codecs.IQ1_DELTA)]):
+                bad = codebook_params(cfg, fmt, d)
+        check_forced(f"control: GPT-2 117M {fmt}, {what}", ref,
+                     greedy(bad, feed=ref[0]), failures, CODEBOOK_TOL,
+                     control=True)
+        del params, bad
+        torch.cuda.empty_cache()
+    return summary, launches
+
+
+def iq4_xs_mix(name, layer):
+    """llama.cpp's LLAMA_FTYPE_MOSTLY_IQ4_XS mix without an importance
+    matrix (llama_tensor_get_type) as models/llama.synthetic_params_device's
+    `types`: `output` Q6_K, every other 2-D weight, token_embd included,
+    IQ4_XS. attn_v stays IQ4_XS (the rule that raises it to Q5_K needs
+    n_gqa() >= 4), and no tensor falls back to IQ4_NL (every row length,
+    4096 and 11008, is a multiple of 256)."""
+    from ggml_imax_tpu_torch.quant.formats import GGMLType
+    return GGMLType.Q6_K if name == "output" else GGMLType.IQ4_XS
+
+
+def llama_iq4xs(failures):
+    """Phase 9c. LLaMA-2 7B in llama.cpp's IQ4_XS mix at full width and
+    depth: the structural draw on the card (iq4_xs_mix), prepare_fused
+    (q/k/v of one type fuse; gate/up fused with F 11008 -> 11264),
+    params_repack (IQ4_XS nat8 g 32, f32 scales, no bias; the Q6_K head
+    nat8 g 16), Engine(n_ctx=512) serving the 3 requests of phase 4 with
+    exact launch counts (a decode step 129 nat8 W8A8 and 32 decode
+    attention; a prefill 129 nat8 W8A16 and 32 flash with their maps; no
+    W4A8 or W4A16), profiled; the same requests through generate(chunk=8),
+    tokens and KV arena bit-equal request by request; a teacher-forced pass
+    (64-token prompt + 8 steps) with the kernels held to the same with
+    every plain version on the card (IQ4XS_ROUTE_TOL), and the W8A8 fed the
+    IQ4 scales shifted by a group, which must fail that check. Then
+    Engine(residency="bf16") on the same weights: one request (TTFT, tok/s,
+    resident GiB; flash and decode attention only), the teacher-forced pass
+    held to the plain-version pass (BF16_RESIDENCY_TOL), and the dense
+    weights freed once the engine is dropped. Returns (summary, launch
+    counts by run)."""
+    from ggml_imax_tpu_torch.models import llama
+    from ggml_imax_tpu_torch.ops.qmm import params_repack
+    from ggml_imax_tpu_torch.quant.device import QTensor
+    cfg = llama.LlamaConfig(**LLAMA2_7B)
+    L = cfg.n_layer
+    t0 = time.time()
+    params = params_repack(llama.prepare_fused(
+        llama.synthetic_params_device(cfg, seed=0, types=iq4_xs_mix)))
+    torch.cuda.synchronize()
+    ws = [params["output"]] + [w for lp in params["layers"]
+                               for w in lp.values() if isinstance(w, QTensor)]
+    read = qt_bytes(ws)
+    kinds = {(w.ggml_type.name, w.q4_layout, w.k // w.scale.shape[0],
+              str(w.scale.dtype)[6:], w.bias is not None) for w in ws}
+    log(f"  weights drawn + prepared in {time.time() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated, weights "
+        f"{qt_bytes(params) / 2**30:.3f} GiB with tok_embd; a decode step's "
+        f"{len(ws)} products {sorted(kinds)} (type, layout, g, scale, bias) "
+        f"reading {read / 1e9:.3f} GB (bound {read / HBM_BYTES_S * 1e3:.3f} "
+        f"ms); gu_w {params['layers'][0]['gu_w'].n} columns, down_w K "
+        f"{params['layers'][0]['down_w'].k}")
+    if len(ws) != 4 * L + 1 or any(w.q4_layout != 4 for w in ws):
+        failures.append(f"IQ4_XS products: {len(ws)}, layouts "
+                        f"{sorted(kinds)}; expected {4 * L + 1} nat8")
+        return None, None
+    eng, rng, reqs, counts, runs = serve(llama, cfg, params, cfg.n_ctx,
+                                         failures)
+    n_dec, n_pre = N_REQUESTS * (N_PREDICT - 1), N_REQUESTS
+    expect = {"nat8_w8a8": n_dec * (4 * L + 1), "decode_attention": n_dec * L,
+              "nat8_w8a16": n_pre * (4 * L + 1), "flash_attention": n_pre * L,
+              "flash_backward_tiles": n_pre * L}
+    check_counts(counts, expect, failures)
+    if failures:
+        return None, None
+    busy_ms, walls = profile_engine(eng, rng, reqs)
+    creqs, ccounts, summary = serve_chunked(eng, runs, failures)
+    check_counts(ccounts, expect, failures)
+    med = lambda rs: float(np.median([r["decode_tok_s"] for r in rs]))
+    span_ms, span_busy, how = profile_span(eng, busy_ms.get("decode step"))
+    log(f"  chunk {CHUNK}: {med(creqs):.2f} tok/s = {1e3 / med(creqs):.3f} ms "
+        f"a token (median), {med(creqs) / med(reqs):.2f}x chunk 1's "
+        f"{med(reqs):.2f} tok/s")
+    summary.update(requests=creqs, tok_s=med(creqs), chunk1_requests=reqs,
+                   chunk1_tok_s=med(reqs), busy_ms=busy_ms, wall_ms=walls,
+                   span_ms=span_ms, span_busy_ms=span_busy,
+                   span_busy_method=how, weight_gib=qt_bytes(params) / 2**30,
+                   step_read_gb=read / 1e9,
+                   max_memory_allocated_gib=torch.cuda.max_memory_allocated()
+                   / 2**30)
+    del eng, runs
+    greedy = lambda p, patches=(), feed=None: engine_greedy(
+        cfg, p, False, patches, n=9, model=llama, n_prompt=64,
+        n_ctx=cfg.n_ctx, feed=feed)
+    ref = greedy(params)
+    plain = greedy(params, plain_on_card(), ref[0])
+    check_forced("LLaMA-2 7B IQ4_XS, kernels vs plain versions on the card",
+                 ref, plain, failures, IQ4XS_ROUTE_TOL)
+    check_forced("control: LLaMA-2 7B IQ4_XS, nat8 W8A8 fed the scales "
+                 "shifted by a group", ref,
+                 greedy(params, iq4_scales_shifted(), ref[0]), failures,
+                 IQ4XS_ROUTE_TOL, control=True)
+    # the dense bf16 yardstick: the same weights, dequantized at load
+    log("  -- Engine(residency=\"bf16\")")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    eng, _, breqs, bcounts, bruns = serve(llama, cfg, params, cfg.n_ctx,
+                                          failures, n_requests=1,
+                                          residency="bf16")
+    del bruns
+    dense = eng.params
+    dense_b = qt_bytes(dense)
+    held = torch.cuda.memory_allocated() - base
+    log(f"  bf16 residency: {dense_b / 2**30:.3f} GiB of dense weights "
+        f"({dense_b / qt_bytes(params):.2f}x the quantized), "
+        f"{held / 2**30:.3f} GiB more allocated than before the engine")
+    check_counts(bcounts, {"decode_attention": (N_PREDICT - 1) * L,
+                           "flash_attention": L, "flash_backward_tiles": L},
+                 failures)
+    del eng
+    bf = greedy(dense, feed=ref[0])
+    check_forced("LLaMA-2 7B IQ4_XS, bf16 residency vs the plain versions "
+                 "(quantized)", plain, bf, failures, BF16_RESIDENCY_TOL)
+    del dense, bf
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated() - base
+    log(f"  the bf16 engine dropped: {(held - left) / 2**30:.3f} GiB of its "
+        f"{held / 2**30:.3f} GiB freed at once")
+    if left > 0.05 * dense_b:
+        failures.append(f"bf16 residency: {left / 2**30:.3f} GiB still "
+                        "allocated after the engine was dropped")
+    summary["bf16_residency"] = {
+        "ttft_ms": breqs[0]["ttft_ms"], "decode_tok_s": breqs[0]["decode_tok_s"],
+        "weight_gib": dense_b / 2**30}
+    del params
+    torch.cuda.empty_cache()
+    return summary, {"llama_iq4_xs": counts, "llama_iq4_xs_chunked": ccounts,
+                     "llama_iq4_xs_bf16": bcounts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3358,12 +3749,24 @@ def main() -> int:
             "engine (synthetic weights quantized on the host)")
         t0 = time.time()
         engines["gpt2_117m_formats"], by_run = formats_gpt2(failures, pool)
+        launches.update(by_run)
+        if failures:
+            raise SystemExit("chip_smoke FAILED:\n  "
+                             + "\n  ".join(failures))
+        log(f"# phase 8b: {time.time() - t0:.1f} s")
+
+        # ---- 8c. GPT-2 117M in the IQ formats
+        log("# phase 8c: GPT-2 117M IQ4_NL / IQ4_XS (quantized on the host) "
+            "and IQ2_XXS / IQ2_XS / IQ2_S / IQ3_XXS / IQ3_S / IQ1_S / IQ1_M "
+            "(random blocks) engine")
+        t0 = time.time()
+        engines["gpt2_117m_iq"], by_run = codebooks_gpt2(failures, pool)
     finally:
         pool.shutdown()
     launches.update(by_run)
     if failures:
         raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
-    log(f"# phase 8b: {time.time() - t0:.1f} s")
+    log(f"# phase 8c: {time.time() - t0:.1f} s")
 
     # ---- 9. LLaMA-2 7B Q4_K
     log("# phase 9: LLaMA-2 7B Q4_K engine (synthetic weights on device, "
@@ -3384,7 +3787,18 @@ def main() -> int:
         raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
     launches.update(by_run)
     log(f"# phase 9b: {time.time() - t0:.1f} s")
-    log(f"# phases 1-9b: {time.time() - t_start:.1f} s")
+
+    # ---- 9c. LLaMA-2 7B IQ4_XS, and its bf16 residency
+    log("# phase 9c: LLaMA-2 7B IQ4_XS engine (synthetic weights on device, "
+        "Q6_K output, nat8 f32 scales) and Engine(residency=\"bf16\")")
+    t0 = time.time()
+    engines["llama_iq4_xs"], by_run = llama_iq4xs(failures)
+    if failures:
+        raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
+    launches.update(by_run)
+    log(f"# phase 9c: {time.time() - t0:.1f} s")
+    log("# phases run: 1, 2, 3, 4, 5, 5b, 6, 7, 8, 8b, 8c, 9, 9b, 9c")
+    log(f"# phases 1-9c: {time.time() - t_start:.1f} s")
 
     kernels = []
     for k in KERNELS:

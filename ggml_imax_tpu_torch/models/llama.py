@@ -34,9 +34,14 @@ from ..ops.qmatmul import qmatmul
 from ..ops.rope import ROPE_MODE_NORMAL, rope
 from ..quant.device import (QTensor, concat_qtensors, pad_qtensor_cols,
                             pad_qtensor_rows)
+from ..quant.codecs import KVALUES_IQ4NL
 from ..quant.formats import GGMLType
 from .common import (KVCache, attention_mask, init_kv_cache, read_kv,
                      update_kv, update_kv_cells)
+
+
+# the standard deviation of KVALUES_IQ4NL's 16 values (population)
+IQ4NL_STD = 67.18
 
 
 @dataclass(frozen=True)
@@ -71,12 +76,17 @@ def synthetic_params_device(cfg: LlamaConfig, wtype: GGMLType = GGMLType.Q4_K,
     - Q4_K: nib4 with uniform bytes, per-32 scale |N| s / 9 and bias
       -|N| s / 3 (the format's min), zero 0;
     - Q6_K: int8 levels uniform in [-32, 31], per-16 scale |N| s / 18.5
-      (the levels' standard deviation), no bias.
+      (the levels' standard deviation), no bias;
+    - IQ4_XS: int8 levels drawn uniformly from the 16 values of
+      KVALUES_IQ4NL (the layout quant.device gives IQ4_XS), per-32 f32
+      scale |N| s / 67.18 (67.18: those 16 values' standard deviation), no
+      bias.
 
     Norm weights are N s + 1. Other numbers than the reference's stream,
     the same distribution."""
     types = types or (lambda name, layer: wtype)
     dev = resolve_device(device)
+    iq4 = torch.from_numpy(KVALUES_IQ4NL).to(dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     normal = lambda shape: torch.randn(shape, generator=gen, device=dev)
@@ -87,6 +97,13 @@ def synthetic_params_device(cfg: LlamaConfig, wtype: GGMLType = GGMLType.Q4_K,
             qs = torch.randint(-32, 32, (k, n), dtype=torch.int8,
                                generator=gen, device=dev)
             sc = normal((k // 16, n)).abs_().mul_(scale / 18.5)
+            return QTensor("int8", qs, sc, None, k, n, t)
+        if t == GGMLType.IQ4_XS:
+            idx = torch.randint(0, 16, (k * n,), dtype=torch.int32,
+                                generator=gen, device=dev)
+            qs = iq4.index_select(0, idx).reshape(k, n)
+            del idx
+            sc = normal((k // 32, n)).abs_().mul_(scale / IQ4NL_STD)
             return QTensor("int8", qs, sc, None, k, n, t)
         if t != GGMLType.Q4_K:
             raise NotImplementedError(f"synthetic weights in {t.name}")

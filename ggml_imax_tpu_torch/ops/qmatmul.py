@@ -5,7 +5,11 @@ ggml_imax_tpu/ops/qmatmul.py).
 row-pair and u-order int8 layouts) whose N is a multiple of 128 to the
 hand-written kernels (ops/qmm.py) — the reference's fused-path gate — and
 everything else through a plain dequantize + matmul, the role XLA played
-in the JAX package.
+in the JAX package. The codebook layouts of the IQ2 and IQ3 formats (nib2,
+nib4 with a lut) always take the plain route, as they take XLA's in the
+JAX package: no Pallas kernel computes them. Where XLA fuses their
+expansion into the dot, reading the weight at its packed width, this route
+writes a (K, N) copy of the weight in the compute dtype at every product.
 
 The kernel routes are differentiable in x (the counterpart of the
 reference's `_qmm_fused` VJP): dx = bf16(dy) @ dequantize(W, bf16)^T with
@@ -16,17 +20,19 @@ from __future__ import annotations
 
 import torch
 
-from ..quant.device import QTensor
+from ..quant.device import QTensor, codebook_q
 from .qmm import natural_q, qmatmul_nat8, qmatmul_natpair, qmatmul_permuted
 
 
 def dequantize(qt: QTensor, dtype=torch.bfloat16) -> torch.Tensor:
     """Expand a QTensor to a dense (K, N) tensor in `dtype` (counterpart of
-    dequantize_xla: every nib4 and int8 layout, and dense)."""
+    dequantize_xla: every nib4 and int8 layout, the codebook layouts, and
+    dense)."""
     if qt.kind == "dense":
         return qt.q.to(dtype)
     n_groups = qt.scale.shape[0]
-    w = natural_q(qt).reshape(n_groups, qt.k // n_groups, qt.n).to(dtype) \
+    q = codebook_q(qt) if qt.lut is not None else natural_q(qt)
+    w = q.reshape(n_groups, qt.k // n_groups, qt.n).to(dtype) \
         * qt.scale.to(dtype)[:, None, :]
     if qt.bias is not None:
         w = w + qt.bias.to(dtype)[:, None, :]

@@ -632,10 +632,14 @@ def natural_q(qt: QTensor, q: torch.Tensor | None = None) -> torch.Tensor:
     """The integer values of a nib4 or int8 QTensor in natural row order,
     (K, C) int8 (nib4: nib - zero; natpair and row-pair: q - 8). q: the
     stored bytes of some of qt's columns (default all): every layout
-    permutes rows within K tiles, never columns."""
+    permutes rows within K tiles, never columns. A codebook layout (nib2,
+    nib4 with a lut) has no integer levels: it raises, and
+    ops.qmatmul.dequantize (quant.device.codebook_q) expands it."""
     q = qt.q if q is None else q
     if qt.lut is not None or qt.kind not in ("nib4", "int8"):
-        raise NotImplementedError(f"{qt.kind} with lut")
+        raise NotImplementedError(
+            f"natural_q: {qt.ggml_type.name} ({qt.kind} with a codebook) has "
+            "no integer levels; ops.qmatmul.dequantize expands it")
     if qt.kind == "int8":
         if qt.q4_layout == 2:
             return unorder_int8_rows(q, qt)

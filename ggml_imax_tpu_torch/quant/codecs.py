@@ -1,7 +1,9 @@
 """Bit-exact numpy codecs for the ggml block formats the port loads (its own
 copy of ggml_imax_tpu/quant/codecs.py's numpy twins: Q4_0, Q4_1, Q5_0,
-Q5_1, Q8_0, Q8_1, Q2_K, Q3_K, Q4_K, Q5_K, Q6_K and Q8_K, and the F16 and
-BF16 float formats).
+Q5_1, Q8_0, Q8_1, Q2_K, Q3_K, Q4_K, Q5_K, Q6_K and Q8_K, the F16 and
+BF16 float formats, IQ4_NL and IQ4_XS, and the decoders of the codebook
+formats IQ2_XXS, IQ2_XS, IQ2_S, IQ3_XXS, IQ3_S, IQ1_S and IQ1_M, whose
+grids are the port's own copy of iq_grids.npz).
 
 The encoded bytes match ggml-common.h's block layouts, so blocks round-trip
 bit for bit with GGUF files. Rounding, as in ggml's scalar C code:
@@ -9,6 +11,8 @@ bit for bit with GGUF files. Rounding, as in ggml's scalar C code:
 - Q4_0, Q4_1, Q5_0, Q5_1: ``(int8_t)(x * id + 8.5f)`` and its kin
   truncate a non-negative operand, so they are a floor;
 - Q8_0, Q8_1: C ``roundf``, round half away from zero;
+- IQ4_NL, IQ4_XS: the nearest entry of the nonlinear table (ties to the
+  lower index), the 6-bit sub-scales by ``nearest_int``;
 - the K-quants: ggml's ``nearest_int``, round half to even;
 - block scales are IEEE fp16 (round to nearest even).
 
@@ -90,10 +94,6 @@ BLOCK_DTYPES: dict[GGMLType, np.dtype] = {
     GGMLType.Q8_K: np.dtype([("d", "<f4"), ("qs", "i1", (QK_K,)),
                              ("bsums", "<i2", (QK_K // 16,))]),
 }
-
-for _t, _dt in BLOCK_DTYPES.items():
-    assert _dt.itemsize == FORMATS[_t].type_size, (_t, _dt.itemsize)
-
 
 def _blocks_in(x: np.ndarray, block: int) -> np.ndarray:
     x = np.ascontiguousarray(x, dtype=f32)
@@ -827,10 +827,389 @@ _DEQUANTIZERS = {GGMLType.Q4_0: dequantize_q4_0,
                  GGMLType.Q8_K: dequantize_q8_K}
 
 
+# ---------------------------------------------------------------------------
+# IQ4_NL: ggml's nonlinear 4-bit table in blocks of 32 (ggml-common.h
+# block_iq4_nl; quantize_row_iq4_nl_impl with ntry 7, the path model files
+# are written by)
+# ---------------------------------------------------------------------------
+
+KVALUES_IQ4NL = np.asarray([-127, -104, -83, -65, -49, -35, -22, -10,
+                            1, 13, 25, 38, 53, 69, 89, 113], dtype=np.int8)
+
+BLOCK_DTYPES[GGMLType.IQ4_NL] = np.dtype([("d", "<f2"),
+                                          ("qs", "u1", (QK // 2,))])
+BLOCK_DTYPES[GGMLType.IQ4_XS] = np.dtype(
+    [("d", "<f2"), ("scales_h", "<u2"), ("scales_l", "u1", (QK_K // 64,)),
+     ("qs", "u1", (QK_K // 2,))])
+
+
+def _best_index_iq4nl(x: np.ndarray) -> np.ndarray:
+    """ggml's best_index_int8: the nearest entry of the sorted table, ties
+    to the lower index."""
+    vals = KVALUES_IQ4NL.astype(f32)
+    mu = np.clip(np.searchsorted(vals, x, side="left").astype(np.int32),
+                 1, 15)
+    idx = np.where((x - vals[mu - 1]) < (vals[mu] - x), mu - 1, mu)
+    idx = np.where(x <= vals[0], 0, idx)
+    return np.where(x >= vals[15], 15, idx).astype(np.uint8)
+
+
+def _iq4_block_scale(xb: np.ndarray, ntry: int = 7) -> np.ndarray:
+    """The per-32 scale search of quantize_row_iq4_nl_impl over blocks xb
+    (nb, 32), weights x^2: the first guess -max / -127, then 2 ntry + 1
+    trial inverse scales, each kept when it raises sumqx^2 / sumq2. Dead
+    (all-zero) blocks get 0."""
+    vals = KVALUES_IQ4NL.astype(f32)
+    w = xb * xb
+    mx = _signed_absmax(xb)
+    dead = mx == 0
+    mx_safe = np.where(dead, f32(1.0), mx)
+
+    def score(idv):
+        q = vals[_best_index_iq4nl(idv[:, None] * xb)]
+        return _seqsum(w * q * xb), _seqsum(w * q * q)
+
+    sumqx, sumq2 = score((f32(1.0) / (-mx_safe / vals[0]).astype(f32))
+                         .astype(f32))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        d = np.where(sumq2 > 0, sumqx / sumq2, f32(0.0)).astype(f32)
+    best = d * sumqx
+    for itry in range(-ntry, ntry + 1):
+        sqx, sq2 = score(((f32(itry) + vals[0]) / mx_safe).astype(f32))
+        better = (sq2 > 0) & (sqx * sqx > best * sq2)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            d = np.where(better, sqx / sq2, d).astype(f32)
+        best = np.where(better, d * sqx, best)
+    return np.where(dead, f32(0.0), d)
+
+
+def quantize_iq4_nl(x: np.ndarray) -> np.ndarray:
+    """One scale per 32 (the search above), then every element re-indexed
+    against the chosen f32 scale."""
+    xb = _blocks_in(x, QK)
+    d = _iq4_block_scale(xb)
+    L = _best_index_iq4nl(_safe_inv(d)[:, None] * xb)
+    out = np.zeros(len(xb), dtype=BLOCK_DTYPES[GGMLType.IQ4_NL])
+    out["d"] = _fp16(d)
+    out["qs"] = L[:, :QK // 2] | (L[:, QK // 2:] << 4)
+    return out.view(np.uint8)
+
+
+def dequantize_iq4_nl(raw: np.ndarray) -> np.ndarray:
+    b = blocks_view(raw, GGMLType.IQ4_NL)
+    vals = KVALUES_IQ4NL.astype(f32)
+    q = np.concatenate([vals[(b["qs"] & 0x0F).astype(np.int32)],
+                        vals[(b["qs"] >> 4).astype(np.int32)]], axis=1)
+    return (q * b["d"].astype(f32)[:, None]).reshape(-1)
+
+
+def iq4xs_scales(b: np.ndarray) -> np.ndarray:
+    """IQ4_XS blocks (..., ) -> the signed 6-bit sub-scales (..., 8) int32:
+    the low nibbles of scales_l are the even sub-blocks' and the high
+    nibbles the odd ones', so they interleave back to block order; two
+    bits each of scales_h are the high parts; minus 32."""
+    sl = b["scales_l"]
+    lo6 = np.concatenate([sl & 0xF, sl >> 4], axis=-1)
+    lo6 = lo6.reshape(*sl.shape[:-1], 2, 4)
+    lo6 = np.swapaxes(lo6, -1, -2).reshape(*sl.shape[:-1], 8)
+    hi6 = (b["scales_h"][..., None].astype(np.uint32)
+           >> (2 * np.arange(8, dtype=np.uint32))) & 3
+    return (lo6.astype(np.int32) | (hi6.astype(np.int32) << 4)) - 32
+
+
+def quantize_iq4_xs(x: np.ndarray) -> np.ndarray:
+    """Per-32 scales by the IQ4_NL search, a super-block scale d = -max /
+    32 over the 8 of them, 6-bit sub-scales nearest_int(s / d) in [-32,
+    31], then every element re-indexed against d * l6 in f32 (the
+    reference uses the f32 d there, not its fp16 rounding)."""
+    xb = _blocks_in(x, QK_K)
+    nb = len(xb)
+    scales = _iq4_block_scale(xb.reshape(nb * 8, 32)).reshape(nb, 8)
+    max_scale = _signed_absmax(scales)
+    d = (-max_scale / f32(32.0)).astype(f32)
+    l6 = np.clip(_nearest_int(_safe_inv(d)[:, None] * scales), -32, 31)
+    dl = d[:, None] * l6.astype(f32)
+    with np.errstate(divide="ignore"):
+        idl = np.where(dl != 0, f32(1.0) / dl, f32(0.0)).astype(f32)
+    L = _best_index_iq4nl(np.repeat(idl, 32, axis=1) * xb)
+    l6s = (l6 + 32).astype(np.uint32)
+    lo, hi = (l6s & 0xF).astype(np.uint8), l6s >> 4
+    out = np.zeros(nb, dtype=BLOCK_DTYPES[GGMLType.IQ4_XS])
+    out["d"] = _fp16(d)
+    out["scales_h"] = (hi << (2 * np.arange(8, dtype=np.uint32))) \
+        .sum(axis=1, dtype=np.uint32).astype(np.uint16)
+    out["scales_l"] = lo[:, 0::2] | (lo[:, 1::2] << 4)
+    Lg = L.reshape(nb, 8, 2, 16)
+    out["qs"] = (Lg[:, :, 0] | (Lg[:, :, 1] << 4)).reshape(nb, QK_K // 2)
+    return out.view(np.uint8)
+
+
+def dequantize_iq4_xs(raw: np.ndarray) -> np.ndarray:
+    b = blocks_view(raw, GGMLType.IQ4_XS)
+    vals = KVALUES_IQ4NL.astype(f32)
+    dl = b["d"].astype(f32)[:, None] * iq4xs_scales(b).astype(f32)
+    g = b["qs"].reshape(-1, 8, 16)
+    q = np.concatenate([vals[(g & 0xF).astype(np.int32)],
+                        vals[(g >> 4).astype(np.int32)]], axis=2)
+    return (dl[:, :, None] * q).reshape(-1)
+
+
+_QUANTIZERS[GGMLType.IQ4_NL] = quantize_iq4_nl
+_QUANTIZERS[GGMLType.IQ4_XS] = quantize_iq4_xs
+_DEQUANTIZERS[GGMLType.IQ4_NL] = dequantize_iq4_nl
+_DEQUANTIZERS[GGMLType.IQ4_XS] = dequantize_iq4_xs
+
+
+# ---------------------------------------------------------------------------
+# The codebook formats, decode only: IQ2_XXS, IQ2_XS, IQ2_S, IQ3_XXS, IQ3_S,
+# IQ1_S and IQ1_M (ggml-common.h's blocks; the reference's dequantize_row_*
+# loops). The grids are the formats' constant tables, shipped as
+# iq_grids.npz beside this module; the signs of IQ2_XXS, IQ2_XS and IQ3_XXS
+# come from ksigns_iq2xs (7 sign bits and an odd-parity bit).
+# ---------------------------------------------------------------------------
+
+BLOCK_DTYPES[GGMLType.IQ2_XXS] = np.dtype([("d", "<f2"),
+                                           ("qs", "<u2", (QK_K // 8,))])
+BLOCK_DTYPES[GGMLType.IQ2_XS] = np.dtype(
+    [("d", "<f2"), ("qs", "<u2", (QK_K // 8,)),
+     ("scales", "u1", (QK_K // 32,))])
+BLOCK_DTYPES[GGMLType.IQ2_S] = np.dtype(
+    [("d", "<f2"), ("qs", "u1", (QK_K // 4,)), ("qh", "u1", (QK_K // 32,)),
+     ("scales", "u1", (QK_K // 32,))])
+BLOCK_DTYPES[GGMLType.IQ3_XXS] = np.dtype([("d", "<f2"),
+                                           ("qs", "u1", (3 * QK_K // 8,))])
+BLOCK_DTYPES[GGMLType.IQ3_S] = np.dtype(
+    [("d", "<f2"), ("qs", "u1", (QK_K // 4,)), ("qh", "u1", (QK_K // 32,)),
+     ("signs", "u1", (QK_K // 8,)), ("scales", "u1", (QK_K // 64,))])
+BLOCK_DTYPES[GGMLType.IQ1_S] = np.dtype(
+    [("d", "<f2"), ("qs", "u1", (QK_K // 8,)),
+     ("qh", "<u2", (QK_K // 32,))])
+BLOCK_DTYPES[GGMLType.IQ1_M] = np.dtype(
+    [("qs", "u1", (QK_K // 8,)), ("qh", "u1", (QK_K // 16,)),
+     ("scales", "u1", (QK_K // 32,))])
+
+for _t, _dt in BLOCK_DTYPES.items():
+    assert _dt.itemsize == FORMATS[_t].type_size, (_t, _dt.itemsize)
+
+DECODE_ONLY = (GGMLType.IQ2_XXS, GGMLType.IQ2_XS, GGMLType.IQ2_S,
+               GGMLType.IQ3_XXS, GGMLType.IQ3_S, GGMLType.IQ1_S,
+               GGMLType.IQ1_M)
+
+IQ1_DELTA = f32(0.125)
+
+_GRIDS: dict = {}
+
+
+def iq_grid(name: str) -> np.ndarray:
+    """A grid of iq_grids.npz (loaded once) as its bytes per entry: uint8
+    (entries, 8) for the IQ2 grids, (entries, 4) for the IQ3 grids, int8
+    (2048, 8) for iq1s_grid."""
+    if not _GRIDS:
+        import pathlib
+        with np.load(pathlib.Path(__file__).parent / "iq_grids.npz") as z:
+            _GRIDS.update({k: z[k] for k in z.files})
+    g = _GRIDS[name]
+    return g.view(np.int8 if name == "iq1s_grid" else np.uint8) \
+        .reshape(len(g), g.itemsize)
+
+
+def _ksigns() -> np.ndarray:
+    """ksigns_iq2xs expanded to (128, 8) of +-1: bit j of i | parity << 7
+    is the sign of element j."""
+    i = np.arange(128, dtype=np.uint8)
+    par = i ^ (i >> 4)
+    par ^= par >> 2
+    par ^= par >> 1
+    ks = i | ((par & 1) << 7).astype(np.uint8)
+    bits = (ks[:, None] >> np.arange(8)) & 1
+    return np.where(bits == 1, f32(-1.0), f32(1.0))
+
+
+KSIGNS8 = _ksigns()
+
+
+def sign_bits(bytes_: np.ndarray) -> np.ndarray:
+    """uint8 (..., n) raw sign bytes -> +-1 f32 (..., n, 8)."""
+    bits = (bytes_[..., None] >> np.arange(8)) & 1
+    return np.where(bits == 1, f32(-1.0), f32(1.0))
+
+
+def _u32_words(a: np.ndarray) -> np.ndarray:
+    """(..., 2k) uint16 -> (..., k) little-endian uint32."""
+    return np.ascontiguousarray(a).view("<u4")
+
+
+def iq2xxs_fields(b: np.ndarray):
+    """IQ2_XXS blocks (...) -> grid indices and sign-table indices (..., 8,
+    4), and the per-32 scales d (0.5 + s4) / 4 (..., 8) f32."""
+    q = b["qs"].reshape(*b.shape, 8, 4)              # (..., ib32, 4 u16)
+    aux0, aux1 = _u32_words(q[..., :2])[..., 0], _u32_words(q[..., 2:])[..., 0]
+    db = b["d"].astype(f32)[..., None] \
+        * (f32(0.5) + (aux1 >> 28).astype(f32)) * f32(0.25)
+    idx = np.stack([(aux0 >> (8 * l)) & 0xFF for l in range(4)], axis=-1)
+    sidx = np.stack([(aux1 >> (7 * l)) & 127 for l in range(4)], axis=-1)
+    return idx, sidx, db
+
+
+def dequantize_iq2_xxs(raw: np.ndarray) -> np.ndarray:
+    grid = iq_grid("iq2xxs_grid").astype(f32)
+    idx, sidx, db = iq2xxs_fields(blocks_view(raw, GGMLType.IQ2_XXS))
+    vals = grid[idx] * KSIGNS8[sidx]                 # (nb, 8, 4, 8)
+    return (db[:, :, None, None] * vals).reshape(-1)
+
+
+def iq2_db(b: np.ndarray) -> np.ndarray:
+    """IQ2_XS / IQ2_S sub-scales (..., 8, 4): d (0.5 + s4) / 4, the low
+    nibble for l 0-1 of a sub-block of 32, the high one for l 2-3."""
+    d, sc = b["d"].astype(f32)[..., None], b["scales"]
+    db0 = d * (f32(0.5) + (sc & 0xF).astype(f32)) * f32(0.25)
+    db1 = d * (f32(0.5) + (sc >> 4).astype(f32)) * f32(0.25)
+    return np.stack([db0, db0, db1, db1], axis=-1)
+
+
+def dequantize_iq2_xs(raw: np.ndarray) -> np.ndarray:
+    grid = iq_grid("iq2xs_grid").astype(f32)
+    b = blocks_view(raw, GGMLType.IQ2_XS)
+    q = b["qs"].reshape(-1, 8, 4).astype(np.uint32)
+    vals = grid[q & 511] * KSIGNS8[q >> 9]           # (nb, 8, 4, 8)
+    return (iq2_db(b)[..., None] * vals).reshape(-1)
+
+
+def iq2s_index(b: np.ndarray) -> np.ndarray:
+    """IQ2_S grid indices (..., 8, 4): qs | two bits of qh as bits 8-9."""
+    qs = b["qs"][..., :QK_K // 8].reshape(*b.shape, 8, 4).astype(np.uint32)
+    qh = b["qh"].astype(np.uint32)[..., None]
+    return qs | ((qh << (8 - 2 * np.arange(4, dtype=np.uint32))) & 0x300)
+
+
+def dequantize_iq2_s(raw: np.ndarray) -> np.ndarray:
+    grid = iq_grid("iq2s_grid").astype(f32)
+    b = blocks_view(raw, GGMLType.IQ2_S)
+    signs = b["qs"][:, QK_K // 8:].reshape(-1, 8, 4)
+    vals = grid[iq2s_index(b)] * sign_bits(signs)    # (nb, 8, 4, 8)
+    return (iq2_db(b)[..., None] * vals).reshape(-1)
+
+
+def iq3xxs_fields(b: np.ndarray):
+    """IQ3_XXS blocks (...) -> the grid indices of the first and last 4
+    elements of each group of 8 and the sign-table indices (..., 8, 4)
+    each, and the per-32 scales d (0.5 + s4) / 2 (..., 8) f32."""
+    qs = b["qs"][..., :QK_K // 4].reshape(*b.shape, 8, 8)   # grid bytes
+    aux = np.ascontiguousarray(b["qs"][..., QK_K // 4:]).view("<u4") \
+        .reshape(*b.shape, 8)
+    db = b["d"].astype(f32)[..., None] \
+        * (f32(0.5) + (aux >> 28).astype(f32)) * f32(0.5)
+    sidx = np.stack([(aux >> (7 * l)) & 127 for l in range(4)], axis=-1)
+    return qs[..., 0::2], qs[..., 1::2], sidx, db
+
+
+def dequantize_iq3_xxs(raw: np.ndarray) -> np.ndarray:
+    grid = iq_grid("iq3xxs_grid").astype(f32)
+    idx1, idx2, sidx, db = iq3xxs_fields(blocks_view(raw, GGMLType.IQ3_XXS))
+    vals = np.concatenate([grid[idx1], grid[idx2]], axis=-1)  # (nb, 8, 4, 8)
+    return (db[:, :, None, None] * vals * KSIGNS8[sidx]).reshape(-1)
+
+
+def iq3s_index(b: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """IQ3_S grid indices of the first and last 4 elements of each group
+    of 8, (..., 8, 4) each: qs | one bit of qh as bit 8."""
+    qs = b["qs"].reshape(*b.shape, 8, 8).astype(np.uint32)
+    qh = b["qh"].astype(np.uint32)[..., None]
+    l = np.arange(4, dtype=np.uint32)
+    return (qs[..., 0::2] | ((qh << (8 - 2 * l)) & 256),
+            qs[..., 1::2] | ((qh << (7 - 2 * l)) & 256))
+
+
+def iq3s_db(b: np.ndarray) -> np.ndarray:
+    """IQ3_S per-32 scales (..., 8): d (1 + 2 s4), the low nibble for an
+    even sub-block, the high one for an odd one."""
+    d, sc = b["d"].astype(f32)[..., None], b["scales"]
+    dbl = d * (1 + 2 * (sc & 0xF).astype(f32))
+    dbh = d * (1 + 2 * (sc >> 4).astype(f32))
+    return np.stack([dbl, dbh], axis=-1).reshape(*b.shape, 8)
+
+
+def dequantize_iq3_s(raw: np.ndarray) -> np.ndarray:
+    grid = iq_grid("iq3s_grid").astype(f32)
+    b = blocks_view(raw, GGMLType.IQ3_S)
+    idx1, idx2 = iq3s_index(b)
+    g = np.concatenate([grid[idx1], grid[idx2]], axis=-1)   # (nb, 8, 4, 8)
+    vals = g * sign_bits(b["signs"].reshape(-1, 8, 4))
+    return (iq3s_db(b)[:, :, None, None] * vals).reshape(-1)
+
+
+def dequantize_iq1_s(raw: np.ndarray) -> np.ndarray:
+    grid = iq_grid("iq1s_grid").astype(f32)
+    b = blocks_view(raw, GGMLType.IQ1_S)
+    qs = b["qs"].reshape(-1, 8, 4).astype(np.uint32)
+    qh = b["qh"].astype(np.uint32)                   # (nb, 8)
+    dl = b["d"].astype(f32)[:, None] * (2 * ((qh >> 12) & 7).astype(f32) + 1)
+    delta = np.where((qh & 0x8000) != 0, -IQ1_DELTA, IQ1_DELTA)
+    idx = qs | (((qh[:, :, None] >> (3 * np.arange(4))) & 7) << 8)
+    vals = grid[idx] + delta[:, :, None, None]
+    return (dl[:, :, None, None] * vals).reshape(-1)
+
+
+def dequantize_iq1_m(raw: np.ndarray) -> np.ndarray:
+    grid = iq_grid("iq1s_grid").astype(f32)
+    b = blocks_view(raw, GGMLType.IQ1_M)
+    sc = np.ascontiguousarray(b["scales"]).view("<u2")   # (nb, 4)
+    du16 = ((sc[:, 0] >> 12) | ((sc[:, 1] >> 8) & 0x00F0)
+            | ((sc[:, 2] >> 4) & 0x0F00) | (sc[:, 3] & 0xF000)) \
+        .astype(np.uint16)
+    d = du16.view(np.float16).astype(f32)            # the fp16 super-scale
+    qs = b["qs"].reshape(-1, 8, 4).astype(np.uint32)
+    qh = b["qh"].reshape(-1, 8, 2).astype(np.uint32)
+    ib = np.arange(8)
+    s3 = sc[:, ib // 2 % 4] >> (6 * (ib % 2))[None, :]
+    dl1 = d[:, None] * (2 * (s3 & 7).astype(f32) + 1)
+    dl2 = d[:, None] * (2 * ((s3 >> 3) & 7).astype(f32) + 1)
+    dl = np.stack([dl1, dl1, dl2, dl2], axis=-1)     # (nb, 8, 4)
+    idx = np.stack([qs[:, :, 0] | ((qh[:, :, 0] << 8) & 0x700),
+                    qs[:, :, 1] | ((qh[:, :, 0] << 4) & 0x700),
+                    qs[:, :, 2] | ((qh[:, :, 1] << 8) & 0x700),
+                    qs[:, :, 3] | ((qh[:, :, 1] << 4) & 0x700)], axis=-1)
+    sgn = lambda bits: np.where(bits != 0, -IQ1_DELTA, IQ1_DELTA)
+    delta = np.stack([sgn(qh[:, :, 0] & 0x08), sgn(qh[:, :, 0] & 0x80),
+                      sgn(qh[:, :, 1] & 0x08), sgn(qh[:, :, 1] & 0x80)],
+                     axis=-1)
+    vals = grid[idx] + delta[..., None]
+    return (dl[..., None] * vals).reshape(-1)
+
+
+def random_blocks(t: GGMLType, n_blocks: int, rng: np.random.Generator,
+                  d: float) -> np.ndarray:
+    """n_blocks blocks of a decode-only codebook format t with uniform
+    random bytes (every grid index, sign pattern and sub-scale is valid),
+    their fp16 super-scale set to d: weights for runs and tests of these
+    formats, which have no encoder here. Flat uint8."""
+    raw = rng.integers(0, 256, n_blocks * FORMATS[t].type_size,
+                       dtype=np.uint8)
+    b = blocks_view(raw, t)
+    bits = np.array(d, np.float16).view(np.uint16)
+    if t == GGMLType.IQ1_M:      # d's 16 bits in the scales' top nibbles
+        sc = np.ascontiguousarray(b["scales"]).view("<u2")
+        sc[:] = (sc & 0x0FFF) | ((bits >> (4 * np.arange(4))) & 0xF) << 12
+        b["scales"] = sc.view(np.uint8).reshape(b["scales"].shape)
+    else:
+        b["d"] = np.float16(d)
+    return raw
+
+
+_DEQUANTIZERS.update({GGMLType.IQ2_XXS: dequantize_iq2_xxs,
+                      GGMLType.IQ2_XS: dequantize_iq2_xs,
+                      GGMLType.IQ2_S: dequantize_iq2_s,
+                      GGMLType.IQ3_XXS: dequantize_iq3_xxs,
+                      GGMLType.IQ3_S: dequantize_iq3_s,
+                      GGMLType.IQ1_S: dequantize_iq1_s,
+                      GGMLType.IQ1_M: dequantize_iq1_m})
+
+
 def quantize(x: np.ndarray, t: GGMLType) -> np.ndarray:
     """Float array (rows along the last axis, a whole number of blocks) ->
     flat uint8 buffer of encoded blocks: F32, F16, BF16 (round to nearest
-    even) and every format of _QUANTIZERS."""
+    even) and every format of _QUANTIZERS; the decode-only codebook
+    formats raise NotImplementedError."""
     if t == GGMLType.F32:
         return np.ascontiguousarray(x, dtype=f32).view(np.uint8).reshape(-1)
     if t == GGMLType.F16:
@@ -840,6 +1219,10 @@ def quantize(x: np.ndarray, t: GGMLType) -> np.ndarray:
         u32 = np.ascontiguousarray(x, dtype=f32).view(np.uint32)
         rounded = ((u32 + 0x7FFF + ((u32 >> 16) & 1)) >> 16).astype(np.uint16)
         return rounded.view(np.uint8).reshape(-1)
+    if t in DECODE_ONLY:
+        raise NotImplementedError(
+            f"quantize to {t.name}: the codebook formats are decode-only here "
+            "(their grid-search encoders are ROADMAP Queue 1 item 9)")
     if t not in _QUANTIZERS:
         raise NotImplementedError(f"quantize to {t.name}")
     return _QUANTIZERS[t](x).reshape(-1)

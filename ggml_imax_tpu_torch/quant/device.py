@@ -18,6 +18,15 @@ Layouts (K = contraction dim, N = output dim):
   the same bytes with a tag, the u-order layout (``q4_layout`` 2) permutes
   the rows of each K tile.
 - ``dense``: (K, N) float.
+- the codebook layouts of the IQ formats (exact, and compressed on the
+  card): ``nib4`` with ``lut`` set stores a 4-bit sign + magnitude code,
+  w = lut[nib] * scale[k // 32, n] (IQ3_XXS and IQ3_S, whose grids hold 8
+  magnitudes each); ``nib2`` stores a 2-bit magnitude code, (K/4, N) uint8
+  with element k in byte k // 4 at shift 2 (k % 4), and ``signs`` a (K/8,
+  N) uint8 bitplane (bit k % 8 of byte row k // 8 set: negative), w =
+  +-lut[code] * scale (IQ2_XXS per 32, IQ2_XS and IQ2_S per 16; every IQ2
+  grid holds the magnitudes 8, 25 and 43). IQ4_NL and IQ4_XS become int8
+  (their table's values, per-32 scales, no bias), IQ1_S and IQ1_M dense.
 """
 from __future__ import annotations
 
@@ -29,7 +38,7 @@ import torch
 
 from .._device import resolve_device
 from . import codecs
-from .formats import FORMATS, GGMLType
+from .formats import FORMATS, QK_K, GGMLType
 
 
 @dataclass
@@ -38,7 +47,7 @@ class QTensor:
     package's QTensor. ``n_stack`` is always 0 here: the port keeps
     per-layer weights in a Python list instead of the TPU's stacked
     layout."""
-    kind: str                 # "nib4" | "int8" | "dense"
+    kind: str                 # "nib4" | "nib2" | "int8" | "dense"
     q: torch.Tensor
     scale: Optional[torch.Tensor]   # (K/group, N) f32 or bf16
     bias: Optional[torch.Tensor]    # (K/group, N) or None
@@ -53,8 +62,32 @@ class QTensor:
                               # 4 = nat8
     name: str = ""
     n_stack: int = 0
-    lut: Optional[torch.Tensor] = None
-    signs: Optional[torch.Tensor] = None
+    lut: Optional[torch.Tensor] = None     # codebook values (f32): 16
+                                           # for nib4, 4 for nib2
+    signs: Optional[torch.Tensor] = None   # nib2's (K/8, N) sign bitplane
+
+
+def codebook_q(qt: QTensor, q: torch.Tensor | None = None,
+               signs: torch.Tensor | None = None) -> torch.Tensor:
+    """The values lut[code] (with nib2's signs) of a codebook QTensor in
+    natural row order, (K, C) f32. q and signs: the packed bytes and sign
+    bytes of some of qt's columns (default all); the codes are gathered
+    with int32 indices."""
+    q = qt.q if q is None else q
+    c, lut = q.shape[1], qt.lut.float()
+    if qt.kind == "nib4":
+        g = q.reshape(qt.k // 32, 16, c)
+        idx = torch.cat([g & 0x0F, g >> 4], dim=1).reshape(-1)
+        return lut.index_select(0, idx.int()).reshape(qt.k, c)
+    if qt.kind != "nib2":
+        raise ValueError(f"codebook_q: {qt.kind} has no codebook")
+    signs = qt.signs if signs is None else signs
+    shift = lambda n, step: torch.arange(0, n, step, dtype=torch.uint8,
+                                         device=q.device)[:, None]
+    code = (q[:, None, :] >> shift(8, 2)) & 3          # (K/4, 4, C)
+    mag = lut.index_select(0, code.reshape(-1).int()).reshape(qt.k, c)
+    neg = ((signs[:, None, :] >> shift(8, 1)) & 1).reshape(qt.k, c)
+    return torch.where(neg.bool(), -mag, mag)
 
 
 def dequantize_qtensor(qt: QTensor) -> torch.Tensor:
@@ -63,11 +96,11 @@ def dequantize_qtensor(qt: QTensor) -> torch.Tensor:
     quant/device.dequantize_qtensor)."""
     if qt.kind == "dense":
         return qt.q.float()
-    if qt.lut is not None or qt.kind not in ("nib4", "int8"):
-        raise NotImplementedError(f"dequantize_qtensor: {qt.kind} with lut")
     scale = qt.scale.float()
     group = qt.k // scale.shape[0]
-    if qt.kind == "nib4":
+    if qt.lut is not None or qt.kind == "nib2":
+        q = codebook_q(qt)
+    elif qt.kind == "nib4":
         if qt.interleaved_bk or qt.q4_layout:
             raise ValueError("dequantize_qtensor takes the natural layout")
         g = qt.q.reshape(qt.k // 32, 16, qt.n)
@@ -92,11 +125,110 @@ def _nib4_from_u8(vals: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(packed.reshape(n, k // 2).T)
 
 
+def _nib2_from_codes(codes: np.ndarray) -> np.ndarray:
+    """(N, K) codes in [0, 3], natural order -> packed (K/4, N) uint8
+    (element k in byte k // 4 at shift 2 (k % 4))."""
+    n, k = codes.shape
+    v = codes.reshape(n, k // 4, 4).astype(np.uint16)
+    packed = (v[:, :, 0] | (v[:, :, 1] << 2) | (v[:, :, 2] << 4)
+              | (v[:, :, 3] << 6)).astype(np.uint8)
+    return np.ascontiguousarray(packed.T)
+
+
+def _bitplane(bits: np.ndarray) -> np.ndarray:
+    """(N, K) 0/1, natural order -> (K/8, N) uint8 (element k is bit k % 8
+    of byte row k // 8)."""
+    n, k = bits.shape
+    v = bits.reshape(n, k // 8, 8).astype(np.uint16)
+    packed = (v << np.arange(8, dtype=np.uint16)).sum(-1).astype(np.uint8)
+    return np.ascontiguousarray(packed.T)
+
+
+def _iq3_decompose(b, t: GGMLType, n: int, k: int):
+    """IQ3_XXS / IQ3_S blocks (n, K/256) -> (grid magnitudes (n, k) uint8,
+    signs (n, k) 0/1 (1: negative), per-32 scales (n, k/32) f32) in
+    natural element order, as the codecs' decoders compute them."""
+    if t == GGMLType.IQ3_S:
+        grid = codecs.iq_grid("iq3s_grid")
+        idx1, idx2 = codecs.iq3s_index(b)
+        neg = codecs.sign_bits(b["signs"].reshape(n, -1, 8, 4)) < 0
+        db = codecs.iq3s_db(b)
+    else:
+        grid = codecs.iq_grid("iq3xxs_grid")
+        idx1, idx2, sidx, db = codecs.iq3xxs_fields(b)
+        neg = codecs.KSIGNS8[sidx] < 0
+    mag = np.concatenate([grid[idx1], grid[idx2]], axis=-1)
+    return (mag.reshape(n, k), neg.reshape(n, k).astype(np.uint8),
+            db.reshape(n, -1))
+
+
+def _iq2_decompose(b, t: GGMLType, n: int, k: int):
+    """IQ2_XXS / IQ2_XS / IQ2_S blocks -> (magnitudes, signs, scales,
+    scale group): natural-order grid magnitudes and signs as
+    _iq3_decompose, per-32 scales for IQ2_XXS, per-16 for the others."""
+    if t == GGMLType.IQ2_XXS:
+        idx, sidx, db = codecs.iq2xxs_fields(b)
+        return (codecs.iq_grid("iq2xxs_grid")[idx].reshape(n, k),
+                (codecs.KSIGNS8[sidx] < 0).reshape(n, k).astype(np.uint8),
+                db.reshape(n, -1), 32)
+    if t == GGMLType.IQ2_XS:
+        q = b["qs"].reshape(n, -1, 8, 4).astype(np.uint32)
+        mag = codecs.iq_grid("iq2xs_grid")[q & 511]
+        neg = codecs.KSIGNS8[q >> 9] < 0
+    else:
+        mag = codecs.iq_grid("iq2s_grid")[codecs.iq2s_index(b)]
+        neg = codecs.sign_bits(b["qs"][:, :, QK_K // 8:]
+                               .reshape(n, -1, 8, 4)) < 0
+    # the scales of l 0-1 cover elements 0-15 of a sub-block, l 2-3 16-31
+    return (mag.reshape(n, k), neg.reshape(n, k).astype(np.uint8),
+            codecs.iq2_db(b)[..., 0::2].reshape(n, -1), 16)
+
+
+def _iq_layout(b, t: GGMLType, n: int, k: int, put) -> QTensor:
+    """The codebook layouts (the module docstring): IQ3 nib4 + 16-entry
+    lut, IQ2 nib2 + 4-entry lut + sign bitplane, IQ4 int8."""
+    f32 = np.float32
+    if t in (GGMLType.IQ3_XXS, GGMLType.IQ3_S):
+        mag, neg, db = _iq3_decompose(b, t, n, k)
+        mags = np.array([1, 3, 5, 7, 9, 11, 13, 15] if t == GGMLType.IQ3_S
+                        else [4, 12, 20, 28, 36, 44, 52, 62], np.uint8)
+        idx = np.searchsorted(mags, mag).astype(np.uint8)
+        if not (mags[np.minimum(idx, 7)] == mag).all():
+            raise ValueError(f"{t.name}: a grid magnitude outside {mags}")
+        lut = np.concatenate([mags, -mags.astype(np.int16)]).astype(f32)
+        return QTensor("nib4", put(_nib4_from_u8(idx + 8 * neg)),
+                       put(np.ascontiguousarray(db.T)), None, k, n, t,
+                       zero=0, lut=put(lut))
+    if t in (GGMLType.IQ2_XXS, GGMLType.IQ2_XS, GGMLType.IQ2_S):
+        mag, neg, db, group = _iq2_decompose(b, t, n, k)
+        mags = np.array([8, 25, 43], np.uint8)
+        idx = np.searchsorted(mags, mag).astype(np.uint8)
+        if not (mags[np.minimum(idx, 2)] == mag).all():
+            raise ValueError(f"{t.name}: a grid magnitude outside {mags}")
+        return QTensor("nib2", put(_nib2_from_codes(idx)),
+                       put(np.ascontiguousarray(db.T)), None, k, n, t,
+                       zero=0, lut=put(np.array([8.0, 25.0, 43.0, 0.0], f32)),
+                       signs=put(_bitplane(neg)))
+    lut = codecs.KVALUES_IQ4NL
+    if t == GGMLType.IQ4_XS:
+        scale = b["d"].astype(f32)[..., None] \
+            * codecs.iq4xs_scales(b).astype(f32)
+        g = b["qs"].reshape(n, -1, 8, 16)
+    else:
+        scale, g = b["d"].astype(f32), b["qs"]
+    q = np.concatenate([lut[(g & 0xF).astype(np.int32)],
+                        lut[(g >> 4).astype(np.int32)]], axis=-1)
+    return QTensor("int8", put(np.ascontiguousarray(q.reshape(n, k).T)),
+                   put(np.ascontiguousarray(scale.reshape(n, k // 32).T)),
+                   None, k, n, t)
+
+
 # the block formats with a device layout (Q8_K, the K-quants' activation
 # format, has none, as in the JAX package)
 LAID_OUT = (GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1,
              GGMLType.Q8_0, GGMLType.Q8_1, GGMLType.Q2_K, GGMLType.Q3_K,
-             GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K)
+             GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K, GGMLType.IQ4_NL,
+             GGMLType.IQ4_XS)
 
 
 def to_device_format(raw: np.ndarray, t: GGMLType, shape_ne: tuple[int, ...],
@@ -107,20 +239,29 @@ def to_device_format(raw: np.ndarray, t: GGMLType, shape_ne: tuple[int, ...],
     with zero 0 and a per-32 bias m; Q2_K and Q3_K per-16 nib4, Q4_K per-32
     nib4 with a bias -min; Q8_0, Q8_1 and Q5_0 (q - 16) int8, Q5_1 (raw
     [0, 31], bias m) and Q5_K (raw [0, 31], bias -min) per-32 int8 and Q6_K
-    per-16 int8. shape_ne is the ggml shape, row length K first; the
-    tensors land on `device` (the card unless "cpu" is passed)."""
+    per-16 int8; IQ4_NL and IQ4_XS int8 (the table's values) with per-32
+    scales and no bias; IQ3_XXS and IQ3_S nib4 with a lut, IQ2_XXS, IQ2_XS
+    and IQ2_S nib2 with a lut and a sign bitplane (the module docstring);
+    IQ1_S and IQ1_M dense f32. shape_ne is the ggml shape, row length K
+    first; the tensors land on `device` (the card unless "cpu" is
+    passed)."""
     dev = resolve_device(device)
     k, n = shape_ne[0], int(np.prod(shape_ne[1:]))
     put = lambda a: torch.from_numpy(a).to(dev)
-    if t in (GGMLType.F32, GGMLType.F16, GGMLType.BF16):
+    if t in (GGMLType.F32, GGMLType.F16, GGMLType.BF16, GGMLType.IQ1_S,
+             GGMLType.IQ1_M):
+        # IQ1's per-8 deltas have no exact factored layout within twice
+        # the packed bytes: dense at load, as in the JAX package
         w = codecs.dequantize(raw, t, shape=(n, k)).T
         return QTensor("dense", put(np.ascontiguousarray(w)), None, None, k,
                        n, t)
-    if t not in LAID_OUT:
+    if t not in LAID_OUT + codecs.DECODE_ONLY:
         raise NotImplementedError(f"no device layout for {t.name} yet")
     if k % FORMATS[t].block_size:
         raise ValueError(f"{t.name}: K={k} is not a whole number of blocks")
     b = codecs.blocks_view(raw, t).reshape(n, k // FORMATS[t].block_size)
+    if t.name.startswith("IQ"):
+        return _iq_layout(b, t, n, k, put)
     f32 = np.float32
     per32 = lambda a: put(np.ascontiguousarray(a.T.astype(f32)))
     int8 = lambda q: put(np.ascontiguousarray(q.reshape(n, k).astype(np.int8)
@@ -263,9 +404,9 @@ def pad_qtensor_cols(qt: QTensor, multiple: int = 128) -> tuple[QTensor, int]:
 def pad_qtensor_rows(qt: QTensor, multiple: int = 1024) -> tuple[QTensor, int]:
     """Zero-pad the contraction (K) dim up to a multiple, in whole 32-row
     quant blocks (LLaMA's down projection: 11008 -> 11264). Padded rows
-    carry scale 0 and bias 0, so they decode to exactly 0 whatever the
-    activations; the caller feeds activations widened to the padded K.
-    Returns (padded_qt, k_pad)."""
+    carry scale 0 and bias 0 (a codebook's rows code 0 and no sign), so
+    they decode to exactly 0 whatever the activations; the caller feeds
+    activations widened to the padded K. Returns (padded_qt, k_pad)."""
     if qt.interleaved_bk != 0 or qt.n_stack != 0:
         raise ValueError("pad before repacking")
     if multiple % 32:
@@ -273,12 +414,40 @@ def pad_qtensor_rows(qt: QTensor, multiple: int = 1024) -> tuple[QTensor, int]:
     kpad = (-qt.k) % multiple
     if kpad == 0:
         return qt, 0
+    if qt.kind == "dense":
+        raise NotImplementedError("pad_qtensor_rows: dense")
     rows = lambda a, r: torch.nn.functional.pad(a, (0, 0, 0, r))
-    if qt.kind not in ("nib4", "int8") or qt.signs is not None:
-        raise NotImplementedError(f"pad_qtensor_rows: {qt.kind}")
     group = qt.k // qt.scale.shape[0]
-    q = rows(qt.q, kpad // 2 if qt.kind == "nib4" else kpad)
-    opt = lambda a: None if a is None else rows(a, kpad // group)
-    return (QTensor(qt.kind, q, opt(qt.scale), opt(qt.bias), qt.k + kpad,
-                    qt.n, qt.ggml_type, qt.zero, 0, qt.q4_layout, qt.name,
-                    lut=qt.lut), kpad)
+    q = rows(qt.q, kpad // {"nib4": 2, "nib2": 4, "int8": 1}[qt.kind])
+    opt = lambda a, per: None if a is None else rows(a, kpad // per)
+    return (QTensor(qt.kind, q, opt(qt.scale, group), opt(qt.bias, group),
+                    qt.k + kpad, qt.n, qt.ggml_type, qt.zero, 0, qt.q4_layout,
+                    qt.name, lut=qt.lut, signs=opt(qt.signs, 8)), kpad)
+
+
+def to_dense_bf16(qt: QTensor) -> QTensor:
+    """Dequantize a QTensor once, on its own device, into a dense bf16
+    QTensor (ops.qmatmul.dequantize, as the JAX package's dequantize_xla);
+    a dense one is returned as it is. The bf16 residency of
+    runtime/engine.Engine: twice the bytes of a 4-bit weight, no expansion
+    in the products."""
+    if qt.kind == "dense":
+        return qt
+    from ..ops.qmatmul import dequantize
+    return QTensor("dense", dequantize(qt, torch.bfloat16), None, None, qt.k,
+                   qt.n, qt.ggml_type, name=qt.name)
+
+
+def params_to_dense_bf16(params):
+    """Map to_dense_bf16 over every QTensor leaf of a params tree, one leaf
+    at a time, so no more than one leaf's temporaries are alive at once;
+    the new tree holds no quantized tensor, and those of `params` are
+    released when the caller drops it."""
+    def walk(d):
+        if isinstance(d, dict):
+            return {k: walk(v) for k, v in d.items()}
+        if isinstance(d, list):
+            return [walk(v) for v in d]
+        return to_dense_bf16(d) if isinstance(d, QTensor) else d
+
+    return walk(params)

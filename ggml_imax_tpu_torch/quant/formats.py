@@ -1,6 +1,6 @@
 """Block-quantization format metadata (the port's own copy of
-ggml_imax_tpu/quant/formats.py, trimmed to the float and the
-non-codebook block formats).
+ggml_imax_tpu/quant/formats.py: the float formats, the basic and K-quant
+block formats and the IQ codebook formats).
 
 `GGMLType` keeps ggml's integer values so a type read from the JAX package
 or a GGUF file maps by value.
@@ -79,4 +79,22 @@ FORMATS: dict[GGMLType, FormatInfo] = {
                               QK_K // 2 + QK_K // 4 + QK_K // 16 + 2, True),
     # f32 d, int8 quants, 16 int16 sums of 16
     GGMLType.Q8_K: FormatInfo("q8_K", QK_K, 4 + QK_K + QK_K // 16 * 2, True),
+    # the IQ codebook formats (ggml-common.h): d, grid indices with their
+    # signs and sub-scales
+    GGMLType.IQ2_XXS: FormatInfo("iq2_xxs", QK_K, 2 + QK_K // 8 * 2, True),
+    GGMLType.IQ2_XS: FormatInfo("iq2_xs", QK_K,
+                                2 + QK_K // 8 * 2 + QK_K // 32, True),
+    GGMLType.IQ2_S: FormatInfo("iq2_s", QK_K, 2 + QK_K // 4 + QK_K // 16,
+                               True),
+    GGMLType.IQ3_XXS: FormatInfo("iq3_xxs", QK_K, 2 + QK_K // 4 + QK_K // 8,
+                                 True),
+    GGMLType.IQ3_S: FormatInfo("iq3_s", QK_K,
+                               2 + 13 * (QK_K // 32) + QK_K // 64, True),
+    GGMLType.IQ1_S: FormatInfo("iq1_s", QK_K, 2 + QK_K // 8 + QK_K // 16,
+                               True),
+    GGMLType.IQ1_M: FormatInfo("iq1_m", QK_K,
+                               QK_K // 8 + QK_K // 16 + QK_K // 32, True),
+    GGMLType.IQ4_NL: FormatInfo("iq4_nl", QK, 2 + QK // 2, True),
+    GGMLType.IQ4_XS: FormatInfo("iq4_xs", QK_K,
+                                2 + 2 + QK_K // 64 + QK_K // 2, True),
 }

@@ -24,6 +24,7 @@ import torch
 from .. import _build
 from .._device import resolve_device
 from ..ops.sampling import gumbel, sample_gumbel, sample_greedy, sample_host
+from ..quant.device import params_to_dense_bf16
 
 
 def _bucket(n: int, buckets=(8, 16, 32, 64, 128, 256, 512, 1024, 2048)) -> int:
@@ -112,6 +113,12 @@ class Engine:
     fused_kv_update: single-token steps write their K/V row inside the
     attention kernel (the fused kernel's flat mode; a model without that
     route raises).
+    residency: "as-is" (the default: the params as given) or "bf16" (every
+    QTensor dequantized once, on its device, into a dense bf16 one:
+    quant.device.params_to_dense_bf16). The JAX package's "q4-fused" and
+    "q4-stacked" raise NotImplementedError: its prepare_fused is another
+    graph than the port's (ROADMAP Queue 3), and the port prepares a model
+    with prepare_fused and ops.qmm.params_repack itself.
 
     generate() runs in the engine's own KV arena, allocated once (a
     captured span holds its addresses) and cleared at each call; its decode
@@ -121,7 +128,18 @@ class Engine:
     def __init__(self, model_module, cfg, params, *,
                  compute_dtype=torch.bfloat16, kv_dtype=torch.bfloat16,
                  n_ctx: int | None = None, batch: int = 1, device=None,
-                 fused_kv_update: bool = False):
+                 fused_kv_update: bool = False, residency: str = "as-is"):
+        if residency in ("q4-fused", "q4-stacked"):
+            raise NotImplementedError(
+                f"residency {residency!r} is not ported: prepare_fused is a "
+                "different graph in each package (ROADMAP Queue 3); prepare "
+                "the params with the model's prepare_fused and "
+                "ops.qmm.params_repack instead")
+        if residency == "bf16":
+            params = params_to_dense_bf16(params)
+        elif residency != "as-is":
+            raise ValueError(residency)
+        self.residency = residency
         self.device = resolve_device(device)
         self.fused_kv_update = fused_kv_update
         self.model = model_module

@@ -1799,8 +1799,9 @@ def moved(d, dev):
     if isinstance(d, list):
         return [moved(v, dev) for v in d]
     if isinstance(d, QTensor):
-        return replace(d, q=d.q.to(dev), scale=d.scale.to(dev),
-                       bias=None if d.bias is None else d.bias.to(dev))
+        opt = lambda t: None if t is None else t.to(dev)
+        return replace(d, q=d.q.to(dev), scale=opt(d.scale), bias=opt(d.bias),
+                       lut=opt(d.lut), signs=opt(d.signs))
     return d.to(dev)
 
 
@@ -2003,3 +2004,210 @@ def test_small_q4km_llama_launch_counts(gen):
         assert bool(torch.isfinite(a).all())
         assert float((a - b).abs().max()) < limit
     _build.reset_launches()
+
+
+# ---- the IQ formats: IQ4 on the nat8 kernels, the codebook layouts' plain
+# route, the bf16 residency
+
+def iq4_nat8(K, N, gen, levels=None):
+    """An IQ4_XS weight as quant.device lays it out and params_repack tags
+    it: int8 values of KVALUES_IQ4NL (uniform, or all `levels`), per-32
+    f32 scales, no bias, nat8."""
+    from ggml_imax_tpu_torch.quant.codecs import KVALUES_IQ4NL
+    table = torch.from_numpy(KVALUES_IQ4NL).cuda()
+    idx = torch.randint(0, 16, (K * N,), dtype=torch.int32, generator=gen,
+                        device="cuda")
+    q = table.index_select(0, idx).reshape(K, N)
+    if levels is not None:
+        q.fill_(levels)
+    s = torch.rand((K // 32, N), generator=gen, device="cuda") * 0.01
+    return qmm.repack_nat8(QTensor("int8", q, s, None, K, N, GGMLType.IQ4_XS),
+                           512 if K % 512 == 0 else K)
+
+
+@pytest.mark.parametrize("levels", [-127, 113])
+def test_nat8_on_iq4_levels_at_their_extremes(gen, levels):
+    """Every IQ4 weight at the table's ends (-127, 113) against Q8_0
+    activations of +-127: the int32 dots' largest IQ4 magnitudes
+    (32 x 127 x 127), W8A8 exact within rel 1e-5 and W8A16 within 1e-4 of
+    the plain versions."""
+    qt = iq4_nat8(4096, 4096, gen, levels)
+    x = torch.randn(1, 4096, generator=gen, device="cuda").sign() * 3.0
+    x8, _ = qmm.quantize_activations_q8(x, 32)
+    assert int(x8.abs().min()) == 127
+    check_w8a8(qt, x)
+    check_nat8(qt, x.repeat(8, 1))
+
+
+# LLaMA-2 7B IQ4_XS's fused products (chip_smoke phase 9c): qkv_w, o_w,
+# gu_w (11008 padded to 11264, twice) and down_w
+IQ4_SHAPES = [(4096, 12288), (4096, 4096), (4096, 22528), (11264, 4096)]
+
+
+@pytest.mark.parametrize("m", [1, 8, 100])
+@pytest.mark.parametrize("k,n", IQ4_SHAPES)
+def test_nat8_on_iq4_weights_at_llama_shapes(gen, k, n, m):
+    qt = iq4_nat8(k, n, gen)
+    x = torch.randn(m, k, generator=gen, device="cuda")
+    if m == 1:
+        check_w8a8(qt, x)
+    else:
+        check_nat8(qt, x)
+
+
+CODEBOOK = ["IQ2_XXS", "IQ2_XS", "IQ2_S", "IQ3_XXS", "IQ3_S"]
+
+
+@pytest.mark.parametrize("fmt", CODEBOOK)
+def test_codebook_dequantize_and_get_rows_on_card_match_cpu(gen, fmt):
+    """The nib2 and lut layouts expanded on the card (dequantize, get_rows,
+    the qmatmul plain route) equal the same on the CPU bit for bit (the
+    matmul within rel 1e-5: its sums run in another order); no kernel is
+    launched."""
+    from ggml_imax_tpu_torch.ops import embedding, qmatmul
+    from ggml_imax_tpu_torch.quant import codecs, device
+    t = GGMLType[fmt]
+    raw = codecs.random_blocks(t, 768 * 1000 // 256,
+                               np.random.default_rng(1), 1e-3)
+    cpu = device.to_device_format(raw, t, (768, 1000), device="cpu")
+    card = device.to_device_format(raw, t, (768, 1000), device="cuda")
+    assert card.q.is_cuda and card.lut.is_cuda
+    assert (card.signs is not None) == (cpu.kind == "nib2")
+    ids = torch.tensor([[0, 999, 5, 5], [17, 640, 128, 1]])
+    _build.reset_launches()
+    for dt in (torch.float32, torch.bfloat16):
+        assert torch.equal(qmatmul.dequantize(card, dt).cpu(),
+                           qmatmul.dequantize(cpu, dt))
+        assert torch.equal(embedding.get_rows(card, ids.cuda(), dt).cpu(),
+                           embedding.get_rows(cpu, ids, dt))
+    x = torch.randn(3, 768)
+    got = qmatmul.qmatmul(x.cuda(), card, out_dtype=torch.float32).cpu()
+    assert rel(got, qmatmul.qmatmul(x, cpu, out_dtype=torch.float32)) < 1e-5
+    assert not any(_build.LAUNCHES.values())
+
+
+def iq4_xs_types(name, layer):
+    """llama.cpp's LLAMA_FTYPE_MOSTLY_IQ4_XS mix without an importance
+    matrix (llama_tensor_get_type; chip_smoke phase 9c): `output` Q6_K,
+    every other 2-D weight IQ4_XS."""
+    return GGMLType.Q6_K if name == "output" else GGMLType.IQ4_XS
+
+
+def small_iq4xs_llama(dev, fuse=True):
+    """The small LLaMA of small_llama in the IQ4_XS mix, host-quantized
+    (the port's IQ4_XS codec), prepare_fused (IQ4 q/k/v fuse) and
+    repacked (IQ4_XS nat8 g 32 f32, the Q6_K head nat8 g 16), moved to
+    `dev`; fuse False: the raw weights."""
+    from ggml_imax_tpu_torch.models import llama
+    from ggml_imax_tpu_torch.quant.device import quantize_for_device
+    cfg = llama.LlamaConfig(**SMALL_LLAMA)
+    rng = np.random.default_rng(5)
+    E, F, kv = cfg.n_embd, cfg.n_ff, cfg.n_head_kv * cfg.head_dim
+
+    def q(name, k, n):
+        w = (rng.standard_normal((k, n)) * 0.08).astype(np.float32)
+        return quantize_for_device(w, iq4_xs_types(name, None), device="cpu")
+
+    def norm(n):
+        return torch.from_numpy((1 + 0.1 * rng.standard_normal(n))
+                                .astype(np.float32))
+
+    p = {"tok_embd": q("tok_embd", E, cfg.n_vocab), "out_norm": norm(E),
+         "output": q("output", E, cfg.n_vocab), "layers": []}
+    for _ in range(cfg.n_layer):
+        p["layers"].append({
+            "attn_norm": norm(E), "q_w": q("q_w", E, E), "k_w": q("k_w", E, kv),
+            "v_w": q("v_w", E, kv), "o_w": q("o_w", E, E),
+            "ffn_norm": norm(E), "gate_w": q("gate_w", E, F),
+            "up_w": q("up_w", E, F), "down_w": q("down_w", F, E)})
+    if fuse:
+        p = qmm.params_repack(llama.fuse_gate_up(llama.fuse_qkv(p),
+                                                 pad_multiple=1024))
+    return cfg, moved(p, dev)
+
+
+def run_small_llama(cfg, p, dev, engine=None):
+    """A 24-token prefill and two decode steps (the model's forward, or
+    engine's prefill / decode_step): logits, and the card's launches."""
+    from ggml_imax_tpu_torch.models import llama
+    prompt = np.random.default_rng(1).integers(0, 512, 24)
+    _build.reset_launches()
+    if engine is not None:
+        cache = engine.new_cache()
+        lg, cache = engine.prefill(cache, prompt[None])
+        steps = [torch.from_numpy(lg)]
+        for i, tok in enumerate((7, 300)):
+            lg, cache = engine.decode_step(cache, np.array([tok]), 24 + i)
+            steps.append(torch.from_numpy(lg))
+    else:
+        cache = llama.init_cache(cfg, device=dev)
+        lg, cache = llama.forward(cfg, p, torch.as_tensor(prompt[None],
+                                                          device=dev),
+                                  torch.arange(24, device=dev)[None], cache, 0)
+        steps = [lg[0, -1:].cpu()]
+        for i, tok in enumerate((7, 300)):
+            lg, cache = llama.forward(cfg, p, torch.tensor([[tok]], device=dev),
+                                      torch.tensor([[24 + i]], device=dev),
+                                      cache, 24 + i)
+            steps.append(lg[0].cpu())
+    counts = {k: n for k, n in _build.LAUNCHES.items() if n}
+    _build.reset_launches()
+    return steps, counts
+
+
+def test_small_iq4xs_llama_launch_counts(gen):
+    """Phase 9c's launch arithmetic at 2 layers: a decode step runs 4 L + 1
+    products on nat8 W8A8 (qkv_w, o_w, gu_w, down_w, the Q6_K head), a
+    prefill the same on W8A16, no W4A8 / W4A16. Logits within 3.5% of the
+    largest |logit| of the CPU run (chip_smoke's ROUTE_TOL, as
+    test_small_llama_on_card_matches_cpu)."""
+    outs, counts = {}, {}
+    for dev in ("cuda", "cpu"):
+        cfg, p = small_iq4xs_llama(dev)
+        outs[dev], counts[dev] = run_small_llama(cfg, p, dev)
+    L = 2
+    assert counts["cuda"] == {"nat8_w8a16": 4 * L + 1, "nat8_w8a8":
+                              2 * (4 * L + 1), "flash_attention": L,
+                              "flash_backward_tiles": L,
+                              "decode_attention": 2 * L}
+    limit = 3.5e-2 * max(float(b.abs().max()) for b in outs["cpu"])
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) < limit
+
+
+def test_engine_bf16_residency_on_card_matches_cpu(gen):
+    """Engine(residency="bf16") dequantizes the IQ4_XS mix on the card into
+    dense bf16 weights equal bit for bit to the CPU's; its prefill and two
+    decode steps launch no product kernel (the dense plain route) and agree
+    with the CPU's within 3.5% of the largest |logit|. Dropped, it frees
+    its weights."""
+    import gc
+
+    from ggml_imax_tpu_torch.models import llama
+    from ggml_imax_tpu_torch.runtime.engine import Engine
+    outs, engs = {}, {}
+    base = torch.cuda.memory_allocated()
+    for dev in ("cuda", "cpu"):
+        cfg, p = small_iq4xs_llama(dev, fuse=False)
+        engs[dev] = Engine(llama, cfg, p, residency="bf16", device=dev,
+                           n_ctx=64)
+        del p
+        outs[dev], counts = run_small_llama(cfg, None, dev, engs[dev])
+        if dev == "cuda":
+            card_counts = counts
+            held = torch.cuda.memory_allocated() - base
+    w_card = engs["cuda"].params["layers"][1]["gate_w"]
+    assert w_card.kind == "dense" and w_card.q.dtype == torch.bfloat16
+    assert torch.equal(w_card.q.cpu(), engs["cpu"].params["layers"][1]
+                       ["gate_w"].q)
+    assert set(card_counts) <= {"flash_attention", "flash_backward_tiles",
+                                "decode_attention"}
+    limit = 3.5e-2 * max(float(b.abs().max()) for b in outs["cpu"])
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) < limit
+    assert held > 0
+    del engs["cuda"], w_card
+    gc.collect()
+    assert torch.cuda.memory_allocated() - base < held // 2

@@ -95,10 +95,10 @@ def test_codecs_bit_exact(fmt):
 
 
 def test_codecs_reject_other_types():
-    # the codebook kinds have no codec in the port yet, and Q8_K no device
-    # layout (as in the JAX package)
-    with pytest.raises(NotImplementedError):
-        tcodecs.quantize(np.zeros(256, np.float32), GGMLType.IQ4_NL)
+    # the grid-search codebook kinds have no encoder in the port yet, and
+    # Q8_K no device layout (as in the JAX package)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        tcodecs.quantize(np.zeros(256, np.float32), GGMLType.IQ2_XXS)
     with pytest.raises(NotImplementedError):
         tdev.quantize_for_device(np.zeros((256, 8), np.float32),
                                  GGMLType.Q8_K, device="cpu")

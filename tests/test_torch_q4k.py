@@ -158,8 +158,8 @@ def test_natpair_repack_byte_identical(scale_dtype):
 
 def test_other_formats_still_refused():
     # Q8_K (the K-quants' activation format) has no device layout in
-    # either package; the codebook kinds are not ported yet
-    for t in (GGMLType.Q8_K, GGMLType.IQ4_NL, GGMLType.IQ2_XXS):
+    # either package, nor have the integer and f64 tensor types
+    for t in (GGMLType.Q8_K, GGMLType.I32, GGMLType.F64):
         raw = np.zeros(FORMATS.get(t, FORMATS[GGMLType.Q8_K]).type_size,
                        np.uint8)
         with pytest.raises(NotImplementedError):

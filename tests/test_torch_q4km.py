@@ -22,10 +22,10 @@ decode kernels, at a decode step). Logits within atol 0.1, argmax equal
 wherever the reference's top-2 margin exceeds 0.2 (as
 tests/test_torch_llama.py: the largest |logit| is ~5; the prefill attention
 is bf16 flash in the port and f32 XLA attention in the reference); with an
-f32 prefill attention patched in, within 1e-4 (bf16 KV; one prefill row
-within 1e-2, see the test). Also: the rule, synthetic_params_device's
-per-tensor types and its Q6_K draw, and the Engine's greedy loop on the
-mix.
+f32 prefill attention patched in, every op teacher-forced on the
+reference's input within 1e-4 (bf16 KV, see the test). Also: the rule,
+synthetic_params_device's per-tensor types and its Q6_K draw, and the
+Engine's greedy loop on the mix.
 """
 import importlib
 
@@ -48,7 +48,8 @@ from ggml_imax_tpu_torch.runtime.engine import Engine
 
 from test_torch_cuda import q4_k_m_types as q4_k_m
 from test_torch_cuda import use_more_bits
-from test_torch_llama import _f32_attention, assert_close_logits
+from test_torch_llama import (_f32_attention, assert_close_logits,
+                              teacher_forced)
 
 jqmatmul = importlib.import_module("ggml_imax_tpu.ops.qmatmul")
 
@@ -189,19 +190,20 @@ def test_mix_matches_reference_with_f32_prefill_attention(gate_up,
                                                           monkeypatch):
     """The Q4_K and Q6_K products, the pads and the norms agree with the
     reference to float rounding once the prefill attention is computed
-    alike (f32, bf16 KV) on the reference's routes: every decode step
-    within 1e-4 (seen: 1.4e-6), every prefill row within 1e-4 (seen: 1e-6)
-    but at most one, where one activation's bf16 rounding flips between the
-    two libraries (seen: 4.1e-3 on one row of 16; an all-Q4_K model built
-    the same way shows one such row too), within 1e-2. The unfused graph
-    and fuse_gate_up's alike."""
-    ref = jax_logits("bf16")
+    alike (f32, bf16 KV) on the reference's routes: every op, teacher-forced
+    on the reference's input (test_torch_llama.TeacherForced: without it,
+    one activation's bf16 rounding flips between the two libraries on some
+    hosts and parts its row's logits by up to 4e-3), within 1e-4 of the
+    reference's (seen: 4.3e-6), and so every logit. The unfused graph and
+    fuse_gate_up's alike (the fused gate/up product held to the reference's
+    two)."""
     monkeypatch.setattr(tllama, "attention", _f32_attention)
     monkeypatch.setattr(tllama, "select_decode_path", lambda **kw: "xla")
-    got = _port_logits("bf16", *_tokens(), gate_up)
-    rows = np.abs(got[0] - ref[0]).max(-1)
-    assert int((rows > 1e-4).sum()) <= 1 and float(rows.max()) <= 1e-2
-    assert_close_logits(ref[1:], got[1:], atol=1e-4)
+    ref, got, tf = teacher_forced(
+        monkeypatch, lambda: _jax_logits("bf16", *_tokens()),
+        lambda: _port_logits("bf16", *_tokens(), gate_up))
+    tf.check(1e-4)
+    assert_close_logits(ref, got, atol=1e-4)
 
 
 def test_fuse_gate_up_on_the_mix_matches_reference():
