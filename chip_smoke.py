@@ -3,8 +3,9 @@
 (one stream, and continuous-batching serving), GPT-2 1558M (XL) Q8_0 and
 Q5_K, GPT-2 117M training steps, GPT-2 117M in Q3_K and Q2_K (with the
 row-pair and u-order int8 layouts) and in Q4_0, Q4_1, Q5_0, Q5_1, Q5_K and
-Q6_K and in the nine IQ formats, and LLaMA-2 7B in Q4_K, in the Q4_K_M
-mix and in the IQ4_XS mix (with its bf16 residency).
+Q6_K and in the nine IQ formats, LLaMA-2 7B in Q4_K, in the Q4_K_M
+mix and in the IQ4_XS mix (with its bf16 residency), and Whisper small
+and medium in Q5_0 (with the small one's transcription pipeline).
 
     python3 chip_smoke.py
 
@@ -49,7 +50,11 @@ Phases (any failure exits nonzero and prints no result line):
    W8A16 at g 16, bf16 scales, no bias on LLaMA-2 7B Q4_K_M's Q6_K v_w,
    down_w and head (M 1, 8, 512), at g 32 with f32 scales and a bias on
    GPT-2 XL Q5_K's fc_w (M 1, 5, 8, 128, 512), and W4A8 / W4A16 with f32
-   scales and a bias on GPT-2 117M Q4_1's attn_w (M 1, 8, 512)), with its
+   scales and a bias on GPT-2 117M Q4_1's attn_w (M 1, 8, 512)); Whisper's
+   (phase 10): flash with no mask at Tq = Tk = 1500 (padded keys 1536) over
+   12 and 16 heads of 64 and at B 5, Tq 4, Tk 1500, nat8 W8A16 on Q5_0
+   weights at mlp0_w M 1500 and qkv_w M 20 and 5, W8A8 on the head padded
+   to 768 x 51968, and conv_1d against f64 (f32, not TF32)), with its
    time (CUDA
    events, L2 flushed before each launch), the plain version's time, one
    PyTorch library call computing the same function (a yardstick only: the
@@ -61,6 +66,9 @@ Phases (any failure exits nonzero and prints no result line):
    routes, bf16 and q8_0 KV), on the card (kernels) against the same
    model on the CPU (plain versions), prefill + decode, and the small
    LLaMA's decode-only celled ubatch of 2 rows through both cells routes;
+   a 2 + 2-layer Whisper (head_dim 64, 150 audio positions, Q5_0, the
+   head padded) on the card against the CPU: encode, cross K/V, the
+   prompt and 4 fed steps with exact launch counts (SMALL_WHISPER_TOL);
    and the small
    GPT-J's BatchedEngine (two requests and a fork, q8_0 KV, both cells
    routes) on the card against the CPU, ubatch by ubatch; then
@@ -199,7 +207,25 @@ Phases (any failure exits nonzero and prints no result line):
    by a group) that must fail it; then Engine(residency="bf16") on the
    same weights: one request (TTFT, tok/s, resident GiB), the teacher-
    forced pass held to the plain-version pass (BF16_RESIDENCY_TOL), and
-   its weights freed once the engine is dropped.
+   its weights freed once the engine is dropped;
+10. Whisper Q5_0 (tools/bench_models.py's whisper-small-q5_0,
+   whisper-small-rtf and whisper-medium-q5_0): 10a Whisper small (12 + 12
+   layers of 768) drawn on the card (synthetic_params_device), the head
+   padded 51865 -> 51968, prepare_fused + params_repack: the encoder and
+   the cross K/V of one 30 s mel (ms a chunk, 96 nat8 W8A16 and 12 flash an
+   encode), 3 x 64 greedy tokens from sot at one row, eager (ms a token,
+   tok/s, 73 W8A8 a step), each with its device busy share; the route
+   check: the same pass (encode, prompt, 8 steps) with every plain version
+   on the card, its logits within ROUTE_TOL and, forced op by op on the
+   kernels' pass, every op within WHISPER_ROUTE_TOL, and a planted fault
+   (the encoder's 36 padded keys counted as visible) that must fail it;
+   10b WhisperPipeline on the same weights with the head unpadded
+   (dequantize + matmul), beam 5, one temperature, 64 tokens a window: a
+   30 s warm-up, then 120 s of default_rng(3) noise x 0.1 (RTF, segments,
+   tokens, exact launch counts: per window an encode, the prompt of 5 rows
+   x 4 tokens and 72 W8A16 a beam step), a beam step's device busy share
+   and the gated head's share of it; 10c Whisper medium (24 + 24 layers of
+   1024) as 10a without the route check.
 
     python3 chip_smoke.py --serving-kernels [ROOT]
     python3 chip_smoke.py --gpt2-kernels [ROOT]
@@ -210,7 +236,7 @@ unled, with its time at each K split the plan may take), on the port of
 the checkout at ROOT (default: this one): the same script times another
 commit's kernels.
 
-Each engine phase (5b, 8b, 8c, 9b and 9c too), and the timed training
+Each engine phase (5b, 8b, 8c, 9b, 9c and 10 too), and the timed training
 steps, sets the launch counters to 0 just before its run and reads them
 just after; a replayed graph adds the launches its capture recorded
 (_build.CapturedLaunches). Each phase prints its seconds. Every flash forward
@@ -1351,7 +1377,9 @@ def format_weight(fmt, K, N, gen, scale_dtype):
     per-32 raw levels [0, 31] with a bias -min (models/gpt2
     .synthetic_params_device); "Q4_1" per-32 nib4, zero 0, with a bias m
     (natpair); "IQ4_XS" per-32 int8 values of KVALUES_IQ4NL, f32 scales, no
-    bias (models/llama.synthetic_params_device)."""
+    bias (models/llama.synthetic_params_device); "Q5_0" per-32 int8 levels
+    in [-16, 15], f32 scales, no bias (models/whisper
+    .synthetic_params_device)."""
     from ggml_imax_tpu_torch.ops import qmm
     from ggml_imax_tpu_torch.quant.device import QTensor
     from ggml_imax_tpu_torch.quant.formats import GGMLType
@@ -1374,7 +1402,8 @@ def format_weight(fmt, K, N, gen, scale_dtype):
                      N, GGMLType.IQ4_XS)
         return qmm.repack_nat8(qt, tag, scale_dtype=scale_dtype)
     lo, hi, g, div, bias = {"Q6_K": (-32, 32, 16, 18.5, False),
-                            "Q5_K": (0, 32, 32, 18, True)}[fmt]
+                            "Q5_K": (0, 32, 32, 18, True),
+                            "Q5_0": (-16, 16, 32, 9.2, False)}[fmt]
     q = torch.randint(lo, hi, (K, N), dtype=torch.int8, generator=gen,
                       device="cuda")
     qt = QTensor("int8", q, normal((K // g, N)).abs_().mul_(0.02 / div),
@@ -3542,6 +3571,539 @@ def llama_iq4xs(failures):
                      "llama_iq4_xs_bf16": bcounts}
 
 
+# Whisper small and medium in Q5_0 (phase 10): the reference benchmark's
+# whisper-small-q5_0 / whisper-medium-q5_0 (tools/bench_models.py:368-390),
+# n_audio_ctx 1500 (30 s of audio), n_vocab 51865 (multilingual)
+WHISPER_SMALL = dict(n_vocab=51865, n_audio_ctx=1500, n_audio_state=768,
+                     n_audio_head=12, n_audio_layer=12, n_text_ctx=448,
+                     n_text_state=768, n_text_head=12, n_text_layer=12,
+                     n_mels=80)
+WHISPER_MEDIUM = dict(WHISPER_SMALL, n_audio_state=1024, n_audio_head=16,
+                      n_audio_layer=24, n_text_state=1024, n_text_head=16,
+                      n_text_layer=24)
+# measure_whisper: 64 greedy tokens from sot a rep; measure_whisper_rtf: a
+# 30 s warm-up, then 120 s of default_rng(3) noise x 0.1, beam 5, one
+# temperature, 64 tokens a window
+WHISPER_TOKENS, WHISPER_AUDIO_S = 64, 120
+# The small Whisper of phase 3 (the CPU tests' shape, 150 audio positions):
+# its card and CPU runs agree to this share of the largest |logit|, and the
+# encoder states to this share of their largest |value|. Readings of this
+# script on an H100 (PERF.md): logits 1.35e-2, encoder states 2.6e-3 (bf16
+# and int8 roundings flipped by another order of summation; the CPU tests
+# read 1.2e-2 and 2.3e-3 between the port and the JAX package).
+SMALL_WHISPER = dict(n_vocab=1000, n_audio_ctx=150, n_audio_state=128,
+                     n_audio_head=2, n_audio_layer=2, n_text_ctx=32,
+                     n_text_state=128, n_text_head=2, n_text_layer=2,
+                     n_mels=16)
+SMALL_WHISPER_TOL = 5e-2
+# Phase 10's route check: a Whisper small pass (encode, the 4-token prompt,
+# 8 greedy steps) with the kernels and the same pass with every plain
+# version on the card, forced op by op on the kernels' pass (ForcedOps):
+# every op's output within this share of its largest |value|. Readings of
+# this script on an H100 (PERF.md): sound 3.36e-4 (attention: the flash
+# kernel rounds P against its running max; the products 2.3e-6), the
+# planted fault (the encoder's 36 padded keys visible) 4.70e-2. 4e-3 is 12x
+# the one and 1/12 of the other. Unforced, the passes' logits parted by
+# 1.57% of the largest |logit| and the fault's by 2.73% (bf16 and int8
+# roundings flipped over 12 layers), too close to tell apart; the sound
+# pass's logits are held to ROUTE_TOL, as the engines' are.
+WHISPER_ROUTE_TOL = 4e-3
+
+
+def flash_no_mask(ck, timer, gen, label, B, Tq, Tk, H, D=64):
+    """Flash without a mask at a key count off the 64-key tile and the
+    reference's 512-key block (Whisper's 1500: padded_keys 1536), timed
+    led beside the plain version, SDPA and the bound (q, k, v read once in
+    bf16, out written in f32; 4 D operations a (query, key) pair)."""
+    from ggml_imax_tpu_torch.ops import flash_attention as fa
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q = torch.randn(B, Tq, H, D, generator=gen, device="cuda")
+    k, v = (torch.randn(B, Tk, H, D, generator=gen, device="cuda")
+            for _ in range(2))
+    args = fa._prep(q, k, v, None, 0.0) + (1.0 / math.sqrt(D), 0.0, False)
+    got, _ = fa.flash_attention_kernel(*args)
+    ref, _ = fa.flash_attention_plain(*args)
+    qb, kb, vb = (t.to(torch.bfloat16).transpose(1, 2).contiguous()
+                  for t in (q, k, v))
+    ck.record("flash_attention", f"{label} B={B} Tq={Tq} Tk={Tk} H={H} D={D} "
+              f"no mask (padded keys {fa.padded_keys(Tk)})", got, ref, 1e-2,
+              timer(lambda: fa.flash_attention_kernel(*args), iters=50,
+                    lead=True),
+              timer(lambda: fa.flash_attention_plain(*args), iters=5),
+              timer(lambda: sdpa(qb, kb, vb), iters=50, lead=True),
+              (B * Tq * H + 2 * B * Tk * H) * D * 2 + B * Tq * H * D * 4,
+              4 * D * B * H * Tq * Tk)
+
+
+def check_conv_f32(failures, gen):
+    """Whisper's two convolutions (ops/conv.conv_1d, cuDNN) on the card
+    against f64 on the card: within 1e-5 of the largest |output| shows
+    f32, not TF32, arithmetic; the same call with cuDNN's TF32 allowed is
+    logged beside (the check's control)."""
+    from ggml_imax_tpu_torch.ops.conv import conv_1d
+    E = WHISPER_SMALL["n_audio_state"]
+    for cin, s, w in ((80, 1, 3000), (E, 2, 3000)):
+        x = torch.randn(1, cin, w, generator=gen, device="cuda")
+        wt = torch.randn(E, cin, 3, generator=gen, device="cuda") * 0.05
+        ref = F.conv1d(x.double(), wt.double(), stride=s, padding=1)
+        err = rel_err(conv_1d(x, wt, s, 1), ref)
+        old = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            tf32 = rel_err(F.conv1d(x, wt, stride=s, padding=1), ref)
+        finally:
+            torch.backends.cudnn.allow_tf32 = old
+        log(f"  conv_1d Cin {cin} -> {E}, stride {s}, W {w}: rel_err vs f64 "
+            f"{err:.2e} (limit 1e-05); with cuDNN's TF32 allowed {tf32:.2e}")
+        if err > 1e-5:
+            failures.append(f"conv_1d stride {s}: rel_err {err:.3e} vs f64")
+
+
+def check_whisper_kernels(ck, timer, gen):
+    """Whisper's shapes (phase 10): flash with no mask at Tq = Tk = 1500
+    over 12 heads of 64 (small) and 16 (medium), and the beam prompt's
+    cross-attention (B 5, Tq 4, Tk 1500); nat8 W8A16 on small's mlp0_w
+    (768 x 3072) at M 1500 (the encoder) and qkv_w (768 x 2304) at M 20
+    (the beam prompt, 5 rows of 4 tokens) and M 5 (a beam step); nat8 W8A8
+    on the head padded to 768 x 51968 at M 1 (a greedy step); and the
+    convolutions in f32."""
+    E, T = WHISPER_SMALL["n_audio_state"], WHISPER_SMALL["n_audio_ctx"]
+    flash_no_mask(ck, timer, gen, "whisper-small encoder", 1, T, T, 12)
+    flash_no_mask(ck, timer, gen, "whisper-medium encoder", 1, T, T, 16)
+    flash_no_mask(ck, timer, gen, "whisper-small beam prompt cross", 5, 4, T,
+                  12)
+    time_instance(ck, timer, gen, "whisper-small Q5_0 mlp0_w",
+                  format_weight("Q5_0", E, 4 * E, gen, None), (T,))
+    time_instance(ck, timer, gen, "whisper-small Q5_0 qkv_w",
+                  format_weight("Q5_0", E, 3 * E, gen, None), (20, 5))
+    time_instance(ck, timer, gen, "whisper-small Q5_0 d_te padded",
+                  format_weight("Q5_0", E, 51968, gen, None), (1,))
+    check_conv_f32(ck.failures, gen)
+
+
+def whisper_pass(cfg, params, mel, n_steps=8, feed=None, patches=(),
+                 device="cuda"):
+    """encode, the cross K/V, the prompt step and n_steps greedy decode
+    steps (fed `feed` instead of its own picks: a teacher-forced pass), the
+    launch counters set to 0 before each part and read after it. Returns
+    (picks, f32 logits (1, n_vocab) per forward on the host, counts by
+    part, the encoder states on the host)."""
+    from ggml_imax_tpu_torch import _build
+    from ggml_imax_tpu_torch.models import whisper as W
+    from ggml_imax_tpu_torch.runtime.whisper_pipeline import (FullParams,
+                                                              WhisperPipeline)
+    counts = {}
+    with patched(patches):
+        _build.reset_launches()
+        enc = W.encode(cfg, params, mel.to(device))
+        cross = W.precompute_cross_kv(cfg, params, enc)
+        counts["encode"] = dict(_build.LAUNCHES)
+        # the pipeline's prompt: [sot, en, transcribe, no-timestamps]
+        prompt = WhisperPipeline(cfg, None, device=device).initial_tokens(
+            FullParams())
+        T = len(prompt)
+        cache = W.init_cache(cfg, device=device)
+        _build.reset_launches()
+        lg, cache = W.decode(cfg, params, torch.tensor([prompt], device=device),
+                             torch.arange(T, device=device)[None], cache,
+                             cross, 0)
+        counts["prompt"] = dict(_build.LAUNCHES)
+        logs = [lg[0, -1:].float().cpu()]
+        picks = [int(logs[-1][0].argmax())]
+        _build.reset_launches()
+        for i in range(n_steps):
+            tok = picks[-1] if feed is None else feed[i]
+            lg, cache = W.decode(cfg, params,
+                                 torch.tensor([[tok]], device=device),
+                                 torch.full((1, 1), T + i, device=device),
+                                 cache, cross, T + i)
+            logs.append(lg[0, -1:].float().cpu())
+            picks.append(int(logs[-1][0].argmax()))
+        counts["steps"] = dict(_build.LAUNCHES)
+    return picks, logs, counts, enc.float().cpu()
+
+
+def whisper_expect(cfg, padded_head, n_steps, prompt_rows=1):
+    """The launches of whisper_pass's parts: per encode 6 W8A16 an encoder
+    layer and 2 (the cross K/V) a decoder layer, and a flash a layer (no
+    mask, so no tile map); the prompt (M = rows x tokens > 1) 6 W8A16 a
+    decoder layer (+1 for a padded head, which passes the N % 128 gate),
+    2 flash a layer (self-attention with its map, cross-attention without);
+    a greedy step (M 1) 6 W8A8 a layer (+1 for a padded head); attention
+    at one query row is attention_xla."""
+    Le, Ld, h = cfg.n_audio_layer, cfg.n_text_layer, int(padded_head)
+    return {"encode": {"nat8_w8a16": 6 * Le + 2 * Ld, "flash_attention": Le},
+            "prompt": {"nat8_w8a16": 6 * Ld + h, "flash_attention": 2 * Ld,
+                       "flash_backward_tiles": Ld},
+            "steps": {"nat8_w8a8": n_steps * (6 * Ld + h)}}
+
+
+def whisper_params(cfg, seed=0, pad_head=True, device="cuda"):
+    """synthetic_params_device (Q5_0), the head padded to a multiple of
+    128 columns as measure_whisper pads it (or left at n_vocab as
+    measure_whisper_rtf leaves it), prepare_fused, params_repack."""
+    from ggml_imax_tpu_torch.models import whisper as W
+    from ggml_imax_tpu_torch.ops.qmm import params_repack
+    from ggml_imax_tpu_torch.quant.device import pad_qtensor_cols
+    raw = W.synthetic_params_device(cfg, seed=seed, device=device)
+    if pad_head:
+        raw["d_te"] = pad_qtensor_cols(raw["d_te"], 128)[0]
+    return params_repack(W.prepare_fused(raw))
+
+
+def check_small_whisper(failures):
+    """The small Whisper (2 + 2 layers, head_dim 64, 150 audio positions,
+    the head padded 1000 -> 1024) on the card (kernels) against the same
+    weights on the CPU (plain versions): encode, cross K/V, the prompt and
+    4 teacher-forced steps, with the card run's exact launch counts."""
+    from ggml_imax_tpu_torch.models import whisper as W
+    cfg = W.WhisperConfig(**SMALL_WHISPER)
+    cpu = whisper_params(cfg, seed=5, device="cpu")
+    made = {"cpu": cpu, "cuda": moved(cpu, "cuda")}
+    mel = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (1, cfg.n_mels, 2 * cfg.n_audio_ctx)).astype(np.float32))
+    feed = list(np.random.default_rng(6).integers(0, cfg.n_vocab, 4))
+    runs = {dev: whisper_pass(cfg, made[dev], mel, 4, feed, device=dev)
+            for dev in ("cuda", "cpu")}
+    (_, lc, counts, ec), (_, lh, _, eh) = runs["cuda"], runs["cpu"]
+    err = max(float((a - b).abs().max()) for a, b in zip(lc, lh))
+    limit = SMALL_WHISPER_TOL * logit_scale(lh)
+    enc_err = rel_err(ec, eh)
+    want = whisper_expect(cfg, True, 4)
+    got = {part: {k: n for k, n in c.items() if n} for part, c in counts.items()}
+    log(f"  small Whisper Q5_0: encoder states rel_err card vs CPU "
+        f"{enc_err:.3e}, max |logit diff| {err:.3e} (limit {limit:.3e}), "
+        f"launches {got}")
+    if err > limit or enc_err > SMALL_WHISPER_TOL or got != want:
+        failures.append(f"small Whisper: logit diff {err:.3e}, encoder "
+                        f"{enc_err:.3e}, launches {got} (expected {want})")
+
+
+def padded_keys_visible():
+    """The route check's planted fault: the encoder's flash (Tq = Tk, no
+    mask) with the keys padded to padded_keys(Tk) by zeros and counted as
+    visible, where the reference scores them NEG (at 1500 keys: 36 padded
+    keys each adding exp(0 - m) to a row's sum)."""
+    from ggml_imax_tpu_torch.ops import flash_attention as fa
+    real = fa.flash_attention_kernel
+
+    def kernel(qb, kb, vb, m3, slopes, scale, softcap, want_lse, tiles=None):
+        Tq, Tk = qb.shape[1], kb.shape[1]
+        if m3 is None and Tq == Tk and fa.padded_keys(Tk) > Tk:
+            pad = (0, 0, 0, 0, 0, fa.padded_keys(Tk) - Tk)
+            kb, vb = (F.pad(t, pad).contiguous() for t in (kb, vb))
+        return real(qb, kb, vb, m3, slopes, scale, softcap, want_lse,
+                    tiles=tiles)
+    return [(fa, "flash_attention_kernel", kernel)]
+
+
+def whisper_encode_greedy(label, cfg, params, failures, busy_label=None):
+    """tools/bench_models.py measure_whisper on the port: the encoder + the
+    cross K/V of one 30 s mel (N(0, 0.5)), ms a chunk (best of 3 x 4
+    chained, host clock to a synchronize), then 64 greedy tokens from sot
+    at one row, eager, the argmax on the card (best of 3 reps, each at the
+    positions after the last), ms a token and tok/s; exact launch counts of
+    an encode and of the 3 reps; the device busy share of an encode and of
+    a greedy step (torch.profiler kernel time against the host-clock
+    time). Returns (summary, counts by part, the cross K/V)."""
+    from ggml_imax_tpu_torch import _build
+    from ggml_imax_tpu_torch.models import whisper as W
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    mel = torch.randn((1, cfg.n_mels, 2 * cfg.n_audio_ctx), generator=gen,
+                      device="cuda") * 0.5
+    enc_fn = lambda: W.precompute_cross_kv(cfg, params,
+                                           W.encode(cfg, params, mel))
+    t0 = time.time()
+    cross = enc_fn()
+    torch.cuda.synchronize()
+    first = time.time() - t0
+    want = whisper_expect(cfg, params["d_te"].n % 128 == 0, WHISPER_TOKENS)
+    counts = {}
+    _build.reset_launches()
+    cross = enc_fn()
+    torch.cuda.synchronize()
+    counts["encode"] = dict(_build.LAUNCHES)
+    check_counts(counts["encode"], want["encode"], failures)
+    enc_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(4):
+            cross = enc_fn()
+        torch.cuda.synchronize()
+        enc_ms.append((time.perf_counter() - t0) / 4 * 1e3)
+    enc_dev = _device_ms(lambda _: enc_fn(), 2)
+    enc_busy = sum(enc_dev.values()) if enc_dev else None
+    cache = W.init_cache(cfg, batch=1, device="cuda")
+    box = {"tok": torch.full((1, 1), cfg.token_sot, dtype=torch.long,
+                             device="cuda")}
+
+    def run(start, n):
+        for i in range(n):
+            lg, _ = W.decode(cfg, params, box["tok"],
+                             torch.full((1, 1), start + i, device="cuda"),
+                             cache, cross, start + i)
+            box["tok"] = lg[:, -1].argmax(-1, keepdim=True)
+        return int(box["tok"][0, 0])
+
+    run(0, WHISPER_TOKENS)                              # warm-up
+    _build.reset_launches()
+    dec_ms = []
+    for rep in range(3):
+        t0 = time.perf_counter()
+        run(WHISPER_TOKENS * (rep + 1), WHISPER_TOKENS)
+        dec_ms.append((time.perf_counter() - t0) / WHISPER_TOKENS * 1e3)
+    counts["greedy"] = dict(_build.LAUNCHES)
+    check_counts(counts["greedy"], {k: 3 * n for k, n in
+                                    want["steps"].items()}, failures)
+    step_dev = _device_ms(lambda i: run(300 + i, 1), 4)
+    step_busy = sum(step_dev.values()) if step_dev else None
+    ms, tok_ms = min(enc_ms), min(dec_ms)
+    busy = lambda b, wall: "not measured (no device time in the trace)" \
+        if b is None else f"{b:.3f} ms device busy = {100 * b / wall:.1f}%"
+    log(f"  {label}: encoder + cross K/V {ms:.3f} ms a 30 s chunk (best of "
+        f"3 x 4; reps {', '.join(f'{t:.3f}' for t in enc_ms)}; first call "
+        f"{first:.2f} s), {busy(enc_busy, ms)}")
+    log(f"  {label}: greedy {tok_ms:.3f} ms a token = {1e3 / tok_ms:.2f} "
+        f"tok/s (best of 3 x {WHISPER_TOKENS}; reps "
+        f"{', '.join(f'{t:.3f}' for t in dec_ms)}), a step "
+        f"{busy(step_busy, tok_ms)}")
+    for what, dev in (("encode", enc_dev), ("greedy step", step_dev)):
+        for key, t in sorted((dev or {}).items(), key=lambda kv: -kv[1])[:5]:
+            log(f"    {what} {t:9.4f} ms  {key[:90]}")
+    log(f"  {label}: launches an encode {counts['encode']}, over 3 x "
+        f"{WHISPER_TOKENS} greedy steps {counts['greedy']}")
+    return ({"encode_ms_per_30s_chunk": ms, "encode_reps_ms": enc_ms,
+             "encode_busy_ms": enc_busy, "decode_ms_per_token": tok_ms,
+             "decode_tok_s": 1e3 / tok_ms, "decode_reps_ms": dec_ms,
+             "step_busy_ms": step_busy}, counts, cross)
+
+
+class ForcedOps:
+    """Op-by-op teacher forcing of models/whisper on the card: a recording
+    pass keeps the output of every op the model calls (conv_1d, get_rows,
+    layer_norm, the products, attention, gelu) in program order; a forced
+    pass, run next on the same inputs, holds each of its ops' output to
+    the recorded output of the same op (max |diff| over that output's
+    largest |value|) and goes on with the recorded value, so each op's
+    difference stands alone instead of piling up over the layers."""
+
+    NAMES = ("conv_1d", "get_rows", "layer_norm", "qmatmul", "attention",
+             "gelu")
+
+    def __init__(self):
+        self.recs = {n: [] for n in self.NAMES}
+
+    def recording(self):
+        from ggml_imax_tpu_torch.models import whisper as W
+
+        def rec(name, fn):
+            def wrapped(*a, **kw):
+                out = fn(*a, **kw)
+                self.recs[name].append(out.detach().clone())
+                return out
+            return wrapped
+        return [(W, n, rec(n, getattr(W, n))) for n in self.NAMES]
+
+    def forcing(self, errs):
+        """Patches forcing a pass on the records; errs (name -> the largest
+        relative difference) fills as it runs."""
+        from ggml_imax_tpu_torch.models import whisper as W
+        queues = {n: list(r) for n, r in self.recs.items()}
+
+        def force(name, fn):
+            def wrapped(*a, **kw):
+                got, ref = fn(*a, **kw), queues[name].pop(0)
+                errs[name] = max(errs.get(name, 0.0), rel_err(got, ref))
+                return ref
+            return wrapped
+        return [(W, n, force(n, getattr(W, n))) for n in self.NAMES]
+
+
+def check_ops(label, errs, failures, control=False):
+    """Every op of a forced pass within WHISPER_ROUTE_TOL of its recorded
+    output; a control (a planted fault) must fail."""
+    ok = max(errs.values()) <= WHISPER_ROUTE_TOL
+    log(f"  {label}: largest relative difference per op "
+        f"{ {k: float(f'{v:.3e}') for k, v in errs.items()} } (limit "
+        f"{WHISPER_ROUTE_TOL:.0e}) -> {'holds' if ok else 'fails'}")
+    if ok == control:
+        failures.append(f"{label}: the check {'holds' if ok else 'fails'} "
+                        f"({errs})")
+
+
+def whisper_route_check(cfg, params, failures):
+    """A Whisper small pass (encode, the prompt, 8 greedy steps) with the
+    kernels, recorded op by op, and the same pass fed its tokens with every
+    plain version on the card: the logits within ROUTE_TOL of the largest
+    |logit| (check_forced), and, forced op by op on the kernels' pass
+    (ForcedOps), every op within WHISPER_ROUTE_TOL; the planted fault
+    (padded_keys_visible), forced on the same record, must fail that
+    check."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    mel = torch.randn((1, cfg.n_mels, 2 * cfg.n_audio_ctx), generator=gen,
+                      device="cuda") * 0.5
+    ops = ForcedOps()
+    ref = whisper_pass(cfg, params, mel, patches=ops.recording())
+    feed = ref[0][:-1]
+    plain = whisper_pass(cfg, params, mel, feed=feed, patches=plain_on_card())
+    log(f"  encoder states, kernels vs plain versions: rel_err "
+        f"{rel_err(ref[3], plain[3]):.3e}")
+    check_forced("Whisper small Q5_0, kernels vs plain versions on the card",
+                 ref, plain, failures, ROUTE_TOL)
+    for label, patches, control in (
+            ("Whisper small, forced op by op, plain versions vs kernels",
+             plain_on_card(), False),
+            ("control: Whisper small forced op by op, the encoder's 36 padded "
+             "keys counted as visible", padded_keys_visible(), True)):
+        errs = {}
+        whisper_pass(cfg, params, mel, feed=feed,
+                     patches=list(patches) + ops.forcing(errs))
+        check_ops(label, errs, failures, control)
+    del ops
+
+
+def whisper_pipeline_rtf(cfg, params, failures):
+    """tools/bench_models.py measure_whisper_rtf on the port:
+    WhisperPipeline (head unpadded: N 51865 fails the N % 128 gate, so
+    dequantize + matmul each step), FullParams(beam_size=5,
+    temperatures=(0.0,), max_tokens=64), a 30 s warm-up, then 120 s of
+    default_rng(3) noise x 0.1, host clock; RTF (audio s / wall s),
+    segments, tokens, exact launch counts (per window: an encode, the
+    prompt step at 5 rows x 4 tokens, and 72 W8A16 at M 5 each beam step);
+    then the device busy share of a beam step (B 5) and the gated head's
+    device time in it."""
+    from ggml_imax_tpu_torch import _build
+    from ggml_imax_tpu_torch.models import whisper as W
+    from ggml_imax_tpu_torch.ops.qmatmul import qmatmul
+    from ggml_imax_tpu_torch.runtime.whisper_pipeline import (FullParams,
+                                                              WhisperPipeline)
+    sr = 16000
+    pipe = WhisperPipeline(cfg, params)
+    calls = []
+    real = pipe._decode_topk
+
+    def counted(*a, **kw):
+        calls.append(a[5])                       # n_past
+        return real(*a, **kw)
+    pipe._decode_topk = counted
+    rng = np.random.default_rng(3)
+    fp = FullParams(beam_size=5, temperatures=(0.0,),
+                    max_tokens=WHISPER_TOKENS)
+    warm = (rng.standard_normal(30 * sr) * 0.1).astype(np.float32)
+    t0 = time.time()
+    segs = pipe.transcribe(warm, fp)
+    log(f"  warm-up transcribe of 30 s: {time.time() - t0:.2f} s, "
+        f"{len(segs)} segment(s)")
+    samples = (rng.standard_normal(WHISPER_AUDIO_S * sr) * 0.1) \
+        .astype(np.float32)
+    calls.clear()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    segs = pipe.transcribe(samples, fp)
+    wall = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    toks = sum(len(s.tokens) for s in segs)
+    windows = len(segs)
+    Le, Ld = cfg.n_audio_layer, cfg.n_text_layer
+    expect = {"nat8_w8a16": windows * (6 * Le + 2 * Ld) + len(calls) * 6 * Ld,
+              "flash_attention": windows * (Le + 2 * Ld),
+              "flash_backward_tiles": windows * Ld}
+    check_counts(counts, expect, failures)
+    ok = windows == WHISPER_AUDIO_S // 30 and all(
+        0 <= t < cfg.n_vocab for s in segs for t in s.tokens)
+    if not ok:
+        failures.append(f"pipeline: {windows} segments, tokens "
+                        f"{[s.tokens[:8] for s in segs]}")
+    rtf = WHISPER_AUDIO_S / wall
+    log(f"  pipeline over {WHISPER_AUDIO_S} s: {wall:.3f} s wall -> RTF "
+        f"{rtf:.2f}x real time, {windows} segments, {toks} tokens, "
+        f"{len(calls)} decode calls ({len(calls) - windows} beam steps), "
+        f"temperatures {[s.temperature for s in segs]}, avg_logprob "
+        f"{[round(s.avg_logprob, 4) for s in segs]}; launches {counts} "
+        f"(expected {expect})")
+    # one beam step at 5 rows, profiled, and the gated head in it
+    xk, xv = W.precompute_cross_kv(cfg, params, torch.zeros(
+        1, cfg.n_audio_ctx, cfg.n_audio_state, device="cuda"))
+    cross = (xk.repeat_interleave(5, 1), xv.repeat_interleave(5, 1))
+    cache = W.init_cache(cfg, batch=5, device="cuda")
+    tok = torch.full((5, 1), 220, dtype=torch.long, device="cuda")
+    step = lambda i: real(params, tok, torch.full((5, 1), 10 + i,
+                                                  device="cuda"),
+                          cache, cross, 10 + i, k=10)
+    step(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(8):
+        vals = step(i)[0]
+    float(vals[0, 0])
+    step_wall = (time.perf_counter() - t0) / 8 * 1e3
+    dev = _device_ms(step, 4)
+    busy = sum(dev.values()) if dev else None
+    # the gated head's device time by CUDA events (L2 flushed before each
+    # call), which a trace may miss
+    x = torch.randn(5, 1, cfg.n_text_state, device="cuda")
+    head_ms = Timer()(lambda: qmatmul(x, params["d_te"],
+                                      out_dtype=torch.float32))
+    share = "" if busy is None else \
+        f" = {100 * head_ms / busy:.1f}% of the step's device time"
+    log(f"  beam step (5 rows): {step_wall:.3f} ms wall, device busy "
+        + ("not measured (no device time in the trace)" if busy is None else
+           f"{busy:.3f} ms = {100 * busy / step_wall:.1f}%")
+        + f"; the gated head (dequantize + matmul, N {params['d_te'].n}) "
+        f"{head_ms:.3f} ms by CUDA events{share}")
+    for key, t in sorted((dev or {}).items(), key=lambda kv: -kv[1])[:6]:
+        log(f"    beam step {t:9.4f} ms  {key[:90]}")
+    return ({"audio_s": WHISPER_AUDIO_S, "wall_s": wall, "rtf": rtf,
+             "segments": windows, "tokens": toks, "decode_calls": len(calls),
+             "beam_step_ms": step_wall, "beam_step_busy_ms": busy,
+             "gated_head_ms": head_ms}, counts)
+
+
+def whisper_phase(failures):
+    """Phase 10: 10a Whisper small Q5_0 as measure_whisper, the route check
+    and its planted fault; 10b the small pipeline as measure_whisper_rtf;
+    10c Whisper medium Q5_0 as measure_whisper. Returns (summary, launch
+    counts by run)."""
+    from ggml_imax_tpu_torch.models import whisper as W
+    summary, launches = {}, {}
+    for key, cfg_kw in (("small", WHISPER_SMALL), ("medium", WHISPER_MEDIUM)):
+        cfg = W.WhisperConfig(**cfg_kw)
+        log(f"  -- 10{'a' if key == 'small' else 'c'}: Whisper {key} Q5_0, "
+            f"{cfg.n_audio_layer} + {cfg.n_text_layer} layers of "
+            f"{cfg.n_audio_state}, head padded to 51968")
+        t0 = time.time()
+        params = whisper_params(cfg)
+        torch.cuda.synchronize()
+        ws = [w for w in [params["d_te"]] + [w for lp in params["enc_layers"]
+                                             + params["dec_layers"]
+                                             for w in lp.values()]
+              if hasattr(w, "q4_layout")]
+        log(f"  weights drawn + prepared in {time.time() - t0:.1f} s, "
+            f"{qt_bytes(params) / 2**30:.3f} GiB, {len(ws)} products, "
+            f"layouts {sorted({(w.ggml_type.name, w.q4_layout) for w in ws})}")
+        out, counts, _ = whisper_encode_greedy(f"Whisper {key}", cfg, params,
+                                               failures)
+        summary[key] = out
+        launches.update({f"whisper_{key}_{part}": c
+                         for part, c in counts.items()})
+        if key == "small":
+            whisper_route_check(cfg, params, failures)
+            del params
+            torch.cuda.empty_cache()
+            log("  -- 10b: the Whisper small pipeline (head unpadded, beam 5)")
+            params = whisper_params(cfg, pad_head=False)
+            summary["small_pipeline"], launches["whisper_small_pipeline"] = \
+                whisper_pipeline_rtf(cfg, params, failures)
+        del params
+        torch.cuda.empty_cache()
+        if failures:
+            break
+    return summary, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3599,6 +4161,7 @@ def main() -> int:
     check_kquant_kernels(ck, timer, gen)
     check_llama_kernels(ck, timer, gen)
     check_format_kernels(ck, timer, gen)
+    check_whisper_kernels(ck, timer, gen)
     del timer                                      # the 256 MB flush buffer
     torch.cuda.empty_cache()
     failures = ck.failures
@@ -3611,6 +4174,7 @@ def main() -> int:
     check_small_llama(failures)
     check_small_batched(failures)
     check_small_chunked(failures)
+    check_small_whisper(failures)
     if failures:
         raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
     log(f"# phase 3: {time.time() - t0:.1f} s")
@@ -3797,8 +4361,18 @@ def main() -> int:
         raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
     launches.update(by_run)
     log(f"# phase 9c: {time.time() - t0:.1f} s")
-    log("# phases run: 1, 2, 3, 4, 5, 5b, 6, 7, 8, 8b, 8c, 9, 9b, 9c")
-    log(f"# phases 1-9c: {time.time() - t_start:.1f} s")
+
+    # ---- 10. Whisper small and medium Q5_0
+    log("# phase 10: Whisper small Q5_0 (encode, greedy, the route check, "
+        "the beam-search pipeline) and Whisper medium Q5_0 (encode, greedy)")
+    t0 = time.time()
+    engines["whisper"], by_run = whisper_phase(failures)
+    if failures:
+        raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
+    launches.update(by_run)
+    log(f"# phase 10: {time.time() - t0:.1f} s")
+    log("# phases run: 1, 2, 3, 4, 5, 5b, 6, 7, 8, 8b, 8c, 9, 9b, 9c, 10")
+    log(f"# phases 1-10: {time.time() - t_start:.1f} s")
 
     kernels = []
     for k in KERNELS:

@@ -47,6 +47,16 @@ class KVCache:
     def quantized(self):
         return self.ks is not None
 
+    def select_batch(self, idx) -> "KVCache":
+        """Reorder or duplicate batch rows (the beam reorder of
+        runtime/whisper_pipeline.py): idx (B',) int on the cache's device.
+        Every tensor of the new cache is a fresh copy gathered by
+        index_select, never a view into this one, so the next in-place
+        update_kv writes the tensors the new cache holds."""
+        pick = lambda t: None if t is None else t.index_select(1, idx)
+        return KVCache(pick(self.k), pick(self.v), pick(self.ks),
+                       pick(self.vs), heads=self.heads)
+
 
 def init_kv_cache(n_layer: int, batch: int, n_ctx: int, n_kv_head: int,
                   head_dim: int, dtype=torch.bfloat16, *, device) -> KVCache:
@@ -200,9 +210,10 @@ def params_from_jax(params, *, device=None):
 
     def walk(d):
         if isinstance(d, dict):
-            if "stack" in d:
+            if "stack" in d or "dec_stack" in d:
                 raise ValueError("params_from_jax takes unstacked params "
-                                 "(before stack_model)")
+                                 "(before stack_model or "
+                                 "whisper.stack_decoder)")
             return {k: walk(v) for k, v in d.items()}
         if isinstance(d, list):
             return [walk(v) for v in d]

@@ -2211,3 +2211,167 @@ def test_engine_bf16_residency_on_card_matches_cpu(gen):
     del engs["cuda"], w_card
     gc.collect()
     assert torch.cuda.memory_allocated() - base < held // 2
+
+
+# ---- Whisper (models/whisper.py, runtime/whisper_pipeline.py) ----
+
+@pytest.mark.parametrize("b,tq,tk,h", [(1, 1500, 1500, 12), (1, 1500, 1500, 16),
+                                       (5, 4, 1500, 12), (2, 75, 150, 2)])
+def test_flash_without_a_mask_at_ragged_key_counts(gen, b, tq, tk, h):
+    """Whisper's encoder (Tq = Tk = 1500, padded keys 1536) and the beam
+    prompt's cross-attention: no mask, so no tile map; the padded keys add
+    nothing to a row that sees a key."""
+    q = torch.randn(b, tq, h, 64, generator=gen, device="cuda")
+    k, v = (torch.randn(b, tk, h, 64, generator=gen, device="cuda")
+            for _ in range(2))
+    args = fa._prep(q, k, v, None, 0.0) + (0.125, 0.0, True)
+    before = dict(_build.LAUNCHES)
+    out = fa.flash_attention(q, k, v, None, out_dtype=torch.float32)
+    assert _build.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert _build.LAUNCHES["flash_backward_tiles"] == \
+        before["flash_backward_tiles"]
+    got, got_lse = fa.flash_attention_kernel(*args)
+    ref, ref_lse = fa.flash_attention_plain(*args)
+    assert torch.equal(out, got)
+    assert rel(got, ref) < 1e-2
+    assert rel(got_lse, ref_lse) < 1e-4
+
+
+@pytest.mark.parametrize("k,n,m", [(768, 3072, 1500), (768, 2304, 20),
+                                   (768, 2304, 5), (768, 51968, 1),
+                                   (1024, 4096, 1500), (4096, 1024, 1)])
+def test_whisper_q5_0_products_match_plain(gen, k, n, m):
+    """Q5_0 levels in [-16, 15], per-32 f32 scales, no bias, nat8: W8A16 at
+    M 1500 (the encoder), 20 (the beam prompt) and 5 (a beam step), W8A8 at
+    M 1 (a greedy step; the padded head)."""
+    from ggml_imax_tpu_torch.ops.qmatmul import qmatmul
+    q = torch.randint(-16, 16, (k, n), dtype=torch.int8, generator=gen,
+                      device="cuda")
+    s = torch.randn((k // 32, n), generator=gen, device="cuda").abs() * 0.002
+    qt = qmm.repack_nat8(QTensor("int8", q, s, None, k, n, GGMLType.Q5_0),
+                         256)
+    x = torch.randn(m, k, generator=gen, device="cuda")
+    name = "nat8_w8a8" if m == 1 else "nat8_w8a16"
+    before = _build.LAUNCHES[name]
+    got = qmatmul(x, qt, out_dtype=torch.float32)
+    assert _build.LAUNCHES[name] == before + 1
+    if m == 1:
+        x8, dx = qmm.quantize_activations_q8(x)
+        ref = qmm.nat8_w8a8_gemv_plain(x8[:, 0], dx[:, 0], qt)[None]
+        assert rel(got, ref) < 1e-5
+    else:
+        assert rel(got, qmm.nat8_w8a16_gemm_plain(x, qt)) < 1e-3
+
+
+@pytest.mark.parametrize("cin,stride", [(80, 1), (768, 2)])
+def test_conv_1d_on_card_is_f32(gen, cin, stride):
+    """conv_1d turns cuDNN's TF32 off for its call: within 1e-5 of f64."""
+    from ggml_imax_tpu_torch.ops.conv import conv_1d
+    x = torch.randn(1, cin, 3000, generator=gen, device="cuda")
+    w = torch.randn(768, cin, 3, generator=gen, device="cuda") * 0.05
+    ref = torch.nn.functional.conv1d(x.double(), w.double(), stride=stride,
+                                     padding=1)
+    flag = torch.backends.cudnn.allow_tf32
+    assert rel(conv_1d(x, w, stride, 1), ref) < 1e-5
+    assert torch.backends.cudnn.allow_tf32 == flag
+
+
+def test_log_mel_on_card_matches_cpu(gen):
+    from ggml_imax_tpu_torch.audio.mel import log_mel_spectrogram
+    t = np.arange(40000) / 16000.0
+    x = (0.3 * np.sin(2 * np.pi * 440 * t)
+         + 0.01 * np.random.default_rng(0).standard_normal(40000)) \
+        .astype(np.float32)
+    got = log_mel_spectrogram(x)
+    assert got.device.type == "cuda"
+    ref = log_mel_spectrogram(x, device="cpu")
+    assert float((got.cpu() - ref).abs().max()) < 1e-4
+
+
+def _small_whisper(device, pad=True):
+    from ggml_imax_tpu_torch.models import whisper as W
+    from ggml_imax_tpu_torch.ops.qmm import params_repack
+    from ggml_imax_tpu_torch.quant.device import pad_qtensor_cols
+    cfg = W.WhisperConfig(n_vocab=1000, n_audio_ctx=150, n_audio_state=128,
+                          n_audio_head=2, n_audio_layer=2, n_text_ctx=32,
+                          n_text_state=128, n_text_head=2, n_text_layer=2,
+                          n_mels=16)
+    raw = W.synthetic_params_device(cfg, seed=5, device="cpu")
+    if pad:
+        raw["d_te"] = pad_qtensor_cols(raw["d_te"], 128)[0]
+    p = params_repack(W.prepare_fused(raw))
+    if device == "cuda":
+        p = _moved(p)
+    return cfg, p
+
+
+def _moved(p):
+    if isinstance(p, dict):
+        return {k: _moved(v) for k, v in p.items()}
+    if isinstance(p, list):
+        return [_moved(v) for v in p]
+    if isinstance(p, QTensor):
+        opt = lambda t: None if t is None else t.cuda()
+        return replace(p, q=p.q.cuda(), scale=opt(p.scale), bias=opt(p.bias))
+    return p.cuda()
+
+
+@pytest.mark.parametrize("pad", [True, False])
+def test_small_whisper_on_card_matches_cpu(gen, pad):
+    """Encode, cross K/V, a 2-token prompt (ids past the table) and 4 fed
+    steps on the card (kernels) against the CPU (plain versions), within
+    5e-2 of the largest |logit|, with the card's exact launch counts."""
+    from ggml_imax_tpu_torch.models import whisper as W
+    mel = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (1, 16, 300)).astype(np.float32))
+    feed = [17, 400, 999, 3]
+    out, counts = {}, {}
+    for dev in ("cuda", "cpu"):
+        cfg, p = _small_whisper(dev, pad)
+        _build.reset_launches()
+        cross = W.precompute_cross_kv(cfg, p, W.encode(cfg, p, mel.to(dev)))
+        cache = W.init_cache(cfg, device=dev)
+        lg, cache = W.decode(cfg, p, torch.tensor([[50257, 50362]], device=dev),
+                             torch.arange(2, device=dev)[None], cache, cross, 0)
+        logs = [lg[0].float().cpu()]
+        for i, t in enumerate(feed):
+            lg, cache = W.decode(cfg, p, torch.tensor([[t]], device=dev),
+                                 torch.tensor([[2 + i]], device=dev), cache,
+                                 cross, 2 + i)
+            logs.append(lg[0].float().cpu())
+        out[dev], counts[dev] = logs, dict(_build.LAUNCHES)
+    scale = max(float(a.abs().max()) for a in out["cpu"])
+    err = max(float((a - b).abs().max()) for a, b in zip(out["cuda"], out["cpu"]))
+    assert all(a.shape[-1] == 1000 for a in out["cuda"])
+    assert err < 5e-2 * scale, (err, scale)
+    h = int(pad)
+    want = {"nat8_w8a16": 16 + 12 + h, "flash_attention": 2 + 4,
+            "flash_backward_tiles": 2, "nat8_w8a8": 4 * (12 + h)}
+    assert {k: n for k, n in counts["cuda"].items() if n} == want
+
+
+def test_whisper_beam_top_k_orders_ties_by_index(gen):
+    from ggml_imax_tpu_torch.runtime.whisper_pipeline import (
+        top_k_lower_index_first)
+    x = torch.round(torch.randn(5, 51865, generator=gen, device="cuda") * 2) / 2
+    x[:, 50258:] = float("-inf")
+    vals, idx = top_k_lower_index_first(x, 10)
+    rv, ri = top_k_lower_index_first(x.cpu(), 10)
+    assert torch.equal(idx.cpu(), ri) and torch.equal(vals.cpu(), rv)
+
+
+@pytest.mark.parametrize("kv", [torch.bfloat16, "q8_0"])
+def test_select_batch_on_card_gathers_fresh_rows(gen, kv):
+    cache = init_kv_cache(2, 5, 16, 2, 64, kv, device="cuda")
+    for li in range(2):
+        update_kv(cache, li, torch.randn(5, 4, 2, 64, generator=gen,
+                                         device="cuda"),
+                  torch.randn(5, 4, 2, 64, generator=gen, device="cuda"), 0)
+    idx = torch.tensor([3, 3, 0, 1, 4], device="cuda")
+    new = cache.select_batch(idx)
+    assert torch.equal(new.k, cache.k[:, idx])
+    assert new.k.data_ptr() != cache.k.data_ptr()
+    old = cache.k.clone()
+    update_kv(new, 0, torch.ones(5, 1, 2, 64, device="cuda"),
+              torch.ones(5, 1, 2, 64, device="cuda"), 4)
+    assert torch.equal(cache.k, old)

@@ -166,4 +166,9 @@ def test_port_imports_no_jax():
             "ggml_imax_tpu_torch.quant.device",
             "ggml_imax_tpu_torch.ops.qmm",
             "ggml_imax_tpu_torch.ops.qmatmul",
-            "ggml_imax_tpu_torch.ops.embedding"} <= set(mods)
+            "ggml_imax_tpu_torch.ops.embedding",
+            "ggml_imax_tpu_torch.audio.wav",
+            "ggml_imax_tpu_torch.audio.mel",
+            "ggml_imax_tpu_torch.ops.conv",
+            "ggml_imax_tpu_torch.models.whisper",
+            "ggml_imax_tpu_torch.runtime.whisper_pipeline"} <= set(mods)
