@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's main paths on one NVIDIA GPU: GPT-J-6B Q4_0
-(one stream, and continuous-batching serving), GPT-2 1558M (XL) Q8_0 and
-Q5_K, GPT-2 117M training steps, GPT-2 117M in Q3_K and Q2_K (with the
-row-pair and u-order int8 layouts) and in Q4_0, Q4_1, Q5_0, Q5_1, Q5_K and
-Q6_K and in the nine IQ formats, LLaMA-2 7B in Q4_K, in the Q4_K_M
-mix and in the IQ4_XS mix (with its bf16 residency), and Whisper small
-and medium in Q5_0 (with the small one's transcription pipeline).
+(one stream, with the q4 residencies, and continuous-batching serving),
+GPT-2 1558M (XL) Q8_0 and Q5_K, GPT-2 117M training steps, GPT-2 117M in
+Q3_K and Q2_K (with the row-pair and u-order int8 layouts) and in Q4_0,
+Q4_1, Q5_0, Q5_1, Q5_K and Q6_K and in the nine IQ formats, LLaMA-2 7B in
+Q4_K, in the Q4_K_M mix (one stream and serving) and in the IQ4_XS mix
+(with its bf16 residency), and Whisper small and medium in Q5_0 (each
+through the transcription pipeline, eager and as CUDA-graph replay, with
+DTW token timestamps).
 
     python3 chip_smoke.py
 
@@ -46,9 +48,13 @@ Phases (any failure exits nonzero and prints no result line):
    on qkv_w, gu_w, down_w and the head, decode attention at 32 kv heads of 128 (S 4,
    bf16 and q8_0, and its time at splits 1, 2, 4, 8) and the fused
    KV-update kernel in flat mode there, flash at 512 x 512 over 32 heads
-   of 128); the instances the new formats put on a path: nat8 W8A8 and
+   of 128); LLaMA-2 7B Q4_K_M serving (phase 9b): the cells attention and
+   the fused KV-update kernel in cells mode at 8 rows over 2048 cells, 32
+   kv heads of 128 (decode_plan(1, 32, 2048)), q8_0 and bf16, and W4A16
+   with bf16 scales and a bias at M 8 and 128 on qkv_w, gu_w and down_w;
+   the instances the new formats put on a path: nat8 W8A8 and
    W8A16 at g 16, bf16 scales, no bias on LLaMA-2 7B Q4_K_M's Q6_K v_w,
-   down_w and head (M 1, 8, 512), at g 32 with f32 scales and a bias on
+   down_w and head (M 1, 8, 512; v_w and down_w also at M 128), at g 32 with f32 scales and a bias on
    GPT-2 XL Q5_K's fc_w (M 1, 5, 8, 128, 512), and W4A8 / W4A16 with f32
    scales and a bias on GPT-2 117M Q4_1's attn_w (M 1, 8, 512)); Whisper's
    (phase 10): flash with no mask at Tq = Tk = 1500 (padded keys 1536) over
@@ -89,7 +95,13 @@ Phases (any failure exits nonzero and prints no result line):
    counts, TTFT, tok/s, ms a token, the capture seconds, the graph pool's
    bytes and a replayed span's device busy share; and a control, the
    spans captured without their n_past advance, which must fail the token
-   check;
+   check; then Engine(residency="q4-fused") and Engine(residency=
+   "q4-stacked") built from unprepared draws of the same weights (each
+   draw freed once prepared), one request each with exact launch counts
+   (q4-stacked: 28 decode_attention_update a step for 28 decode_attention):
+   q4-fused's tokens and KV arena equal the prepared engine's bit for bit,
+   q4-stacked's equal an Engine(fused_kv_update=True) on the prepared
+   weights;
 5. GPT-2 XL engine: synthetic GPT-2 1558M Q8_0 drawn on the card,
    prepare_fused + nat8 repack, Engine(n_ctx=1024), the same 3 requests,
    launch counts and profile (with nat8 W8A16's and the flash forward's
@@ -193,7 +205,16 @@ Phases (any failure exits nonzero and prints no result line):
    KV arena bit-equal; a teacher-forced pass held to every plain version
    on the card (Q4KM_ROUTE_TOL; the plain pass read beside itself with
    the A16 products summed in f64), and a planted fault (the Q6_K W8A8 fed
-   g 32 in place of g 16) that must fail that check;
+   g 32 in place of g 16) that must fail that check; then the
+   same weights served: BatchedEngine under phase 6's workload (n_ctx 2048,
+   q8_0 cells, 8 requests every 4 steps, step_chunk(8), then --steady
+   through run_pipelined(8)): tok/s, p50 TTFT, exact launches (160 W4A16
+   and 33 nat8 W8A16 a ubatch, 32 cells attention a decode-only one, 32
+   flash and maps a mixed one), a decode-only ubatch's busy share; the
+   short serving pass with every plain version on the card and the fused
+   KV-update route (cells mode), each fed the default pass's tokens, held
+   to it (Q4KM_ROUTE_TOL), and the fused route with the fresh row one cell
+   off, which must fail;
 9c. LLaMA-2 7B IQ4_XS: the structural draw in llama.cpp's IQ4_XS mix
    (`output` Q6_K, every other 2-D weight IQ4_XS: int8 table values,
    per-32 f32 scales), prepare_fused (q/k/v fused, gate/up with n_ff
@@ -221,11 +242,18 @@ Phases (any failure exits nonzero and prints no result line):
    (the encoder's 36 padded keys counted as visible) that must fail it;
    10b WhisperPipeline on the same weights with the head unpadded
    (dequantize + matmul), beam 5, one temperature, 64 tokens a window: a
-   30 s warm-up, then 120 s of default_rng(3) noise x 0.1 (RTF, segments,
-   tokens, exact launch counts: per window an encode, the prompt of 5 rows
-   x 4 tokens and 72 W8A16 a beam step), a beam step's device busy share
-   and the gated head's share of it; 10c Whisper medium (24 + 24 layers of
-   1024) as 10a without the route check.
+   30 s warm-up, then 120 s of default_rng(3) noise x 0.1 through the
+   eager route and through the captured steps (CUDA-graph replay): RTF,
+   segments, tokens, exact launch counts (per window an encode, the prompt
+   of 5 rows x 4 tokens and 72 W8A16 a beam step; the captured route's
+   equal to the eager one's), the captured route's tokens, avg_logprob and
+   KV cache after every window equal to the eager route's bit for bit, and
+   a control (the captured steps with n_past frozen) that must fail that
+   check; a beam step eager and captured, wall against device busy, and
+   the gated head's device time; then the 120 s with token_timestamps:
+   the timestamp pass's device and host (median filter, DTW) seconds, its
+   launches, token_times monotone; 10c Whisper medium (24 + 24 layers of
+   1024) as 10a without the route check, and 10d its pipeline as 10b.
 
     python3 chip_smoke.py --serving-kernels [ROOT]
     python3 chip_smoke.py --gpt2-kernels [ROOT]
@@ -731,7 +759,7 @@ def check_gptj_kernels(ck, timer, gen):
                    masked_row=5 if label.startswith("masked") else None)
 
 
-def check_serving_kernels(ck, timer, gen):
+def check_serving_kernels(ck, timer, gen, llama=False):
     """The serving path's attention kernels at GPT-J-6B width (16 heads of
     256): read-only cells attention for 8 query rows (one a pad row) over a
     2048-cell arena, bf16 and q8_0; the fused KV-update kernel in flat mode
@@ -739,12 +767,16 @@ def check_serving_kernels(ck, timer, gen):
     (q8_0, the serving arena). Each fused launch also writes its rows: the
     kernel's arena must equal the plain version's after the call. Then
     flash at a mixed ubatch's shape: 128 query rows over the 2048-cell q8_0
-    arena under a cell mask."""
+    arena under a cell mask. With llama, LLaMA-2 7B's serving shapes
+    instead (32 kv heads of 128, decode_plan(1, 32, 2048)): the cells
+    attention and the fused kernel in cells mode, each in q8_0 and bf16."""
     from ggml_imax_tpu_torch.models.common import _q8_rows, init_kv_cache, \
         read_kv, update_kv
     from ggml_imax_tpu_torch.ops import decode_attention as da
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    H, D = GPTJ_6B["n_head"], GPTJ_6B["n_embd"] // GPTJ_6B["n_head"]
+    model = LLAMA2_7B if llama else GPTJ_6B
+    H, D = model["n_head"], model["n_embd"] // model["n_head"]
+    tag = "llama " if llama else ""
     scale = 1.0 / math.sqrt(D)
 
     def arena(kv, B, T):
@@ -782,7 +814,7 @@ def check_serving_kernels(ck, timer, gen):
         ref = da.decode_attention_plain(*args)
         S = da.decode_plan(1, H, T)
         ck.record("decode_attention_cells",
-                  f"{name} NB={NB} H={H} D={D} T={T} S={S}",
+                  f"{tag}{name} NB={NB} H={H} D={D} T={T} S={S}",
                   da.decode_attention_cells_kernel(*args), ref, 1e-2,
                   timer(lambda: da.decode_attention_cells_kernel(*args), iters=50,
                         lead=True),
@@ -791,7 +823,7 @@ def check_serving_kernels(ck, timer, gen):
                   2 * NB * H * D * 4 + 2 * T * H * D * elt(cache) + NB * T * 4,
                   4 * NB * H * T * D, PEAK_BF16)
         # the time at other cluster splits (decode_plan forced), led
-        log(f"  {'':16s} cells {name} by split (* the plan's): "
+        log(f"  {'':16s} {tag}cells {name} by split (* the plan's): "
             + ", ".join(f"{s}{'*' if s == S else ''} {ms:.4f} ms"
                         for s, ms in forced_split_times(
                             ck, timer, da, "decode_plan", (1, 2, 4, 8),
@@ -822,7 +854,8 @@ def check_serving_kernels(ck, timer, gen):
         name = "q8_0" if cache.ks is not None else "bf16"
         S = da.decode_plan(ar[0].shape[0], H, T)
         ck.record("decode_attention_update",
-                  f"{label} {name} NB={NB} H={H} D={D} T={T} S={S}", got, ref,
+                  f"{tag}{label} {name} NB={NB} H={H} D={D} T={T} S={S}", got,
+                  ref,
                   1e-2,
                   timer(lambda: da.decode_attention_update_kernel(
                       q, *ar, *fresh, *tail), iters=50, lead=True),
@@ -832,7 +865,7 @@ def check_serving_kernels(ck, timer, gen):
                   2 * NB * H * D * 4 + 2 * T * H * D * elt(cache) + NB * T * 4
                   + fbytes, 4 * NB * H * T * D, PEAK_BF16)
         if label == "cells":   # the time at other cluster splits, led
-            log(f"  {'':16s} {label} {name} by split (* the plan's): "
+            log(f"  {'':16s} {tag}{label} {name} by split (* the plan's): "
                 + ", ".join(f"{s}{'*' if s == S else ''} {ms:.4f} ms"
                             for s, ms in forced_split_times(
                                 ck, timer, da, "decode_plan", (1, 2, 4, 8),
@@ -840,6 +873,12 @@ def check_serving_kernels(ck, timer, gen):
                                     q, *ar, *fresh, *tail), ref, 1e-2,
                                 f"decode_attention_update {label}")))
 
+    rows = torch.stack([torch.nonzero(visible[n])[-1, 0] for n in range(NB - 1)]
+                       + [torch.tensor(T - 1, device="cuda")])
+    if llama:
+        for kv in ("q8_0", torch.bfloat16):
+            fused_case(kv, NB, T, rows, mask, visible, "cells")
+        return
     # flat mode at the Engine's shape: B 1, T 512, n_past 499 (as check C)
     Tf = PROMPT + N_PREDICT
     n_past = Tf - 13
@@ -848,8 +887,6 @@ def check_serving_kernels(ck, timer, gen):
                torch.where(vis_f, 0.0, da.NEG), vis_f, "flat")
     # cells mode at the serving shape: each row's own cell, the pad row's
     # the trash cell
-    rows = torch.stack([torch.nonzero(visible[n])[-1, 0] for n in range(NB - 1)]
-                       + [torch.tensor(T - 1, device="cuda")])
     fused_case("q8_0", NB, T, rows, mask, visible, "cells")
 
     # flash as a mixed serving ubatch runs it: the bucket's 128 query rows
@@ -1370,6 +1407,22 @@ def check_llama_kernels(ck, timer, gen):
                H, H, D, {}, timed=True)
 
 
+def check_llama_serving_kernels(ck, timer, gen):
+    """LLaMA-2 7B Q4_K_M serving's shapes (phase 9b's serving pass): the
+    cells attention and the fused KV update in cells mode over the 2048-cell
+    arena at 32 kv heads of 128 (check_serving_kernels(llama=True)), and
+    natpair W4A16 with bf16 scales and a bias at the serving ubatches' M 8
+    and 128 on qkv_w, gu_w and down_w (the Q6_K W8A16 at M 8 and 128 in
+    check_format_kernels)."""
+    check_serving_kernels(ck, timer, gen, llama=True)
+    E, F = LLAMA2_7B["n_embd"], 11264
+    for label, (K, N) in (("qkv_w", (E, 3 * E)), ("gu_w", (E, 2 * F)),
+                          ("down_w", (F, E))):
+        qt = q4k_natpair(K, N, gen)
+        time_instance(ck, timer, gen, f"llama Q4_K {label}", qt, (8, 128))
+        del qt
+
+
 def format_weight(fmt, K, N, gen, scale_dtype):
     """A weight in one of the formats this script's later phases run,
     drawn as they draw it and repacked: "Q6_K" per-16 int8 levels in
@@ -1466,7 +1519,8 @@ def check_format_kernels(ck, timer, gen):
     """The kernel instances the formats of phases 5b, 8b, 8c, 9b and 9c put
     on a path: nat8 W8A8 / W8A16 at g 16 with bf16 scales and no bias at
     LLaMA-2 7B Q4_K_M's Q6_K products (v_w 4096 x 4096, down_w 11264 x
-    4096, the head 4096 x 32000; M 1, 8 and 512); at g 32 with f32 scales
+    4096, the head 4096 x 32000; M 1, 8 and 512, and the serving ubatches'
+    M 128 at v_w and down_w); at g 32 with f32 scales
     and a bias at GPT-2 XL Q5_K's fc_w (1600 x 6400; M 1, 5, 8, 128 and
     512); W4A8 / W4A16 with f32 scales and a bias at GPT-2 117M Q4_1's
     attn_w (768 x 2304; M 1, 8 and 512); nat8 at g 32 with f32 scales and
@@ -1474,11 +1528,11 @@ def check_format_kernels(ck, timer, gen):
     4096 x 4096, gu_w 4096 x 22528, down_w 11264 x 4096; M 1, 8 and
     512)."""
     E, F, V = LLAMA2_7B["n_embd"], 11264, LLAMA2_7B["n_vocab"]
-    for label, (K, N) in (("llama Q6_K v_w", (E, E)),
-                          ("llama Q6_K down_w", (F, E)),
-                          ("llama Q6_K output", (E, V))):
+    for label, (K, N), ms in (("llama Q6_K v_w", (E, E), (1, 8, 128, 512)),
+                              ("llama Q6_K down_w", (F, E), (1, 8, 128, 512)),
+                              ("llama Q6_K output", (E, V), (1, 8, 512))):
         qt = format_weight("Q6_K", K, N, gen, torch.bfloat16)
-        time_instance(ck, timer, gen, label, qt, (1, 8, 512))
+        time_instance(ck, timer, gen, label, qt, ms)
         del qt
     X = GPT2_XL["n_embd"]
     time_instance(ck, timer, gen, "gpt2-xl Q5_K fc_w",
@@ -2116,6 +2170,68 @@ def frozen_n_past_control(eng, runs, failures):
                         "the token and arena check")
 
 
+def gptj_residencies(cfg, params, runs, failures):
+    """Phase 4's q4 residencies: Engine(residency="q4-fused") and
+    Engine(residency="q4-stacked"), each built from an unprepared draw of
+    phase 4's weights (seed 0; the raw draw dropped once the engine has
+    prepared it), one request of phase 4 (its first prompt, N_PREDICT greedy
+    tokens) with exact launch counts. q4-fused runs phase 4's graph: its
+    tokens and KV arena must equal phase 4's prepared engine's bit for bit.
+    q4-stacked adds the fused KV update (28 decode_attention_update a step
+    where the others count 28 decode_attention); the fused flat kernel
+    parts from the decode attention kernel by ~0.1 logit (phase 6), so its
+    tokens and arena are held to an Engine(fused_kv_update=True) on phase
+    4's prepared params, bit for bit, and whether they also equal phase 4's
+    is logged. Returns (summary, launch counts by run)."""
+    from ggml_imax_tpu_torch.models import gptj
+    from ggml_imax_tpu_torch.runtime.engine import Engine
+    warm, prompts, want, want_arenas = runs
+    L, n_dec = cfg.n_layer, N_PREDICT - 1
+    ref = Engine(gptj, cfg, params, n_ctx=512, fused_kv_update=True)
+    ref.generate(warm, 2, temp=0)
+    _, fused_outs, _, fused_arenas = run_requests(
+        ref, prompts[:1], failures, label="prepared fused-route request")
+    del ref
+    summary, launches = {}, {}
+    for residency in ("q4-fused", "q4-stacked"):
+        t0 = time.time()
+        raw = gptj.synthetic_params_device(cfg, seed=0)
+        eng = Engine(gptj, cfg, raw, n_ctx=512, residency=residency)
+        del raw
+        torch.cuda.synchronize()
+        prep_s = time.time() - t0
+        log(f"  Engine(residency={residency!r}) from the unprepared draw: "
+            f"drawn + prepared in {prep_s:.1f} s, fused_kv_update "
+            f"{eng.fused_kv_update}, {torch.cuda.memory_allocated() / 2**30:.2f}"
+            " GiB allocated")
+        eng.generate(warm, 2, temp=0)
+        reqs, outs, counts, arenas = run_requests(
+            eng, prompts[:1], failures, label=f"{residency} request")
+        stacked = residency == "q4-stacked"
+        attn = "decode_attention_update" if stacked else "decode_attention"
+        check_counts(counts, {"w4a8_gemv": n_dec * (2 * L + 1),
+                              attn: n_dec * L, "w4a16_gemm": 2 * L + 1,
+                              "flash_attention": L,
+                              "flash_backward_tiles": L}, failures)
+        ref_outs, ref_arenas = (fused_outs, fused_arenas) if stacked else \
+            (want, want_arenas)
+        tok_ok = outs[0] == ref_outs[0]
+        arena_ok = same_arena(arenas[0], ref_arenas[0])
+        log(f"  {residency}: tokens equal "
+            f"{'the fused-route engine' if stacked else 'phase 4'}'s {tok_ok}, "
+            f"KV arena equal bit for bit {arena_ok}"
+            + (f"; tokens equal phase 4's default route's "
+               f"{outs[0] == want[0]}" if stacked else ""))
+        if not (tok_ok and arena_ok):
+            failures.append(f"{residency}: tokens equal {tok_ok}, arena equal "
+                            f"{arena_ok}")
+        summary[residency] = dict(reqs[0], prepare_s=prep_s)
+        launches[f"gptj_{residency.replace('-', '_')}"] = counts
+        del eng, arenas
+        torch.cuda.empty_cache()
+    return summary, launches
+
+
 def check_counts(counts, expect, failures):
     for k, n in counts.items():
         if n != expect.get(k, 0):
@@ -2271,13 +2387,15 @@ def planted_faults():
             "the fresh row left out": entry(fresh_left_out)}
 
 
-def short_serving(cfg, params, fused, patches=()):
-    """A short greedy serving pass at GPT-J-6B width (q8_0 arena, n_ctx
-    2048, host sampling so each ubatch's logits are kept): two requests (40
-    and 23 prompt tokens) in a mixed ubatch of bucket 64, then a fork of
-    the first and a third request (70 tokens), whose prompt joins the three
-    decode rows in a mixed ubatch of bucket 128; 8 tokens each. Returns
-    (tokens, logits per ubatch, launch counts)."""
+def short_serving(cfg, params, fused, patches=(), model=None, feed=None):
+    """A short greedy serving pass at full width (GPT-J-6B by default, or
+    `model`; q8_0 arena, n_ctx 2048, host sampling so each ubatch's logits
+    are kept): two requests (40 and 23 prompt tokens) in a mixed ubatch of
+    bucket 64, then a fork of the first and a third request (70 tokens),
+    whose prompt joins the three decode rows in a mixed ubatch of bucket
+    128; 8 tokens each. feed: each request's tokens to take in place of its
+    own picks (a teacher-forced pass, fed another pass's tokens). Returns
+    (tokens, logits per ubatch, launch counts, a copy of the KV arena)."""
     from ggml_imax_tpu_torch import _build
     from ggml_imax_tpu_torch.models import gptj
     from ggml_imax_tpu_torch.runtime.batched import BatchedEngine
@@ -2285,16 +2403,25 @@ def short_serving(cfg, params, fused, patches=()):
     prompts = [list(rng.integers(0, cfg.n_vocab - 1, n)) for n in (40, 23, 70)]
     logs = []
     with patched(patches):
-        eng = BatchedEngine(recording(gptj, logs), cfg, params,
+        eng = BatchedEngine(recording(model or gptj, logs), cfg, params,
                             n_ctx=SERVE["n_ctx"], kv_dtype="q8_0",
                             fused_kv_update=fused)
+        rids = []
+        if feed is not None:
+            def fed(r):
+                n = next(n for n, i in enumerate(rids)
+                         if eng.requests[i] is r)
+                return feed[n][len(r.out)]
+            eng._sample = fed
         _build.reset_launches()
-        rids = [eng.add_request(p, 8, temp=0.0) for p in prompts[:2]]
+        rids += [eng.add_request(p, 8, temp=0.0) for p in prompts[:2]]
         eng.step()
         rids += [eng.fork(rids[0]), eng.add_request(prompts[2], 8, temp=0.0)]
         res = eng.run()
         counts = dict(_build.LAUNCHES)
-    return [res[r] for r in rids], logs, counts
+    c = eng.cache
+    return [res[r] for r in rids], logs, counts, [
+        t.clone() for t in (c.k, c.v, c.ks, c.vs) if t is not None]
 
 
 def engine_greedy(cfg, params, fused, patches=(), n=8, model=None,
@@ -2364,11 +2491,144 @@ def check_route(label, ref, got, failures, control=False, tol=ROUTE_TOL):
                         f"({note}, max diff {max(diffs):.3e}, limit {tol:.3e})")
 
 
-def timed_serving(be, rng, L, launches, failures, steady=False):
+def check_forced_rows(label, ref, got, failures, tol, control=False):
+    """check_forced for passes of many rows a forward (serving ubatches; got
+    fed ref's tokens): every ubatch's max |logit diff| within tol of ref's
+    largest |logit|, and each row's pick equal except where ref's top-2
+    margin for that row is within twice that ubatch's diff. A control (a
+    planted fault) must fail."""
+    limit = tol * logit_scale(ref[1])
+    same_shape = [a.shape for a in ref[1]] == [b.shape for b in got[1]]
+    diffs = [float((a - b).abs().max()) for a, b in zip(ref[1], got[1])]
+    parted = []
+    for i, (a, b) in enumerate(zip(ref[1], got[1])):
+        for r in (a.argmax(-1) != b.argmax(-1)).nonzero()[:, 0].tolist():
+            top2 = a[r].topk(2).values
+            parted.append((i, r, round(float(top2[0] - top2[1]), 5)))
+    ties = all(m <= 2 * diffs[i] for i, _, m in parted)
+    ok = same_shape and max(diffs) <= limit and ties
+    log(f"  {label}: max |logit diff| per ubatch "
+        f"[{', '.join(f'{d:.3e}' for d in diffs)}] (limit {limit:.3e}, largest "
+        f"|logit| {logit_scale(ref[1]):.3f}), picks part at {parted} (ubatch, "
+        f"row, top-2 margin) -> {'holds' if ok else 'fails'}")
+    if ok == control:
+        failures.append(f"{label}: the check {'holds' if ok else 'fails'} "
+                        f"(max diff {max(diffs):.3e}, limit {limit:.3e}, "
+                        f"parted {parted})")
+
+
+def attention_recording(model, outs):
+    """Patches recording, in call order and on the host, the output of
+    every attention route the model's forward calls (flash for a mixed
+    ubatch, the cells kernels for a decode-only one), the rows that see a
+    key only: a pad row sees none, and the routes treat it differently (the
+    fused kernel folds in its own fresh row)."""
+    def rec(fn, mask_at):
+        def wrapped(*a, **kw):
+            out = fn(*a, **kw)
+            o = out[0] if isinstance(out, tuple) else out
+            mask = a[mask_at]
+            sees = (mask.reshape(-1, mask.shape[-1]).float() > -1e29).any(-1)
+            outs.append(o.reshape(sees.shape[0], -1)[sees].float().cpu())
+            return out
+        return wrapped
+    names = {"attention": 3, "decode_attention_cells": 3,
+             "decode_attention_update_cells": 6}
+    return [(model, n, rec(getattr(model, n), at)) for n, at in names.items()
+            if hasattr(model, n)]
+
+
+def check_attention_calls(label, ref, got, failures, tol, control=False):
+    """Two passes' attention outputs, call by call (a layer of a ubatch
+    each): every call's max |diff| within tol of the ref call's largest
+    |value|. A control must fail."""
+    errs = [rel_err(g, r) for r, g in zip(ref, got)]
+    ok = len(ref) == len(got) and max(errs) <= tol
+    worst = sorted(range(len(errs)), key=lambda i: -errs[i])[:3]
+    log(f"  {label}: {len(errs)} calls, largest relative difference "
+        f"{max(errs):.3e} (limit {tol:.0e}; worst calls "
+        f"{[(i, float(f'{errs[i]:.3e}')) for i in worst]}) -> "
+        f"{'holds' if ok else 'fails'}")
+    if ok == control:
+        failures.append(f"{label}: the check {'holds' if ok else 'fails'} "
+                        f"(largest {max(errs):.3e})")
+
+
+def check_fused_cells(label, ref, ref_attn, got, got_attn, failures,
+                      control=False):
+    """The fused cells route (got, fed ref's tokens) held to the default
+    one (ref): the logits (check_forced_rows), the attention outputs call by
+    call (check_attention_calls), both within Q4KM_ROUTE_TOL, and the KV
+    arena but its trash cell bit for bit (both routes write the same q8_0
+    rows into the same cells). At random weights a pass of LLaMA-2 7B with
+    the fresh row written one cell off gave the sound pass's logits and
+    attention outputs bit for bit on an H100; the arena is what shows that
+    fault. A control (a planted fault) must fail the three taken
+    together."""
+    found = []
+    check_forced_rows(f"{label} (fed)", ref, got, found, Q4KM_ROUTE_TOL)
+    check_attention_calls(f"{label}, attention outputs", ref_attn, got_attn,
+                          found, Q4KM_ROUTE_TOL)
+    # the trash cell (the last) is left out: every pad row writes it, and
+    # which write lands last is not defined
+    arena_ok = all(torch.equal(a[:, :, :-1], b[:, :, :-1])
+                   for a, b in zip(ref[3], got[3]))
+    log(f"  {label}: KV arena (the trash cell left out) equal bit for bit "
+        f"{arena_ok}")
+    ok = arena_ok and not found
+    if ok == control:
+        failures.append(f"{label}: the check {'holds' if ok else 'fails'} "
+                        f"(arena equal {arena_ok}; {found})")
+
+
+def decode_ubatch_profile(be, rng, cfg, summary, label=""):
+    """The device busy share of a decode-only ubatch: 8 streams past their
+    64-token prompts, 4 steps timed unprofiled, 4 profiled; W4A16's, nat8
+    W8A16's and the cells kernel's share of it. Into summary."""
+    for _ in range(SERVE["n_req"]):
+        be.add_request(list(rng.integers(0, cfg.n_vocab - 1, 64)), 64, temp=0.8)
+    while any(r.n_prompt_done < len(r.prompt) for r in be.requests.values()
+              if not r.done):
+        be.step()
+    t0 = time.perf_counter()
+    for _ in range(4):
+        be.step()
+    step_ms = (time.perf_counter() - t0) / 4 * 1e3
+    launches_ub = {}
+    dev = _device_ms(lambda _: be.step(), 4, launches_ub)
+    if not dev:
+        log(f"  {label}profiled decode-only ubatch: no device time (not "
+            "measured)")
+        return
+    busy = sum(dev.values())
+    summary.update(decode_ubatch_ms=step_ms, decode_ubatch_busy_ms=busy)
+    log(f"  {label}profiled decode-only ubatch (nb 8): device busy {busy:.3f} "
+        f"ms of {step_ms:.3f} ms unprofiled -> busy {100 * busy / step_ms:.1f}%, "
+        f"idle {100 * (1 - busy / step_ms):.1f}%")
+    for key, ms in sorted(dev.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"    {ms:9.4f} ms  {key[:90]}")
+    what = f"{label}profiled decode-only ubatch"
+    summary["decode_ubatch_w4a16_ms"] = kernel_share(
+        dev, busy, what, launches=launches_ub)
+    summary["decode_ubatch_w8a16_ms"] = kernel_share(
+        dev, busy, what, "nat8 W8A16 (nat8_gemm.cu)", launches_ub)
+    summary["decode_ubatch_cells_ms"] = kernel_share(
+        dev, busy, what, "cells decode attention (decode_attention_cells.cu)",
+        launches_ub)
+    tail = summary["steady"].get("tail_ms_per_ubatch")
+    if tail:
+        log(f"  {label}the run_pipelined tail: {tail:.3f} ms a decode-only "
+            f"ubatch -> busy {100 * busy / tail:.1f}% (the eager ubatch's "
+            "profiled device time over the tail's wall time a ubatch)")
+
+
+def timed_serving(be, rng, L, launches, failures, steady=False,
+                  products=None, key="serving"):
     """One timed serving_workload (the --steady form with steady) with the
     launch counters set to 0 just before and read just after, held to the
-    exact counts of its ubatches; into launches["serving"] (or
-    ["serving_steady"]). Returns its summary."""
+    exact counts of its ubatches (L attention launches a ubatch; products:
+    each A16 kernel's launches a ubatch, GPT-J's 2 L + 1 W4A16 by default);
+    into launches[key] (or [key + "_steady"]). Returns its summary."""
     from ggml_imax_tpu_torch import _build
     be.requests.clear()
     be.n_ubatches = {"mixed": 0, "decode": 0}
@@ -2402,11 +2662,13 @@ def timed_serving(be, rng, L, launches, failures, steady=False):
         f"max_memory_allocated {peak:.3f} GiB")
     log(f"  launches: {counts}")
     n_all = nu["mixed"] + nu["decode"]
+    products = products or {"w4a16_gemm": 2 * L + 1}
     check_counts(counts, {"decode_attention_cells": L * nu["decode"],
                           "flash_attention": L * nu["mixed"],
                           "flash_backward_tiles": L * nu["mixed"],
-                          "w4a16_gemm": (2 * L + 1) * n_all}, failures)
-    launches["serving_steady" if steady else "serving"] = counts
+                          **{k: n * n_all for k, n in products.items()}},
+                 failures)
+    launches[key + "_steady" if steady else key] = counts
     return summary
 
 
@@ -2463,37 +2725,7 @@ def serve_gptj(failures):
                                    else f"{pool / 2**20:.1f} MiB"))
 
     # device busy share of a decode-only ubatch: 8 streams past their prompts
-    for _ in range(SERVE["n_req"]):
-        be.add_request(list(rng.integers(0, cfg.n_vocab - 1, 64)), 64, temp=0.8)
-    while any(r.n_prompt_done < len(r.prompt) for r in be.requests.values()
-              if not r.done):
-        be.step()
-    t0 = time.perf_counter()
-    for _ in range(4):
-        be.step()
-    step_ms = (time.perf_counter() - t0) / 4 * 1e3
-    launches_ub = {}
-    dev = _device_ms(lambda _: be.step(), 4, launches_ub)
-    if dev:
-        busy = sum(dev.values())
-        summary.update(decode_ubatch_ms=step_ms, decode_ubatch_busy_ms=busy)
-        log(f"  profiled decode-only ubatch (nb 8): device busy {busy:.3f} ms "
-            f"of {step_ms:.3f} ms unprofiled -> busy {100 * busy / step_ms:.1f}%, "
-            f"idle {100 * (1 - busy / step_ms):.1f}%")
-        for key, ms in sorted(dev.items(), key=lambda kv: -kv[1])[:8]:
-            log(f"    {ms:9.4f} ms  {key[:90]}")
-        summary["decode_ubatch_w4a16_ms"] = kernel_share(
-            dev, busy, "profiled decode-only ubatch", launches=launches_ub)
-        summary["decode_ubatch_cells_ms"] = kernel_share(
-            dev, busy, "profiled decode-only ubatch",
-            "cells decode attention (decode_attention_cells.cu)", launches_ub)
-        tail = summary["steady"].get("tail_ms_per_ubatch")
-        if tail:
-            log(f"  the run_pipelined tail: {tail:.3f} ms a decode-only ubatch "
-                f"-> busy {100 * busy / tail:.1f}% (the eager ubatch's "
-                "profiled device time over the tail's wall time a ubatch)")
-    else:
-        log("  profiled decode-only ubatch: no device time (not measured)")
+    decode_ubatch_profile(be, rng, cfg, summary)
 
     del be
     # the route checks at GPT-J-6B depth (see ROUTE_TOL): the default
@@ -3225,9 +3457,85 @@ def llama_q4km(failures):
     check_forced("control: LLaMA-2 7B Q4_K_M, the Q6_K W8A8 fed g 32 in "
                  "place of g 16", ref, greedy(q6k_fed_g32(), ref[0]),
                  failures, Q4KM_ROUTE_TOL, control=True)
+    if failures:
+        return None, None
+    summary["serving"], by_run = llama_serving(params, failures)
     del params
     torch.cuda.empty_cache()
-    return summary, {"llama_q4km": counts, "llama_q4km_chunked": ccounts}
+    return summary, dict(by_run, llama_q4km=counts,
+                         llama_q4km_chunked=ccounts)
+
+
+def llama_serving(params, failures):
+    """Phase 9b's serving pass on its weights: BatchedEngine(n_ctx 2048, q8_0
+    cell arena, on-device sampling) under phase 6's workload (SERVE), once
+    to warm up, then timed, then timed in the --steady form through
+    run_pipelined(8): tok/s, p50 TTFT, exact launch counts (every ubatch,
+    >= 8 rows, 160 W4A16 and 33 nat8 W8A16: q/k/v unfused; a decode-only
+    ubatch 32 decode_attention_cells, a mixed one 32 flash with their maps)
+    and a decode-only ubatch's busy share. Then phase 6's route check at
+    this width, each pass fed the default pass's tokens (check_forced_rows,
+    Q4KM_ROUTE_TOL): every plain version on the card; the fused KV-update
+    route (cells mode: 32 decode_attention_update a decode-only ubatch),
+    held to the default route (check_fused_cells: logits, attention outputs
+    call by call, and the KV arena bit for bit); and the fused route with
+    the fresh row written one cell off, which must fail that check.
+    Returns (summary, launch counts by run)."""
+    from ggml_imax_tpu_torch.models import llama
+    from ggml_imax_tpu_torch.runtime.batched import BatchedEngine
+    cfg = llama.LlamaConfig(**dict(LLAMA2_7B, n_ctx=SERVE["n_ctx"]))
+    L = cfg.n_layer
+    be = BatchedEngine(llama, cfg, params, n_ctx=SERVE["n_ctx"],
+                       kv_dtype="q8_0", on_device_sampling=True, seed=1)
+    arena = sum(t.numel() * t.element_size()
+                for t in (be.cache.k, be.cache.v, be.cache.ks, be.cache.vs))
+    log(f"  serving: q8_0 KV arena {arena / 2**30:.3f} GiB")
+    rng = np.random.default_rng(0)
+    t0 = time.time()
+    serving_workload(be, rng)                        # warm-up
+    log(f"  serving warm-up pass {time.time() - t0:.1f} s ({len(be._chunks)} "
+        f"chunks captured in "
+        f"{sum(r.capture_s for _, r in be._chunks.values()):.2f} s with their "
+        "eager first runs)")
+    launches = {}
+    products = {"w4a16_gemm": 160, "nat8_w8a16": 33}
+    summary = timed_serving(be, rng, L, launches, failures, products=products,
+                            key="llama_q4km_serving")
+    summary["steady"] = timed_serving(be, rng, L, launches, failures,
+                                      steady=True, products=products,
+                                      key="llama_q4km_serving")
+    summary["arena_gib"] = arena / 2**30
+    decode_ubatch_profile(be, rng, cfg, summary, "serving: ")
+    del be
+    torch.cuda.empty_cache()
+    ref_attn, fused_attn, fault_attn = [], [], []
+    ref = short_serving(cfg, params, False,
+                        attention_recording(llama, ref_attn), model=llama)
+    feed = ref[0]
+    check_forced_rows("LLaMA-2 7B Q4_K_M serving, kernels vs plain versions "
+                      "on the card (fed)", ref,
+                      short_serving(cfg, params, False, plain_on_card(),
+                                    model=llama, feed=feed),
+                      failures, Q4KM_ROUTE_TOL)
+    fused = short_serving(cfg, params, True,
+                          attention_recording(llama, fused_attn), model=llama,
+                          feed=feed)
+    check_fused_cells("LLaMA-2 7B Q4_K_M serving, fused route (cells mode) vs "
+                      "default", ref, ref_attn, fused, fused_attn, failures)
+    n_dec = len(ref[1]) - 2                        # two mixed ubatches
+    check_counts(fused[2], {"decode_attention_update": L * n_dec,
+                            "flash_attention": 2 * L,
+                            "flash_backward_tiles": 2 * L,
+                            "w4a16_gemm": 160 * (n_dec + 2),
+                            "nat8_w8a16": 33 * (n_dec + 2)}, failures)
+    launches["llama_q4km_serving_fused"] = fused[2]
+    fault = planted_faults()["the fresh row one row off"]
+    got = short_serving(cfg, params, True,
+                        fault + attention_recording(llama, fault_attn),
+                        model=llama, feed=feed)
+    check_fused_cells("control: the same, the fresh row one cell off", ref,
+                      ref_attn, got, fault_attn, failures, control=True)
+    return summary, launches
 
 
 # phase 8c: GPT-2 117M in the IQ formats. IQ4_NL and IQ4_XS are quantized on
@@ -3964,108 +4272,276 @@ def whisper_route_check(cfg, params, failures):
     del ops
 
 
-def whisper_pipeline_rtf(cfg, params, failures):
-    """tools/bench_models.py measure_whisper_rtf on the port:
-    WhisperPipeline (head unpadded: N 51865 fails the N % 128 gate, so
-    dequantize + matmul each step), FullParams(beam_size=5,
-    temperatures=(0.0,), max_tokens=64), a 30 s warm-up, then 120 s of
-    default_rng(3) noise x 0.1, host clock; RTF (audio s / wall s),
-    segments, tokens, exact launch counts (per window: an encode, the
-    prompt step at 5 rows x 4 tokens, and 72 W8A16 at M 5 each beam step);
-    then the device busy share of a beam step (B 5) and the gated head's
-    device time in it."""
+def pipeline_run(pipe, samples, fp, calls=None):
+    """One timed transcribe (host clock to the last fetch), the launch
+    counters set to 0 just before and read just after, and a copy of the KV
+    cache after every attempt. Returns (segments, wall s, launch counts,
+    the caches)."""
     from ggml_imax_tpu_torch import _build
+    caches, real = [], pipe._run_beam
+
+    def run_beam(*a, **kw):
+        out = real(*a, **kw)
+        c = pipe.last_cache
+        caches.append([t.clone() for t in (c.k, c.v, c.ks, c.vs)
+                       if t is not None])
+        return out
+    pipe._run_beam = run_beam
+    try:
+        if calls is not None:
+            calls.clear()
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        segs = pipe.transcribe(samples, fp)
+        wall = time.perf_counter() - t0
+        counts = dict(_build.LAUNCHES)
+    finally:
+        del pipe._run_beam
+    return segs, wall, counts, caches
+
+
+def same_transcript(a, b) -> bool:
+    """Two pipeline_run results with equal tokens, temperatures,
+    avg_logprob and KV cache after every attempt, bit for bit."""
+    key = lambda r: [(s.tokens, s.temperature, s.avg_logprob) for s in r[0]]
+    return key(a) == key(b) and len(a[3]) == len(b[3]) and all(
+        torch.equal(x, y) for ca, cb in zip(a[3], b[3]) for x, y in zip(ca, cb))
+
+
+def frozen_whisper_fill(pipe_cls):
+    """The captured Whisper steps' planted fault: each static set's n_past
+    and positions left at the first value they were given (every replay
+    writes and reads one cache row), as frozen_n_past_control freezes the
+    engine's spans."""
+    real = pipe_cls._fill
+
+    def frozen(self, st, nxt, n_past):
+        first = getattr(st, "frozen_at", None)
+        if first is None:
+            st.frozen_at = first = n_past
+        real(self, st, nxt, first)
+    return [(pipe_cls, "_fill", frozen)]
+
+
+def timed_timestamps(pipe, samples, fp):
+    """transcribe with token_timestamps, the timestamp pass's parts timed:
+    the device part (alignment_weights: the teacher-forced decode with the
+    cross-attention and the heads' fetch, host clock to the fetch) and the
+    host parts (_median_filter with the normalization and averaging it
+    feeds, and _dtw_path), all told. Returns (segments, wall s, launch
+    counts, {part: seconds}, passes)."""
+    from ggml_imax_tpu_torch import _build
+    from ggml_imax_tpu_torch.runtime import whisper_pipeline as wp
+    secs = {"device": 0.0, "median": 0.0, "dtw": 0.0}
+    n = [0]
+
+    def timed(key, fn):
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            secs[key] += time.perf_counter() - t0
+            n[0] += key == "device"
+            return out
+        return wrapped
+    pairs = [(wp, "alignment_weights", timed("device", wp.alignment_weights)),
+             (wp, "_median_filter", timed("median", wp._median_filter)),
+             (wp, "_dtw_path", timed("dtw", wp._dtw_path))]
+    with patched(pairs):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        segs = pipe.transcribe(samples, fp)
+        wall = time.perf_counter() - t0
+        counts = dict(_build.LAUNCHES)
+    return segs, wall, counts, secs, n[0]
+
+
+def captured_beam_step(pipe, reps=8):
+    """The captured beam step (B 5, top-10) replayed from its static
+    tensors: ms a replay with the fetch of its values (host clock), and its
+    device busy time by torch.profiler over replays (None where the trace
+    resolves no kernel of a replay)."""
+    st = pipe._static[(5, 10)]
+    st.n_past.fill_(10)
+    st.pos.fill_(10)
+    st.run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        st.run()
+        st.vals.cpu()
+    wall = (time.perf_counter() - t0) / reps * 1e3
+    dev = _device_ms(lambda _: (st.run(), st.vals.cpu()), 4)
+    return wall, (sum(dev.values()) if dev else None), dev
+
+
+def whisper_pipeline_phase(key, cfg, params, failures):
+    """tools/bench_models.py measure_whisper_rtf on the port: WhisperPipeline
+    (head unpadded: N 51865 fails the N % 128 gate, so dequantize + matmul
+    each step), FullParams(beam_size=5, temperatures=(0.0,), max_tokens=64),
+    a 30 s warm-up, then 120 s of default_rng(3) noise x 0.1, host clock,
+    through the eager route (graphs=False) and the captured steps: RTF,
+    segments, tokens, exact launch counts (per window an encode, the prompt
+    step at 5 rows x 4 tokens and 6 W8A16 a decoder layer at M 5 each beam
+    step; the captured route's equal to the eager one's), and the captured
+    route's tokens, avg_logprob and KV cache after every window equal to
+    the eager route's bit for bit; a control, the captured steps with
+    n_past frozen, which must fail that check on the first window; a beam
+    step eager and captured, wall against device busy, and the gated head's
+    device time; then the 120 s again with token_timestamps: the timestamp
+    pass's device and host seconds, its launches (a decoder pass at M = the
+    window's tokens: 6 W8A16 and 2 flash a layer, one map), token_times
+    monotone within each window, tokens equal to the captured run's."""
     from ggml_imax_tpu_torch.models import whisper as W
     from ggml_imax_tpu_torch.ops.qmatmul import qmatmul
     from ggml_imax_tpu_torch.runtime.whisper_pipeline import (FullParams,
                                                               WhisperPipeline)
     sr = 16000
-    pipe = WhisperPipeline(cfg, params)
-    calls = []
-    real = pipe._decode_topk
-
-    def counted(*a, **kw):
-        calls.append(a[5])                       # n_past
-        return real(*a, **kw)
-    pipe._decode_topk = counted
+    Le, Ld = cfg.n_audio_layer, cfg.n_text_layer
     rng = np.random.default_rng(3)
     fp = FullParams(beam_size=5, temperatures=(0.0,),
                     max_tokens=WHISPER_TOKENS)
     warm = (rng.standard_normal(30 * sr) * 0.1).astype(np.float32)
-    t0 = time.time()
-    segs = pipe.transcribe(warm, fp)
-    log(f"  warm-up transcribe of 30 s: {time.time() - t0:.2f} s, "
-        f"{len(segs)} segment(s)")
     samples = (rng.standard_normal(WHISPER_AUDIO_S * sr) * 0.1) \
         .astype(np.float32)
-    calls.clear()
-    torch.cuda.synchronize()
-    _build.reset_launches()
-    t0 = time.perf_counter()
-    segs = pipe.transcribe(samples, fp)
-    wall = time.perf_counter() - t0
-    counts = dict(_build.LAUNCHES)
-    toks = sum(len(s.tokens) for s in segs)
-    windows = len(segs)
-    Le, Ld = cfg.n_audio_layer, cfg.n_text_layer
-    expect = {"nat8_w8a16": windows * (6 * Le + 2 * Ld) + len(calls) * 6 * Ld,
-              "flash_attention": windows * (Le + 2 * Ld),
-              "flash_backward_tiles": windows * Ld}
-    check_counts(counts, expect, failures)
-    ok = windows == WHISPER_AUDIO_S // 30 and all(
-        0 <= t < cfg.n_vocab for s in segs for t in s.tokens)
+    out, runs, launches = {}, {}, {}
+    for graphs in (False, True):
+        route = "captured" if graphs else "eager"
+        pipe = WhisperPipeline(cfg, params, graphs=graphs)
+        calls = []
+        real = pipe._decode_topk
+
+        def counted(*a, _real=real, _calls=calls, **kw):
+            _calls.append(a[5])                  # n_past
+            return _real(*a, **kw)
+        pipe._decode_topk = counted
+        t0 = time.time()
+        pipe.transcribe(warm, fp)
+        torch.cuda.synchronize()
+        log(f"  {key} {route}: warm-up transcribe of 30 s {time.time() - t0:.2f}"
+            f" s" + (f", of which the captured steps' eager first runs and "
+                     f"captures {pipe.capture_s:.2f} s" if graphs else ""))
+        run = pipeline_run(pipe, samples, fp, calls)
+        runs[route] = run
+        segs, wall, counts, _ = run
+        toks = sum(len(s.tokens) for s in segs)
+        windows = len(segs)
+        if not graphs:
+            # the eager route calls the step once a prompt and a beam step
+            steps = len(calls) - windows
+            expect = {"nat8_w8a16": windows * (6 * Le + 2 * Ld)
+                      + len(calls) * 6 * Ld,
+                      "flash_attention": windows * (Le + 2 * Ld),
+                      "flash_backward_tiles": windows * Ld}
+            check_counts(counts, expect, failures)
+        elif counts != runs["eager"][2]:
+            failures.append(f"{key} captured pipeline launches {counts} differ "
+                            f"from the eager route's {runs['eager'][2]}")
+        if windows != WHISPER_AUDIO_S // 30 or not all(
+                0 <= t < cfg.n_vocab for s in segs for t in s.tokens):
+            failures.append(f"{key} {route} pipeline: {windows} segments, "
+                            f"tokens {[s.tokens[:8] for s in segs]}")
+        rtf = WHISPER_AUDIO_S / wall
+        log(f"  {key} {route} pipeline over {WHISPER_AUDIO_S} s: {wall:.3f} s "
+            f"wall -> RTF {rtf:.2f}x real time, {windows} segments, {toks} "
+            f"tokens, {steps} beam steps, avg_logprob "
+            f"{[round(s.avg_logprob, 4) for s in segs]}; launches "
+            f"{ {k: n for k, n in counts.items() if n} }")
+        out[f"{route}_rtf"], out[f"{route}_wall_s"] = rtf, wall
+        out.update(segments=windows, tokens=toks, beam_steps=steps)
+        launches[f"whisper_{key}_pipeline_{route}"] = counts
+    ok = same_transcript(runs["eager"], runs["captured"])
+    log(f"  {key}: captured vs eager, window by window: tokens, avg_logprob "
+        f"and KV cache equal bit for bit {ok}")
     if not ok:
-        failures.append(f"pipeline: {windows} segments, tokens "
-                        f"{[s.tokens[:8] for s in segs]}")
-    rtf = WHISPER_AUDIO_S / wall
-    log(f"  pipeline over {WHISPER_AUDIO_S} s: {wall:.3f} s wall -> RTF "
-        f"{rtf:.2f}x real time, {windows} segments, {toks} tokens, "
-        f"{len(calls)} decode calls ({len(calls) - windows} beam steps), "
-        f"temperatures {[s.temperature for s in segs]}, avg_logprob "
-        f"{[round(s.avg_logprob, 4) for s in segs]}; launches {counts} "
-        f"(expected {expect})")
-    # one beam step at 5 rows, profiled, and the gated head in it
+        failures.append(f"{key}: the captured pipeline differs from the eager")
+    # the control: the captured steps with n_past frozen, on the first window
+    first = samples[:30 * sr]
+    want = (runs["eager"][0][:1], None, None, runs["eager"][3][:1])
+    with patched(frozen_whisper_fill(WhisperPipeline)):
+        got = pipeline_run(pipe, first, fp)
+    for st in pipe._static.values():
+        del st.frozen_at
+    fails = not same_transcript(want, got)
+    log(f"  control: {key} captured steps with n_past frozen, first window: "
+        f"tokens equal {got[0][0].tokens == want[0][0].tokens}, the check "
+        f"{'fails' if fails else 'holds'}")
+    if not fails:
+        failures.append(f"{key} control: frozen n_past passed the check")
+    # a beam step: eager (one decode step at 5 rows) and captured
     xk, xv = W.precompute_cross_kv(cfg, params, torch.zeros(
         1, cfg.n_audio_ctx, cfg.n_audio_state, device="cuda"))
     cross = (xk.repeat_interleave(5, 1), xv.repeat_interleave(5, 1))
     cache = W.init_cache(cfg, batch=5, device="cuda")
     tok = torch.full((5, 1), 220, dtype=torch.long, device="cuda")
-    step = lambda i: real(params, tok, torch.full((5, 1), 10 + i,
-                                                  device="cuda"),
-                          cache, cross, 10 + i, k=10)
+    step = lambda i: pipe._decode_topk(
+        params, tok, torch.full((5, 1), 10 + i, device="cuda"), cache, cross,
+        10 + i, k=10)[0].cpu()
     step(0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(8):
-        vals = step(i)[0]
-    float(vals[0, 0])
-    step_wall = (time.perf_counter() - t0) / 8 * 1e3
-    dev = _device_ms(step, 4)
-    busy = sum(dev.values()) if dev else None
-    # the gated head's device time by CUDA events (L2 flushed before each
-    # call), which a trace may miss
+        step(i)
+    e_wall = (time.perf_counter() - t0) / 8 * 1e3
+    e_dev = _device_ms(step, 4)
+    e_busy = sum(e_dev.values()) if e_dev else None
+    c_wall, c_busy, c_dev = captured_beam_step(pipe)
+    del cross, cache
     x = torch.randn(5, 1, cfg.n_text_state, device="cuda")
     head_ms = Timer()(lambda: qmatmul(x, params["d_te"],
                                       out_dtype=torch.float32))
-    share = "" if busy is None else \
-        f" = {100 * head_ms / busy:.1f}% of the step's device time"
-    log(f"  beam step (5 rows): {step_wall:.3f} ms wall, device busy "
-        + ("not measured (no device time in the trace)" if busy is None else
-           f"{busy:.3f} ms = {100 * busy / step_wall:.1f}%")
-        + f"; the gated head (dequantize + matmul, N {params['d_te'].n}) "
-        f"{head_ms:.3f} ms by CUDA events{share}")
-    for key, t in sorted((dev or {}).items(), key=lambda kv: -kv[1])[:6]:
-        log(f"    beam step {t:9.4f} ms  {key[:90]}")
-    return ({"audio_s": WHISPER_AUDIO_S, "wall_s": wall, "rtf": rtf,
-             "segments": windows, "tokens": toks, "decode_calls": len(calls),
-             "beam_step_ms": step_wall, "beam_step_busy_ms": busy,
-             "gated_head_ms": head_ms}, counts)
+    share = lambda b, w: "not measured (no device time in the trace)" \
+        if b is None else f"{b:.3f} ms = {100 * b / w:.1f}%"
+    log(f"  {key} beam step (5 rows): eager {e_wall:.3f} ms wall, device busy "
+        f"{share(e_busy, e_wall)}; captured {c_wall:.3f} ms wall, device busy "
+        f"{share(c_busy, c_wall)}; the gated head (dequantize + matmul, N "
+        f"{params['d_te'].n}) {head_ms:.3f} ms by CUDA events"
+        + ("" if e_busy is None else
+           f" = {100 * head_ms / e_busy:.1f}% of the eager step's device time"))
+    for label, dev in (("eager", e_dev), ("captured", c_dev)):
+        for k, t in sorted((dev or {}).items(), key=lambda kv: -kv[1])[:5]:
+            log(f"    {label} beam step {t:9.4f} ms  {k[:90]}")
+    out.update(eager_beam_step_ms=e_wall, eager_beam_step_busy_ms=e_busy,
+               captured_beam_step_ms=c_wall, captured_beam_step_busy_ms=c_busy,
+               gated_head_ms=head_ms, capture_s=pipe.capture_s)
+    # the timestamp pass, over the same 120 s on the captured steps
+    fpt = FullParams(beam_size=5, temperatures=(0.0,),
+                     max_tokens=WHISPER_TOKENS, token_timestamps=True)
+    segs, wall, counts, secs, n_pass = timed_timestamps(pipe, samples, fpt)
+    lens = [len(s.tokens) + 4 for s in segs if s.tokens]
+    expect = {k: n + {"nat8_w8a16": 6 * Ld, "flash_attention": 2 * Ld,
+                      "flash_backward_tiles": Ld}.get(k, 0) * len(lens)
+              for k, n in runs["captured"][2].items()}
+    check_counts(counts, expect, failures)
+    mono = all(s.token_times is not None and len(s.token_times) == len(s.tokens)
+               and s.token_times == sorted(s.token_times)
+               and s.t0 <= s.token_times[0] and s.token_times[-1] < s.t0 + 30
+               for s in segs)
+    same = [s.tokens for s in segs] == [s.tokens for s in runs["captured"][0]]
+    log(f"  {key} with token timestamps: {wall:.3f} s wall (RTF "
+        f"{WHISPER_AUDIO_S / wall:.2f}), {n_pass} timestamp passes at T "
+        f"{lens}: device part {secs['device']:.3f} s, host median filter "
+        f"{secs['median']:.3f} s, host DTW {secs['dtw']:.3f} s; token_times "
+        f"monotone in their windows {mono}, tokens equal the captured run's "
+        f"{same}; first window's first times "
+        f"{[round(float(t), 2) for t in segs[0].token_times[:6]]}")
+    if not (mono and same and n_pass == len(segs)):
+        failures.append(f"{key} timestamps: monotone {mono}, tokens equal "
+                        f"{same}, {n_pass} passes")
+    out.update(timestamps_wall_s=wall, timestamp_device_s=secs["device"],
+               timestamp_median_s=secs["median"], timestamp_dtw_s=secs["dtw"],
+               timestamp_passes=n_pass)
+    launches[f"whisper_{key}_timestamps"] = counts
+    del pipe
+    return out, launches
 
 
 def whisper_phase(failures):
     """Phase 10: 10a Whisper small Q5_0 as measure_whisper, the route check
-    and its planted fault; 10b the small pipeline as measure_whisper_rtf;
-    10c Whisper medium Q5_0 as measure_whisper. Returns (summary, launch
+    and its planted fault; 10b the small pipeline as measure_whisper_rtf,
+    eager and captured, with token timestamps; 10c Whisper medium Q5_0 as
+    measure_whisper, then 10d its pipeline as 10b. Returns (summary, launch
     counts by run)."""
     from ggml_imax_tpu_torch.models import whisper as W
     summary, launches = {}, {}
@@ -4091,12 +4567,17 @@ def whisper_phase(failures):
                          for part, c in counts.items()})
         if key == "small":
             whisper_route_check(cfg, params, failures)
-            del params
-            torch.cuda.empty_cache()
-            log("  -- 10b: the Whisper small pipeline (head unpadded, beam 5)")
-            params = whisper_params(cfg, pad_head=False)
-            summary["small_pipeline"], launches["whisper_small_pipeline"] = \
-                whisper_pipeline_rtf(cfg, params, failures)
+        del params
+        torch.cuda.empty_cache()
+        if failures:
+            break
+        log(f"  -- 10{'b' if key == 'small' else 'd'}: the Whisper {key} "
+            "pipeline (head unpadded, beam 5), eager and captured, and its "
+            "token timestamps")
+        params = whisper_params(cfg, pad_head=False)
+        summary[f"{key}_pipeline"], by_run = whisper_pipeline_phase(
+            key, cfg, params, failures)
+        launches.update(by_run)
         del params
         torch.cuda.empty_cache()
         if failures:
@@ -4160,6 +4641,7 @@ def main() -> int:
     check_train_kernels(ck, timer, gen)
     check_kquant_kernels(ck, timer, gen)
     check_llama_kernels(ck, timer, gen)
+    check_llama_serving_kernels(ck, timer, gen)
     check_format_kernels(ck, timer, gen)
     check_whisper_kernels(ck, timer, gen)
     del timer                                      # the 256 MB flush buffer
@@ -4225,7 +4707,14 @@ def main() -> int:
         raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
     launches["gptj_chunked"], engines["gptj_chunked"] = ccounts, dict(
         summary, requests=creqs)
-    del eng, params, runs                  # runs holds copies of the arena
+    del eng
+    torch.cuda.empty_cache()
+    engines["gptj_residency"], by_run = gptj_residencies(cfg, params, runs,
+                                                         failures)
+    launches.update(by_run)
+    if failures:
+        raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
+    del params, runs                       # runs holds copies of the arena
     torch.cuda.empty_cache()
     log(f"# phase 4: {time.time() - t0:.1f} s")
 
@@ -4363,8 +4852,9 @@ def main() -> int:
     log(f"# phase 9c: {time.time() - t0:.1f} s")
 
     # ---- 10. Whisper small and medium Q5_0
-    log("# phase 10: Whisper small Q5_0 (encode, greedy, the route check, "
-        "the beam-search pipeline) and Whisper medium Q5_0 (encode, greedy)")
+    log("# phase 10: Whisper small and medium Q5_0 (encode, greedy, the "
+        "route check, the beam-search pipeline eager and captured, token "
+        "timestamps)")
     t0 = time.time()
     engines["whisper"], by_run = whisper_phase(failures)
     if failures:

@@ -57,6 +57,17 @@ class KVCache:
         return KVCache(pick(self.k), pick(self.v), pick(self.ks),
                        pick(self.vs), heads=self.heads)
 
+    def reorder_(self, idx) -> "KVCache":
+        """select_batch in place, for a cache whose addresses a captured
+        step holds: idx (B,) int on the cache's device. Each tensor's rows
+        are gathered into a scratch, then copied back, so an order that
+        repeats a row ([0, 0, 2, 1, 1]) never reads a row it has already
+        overwritten. The bytes equal select_batch's."""
+        for t in (self.k, self.v, self.ks, self.vs):
+            if t is not None:
+                t.copy_(t.index_select(1, idx))
+        return self
+
 
 def init_kv_cache(n_layer: int, batch: int, n_ctx: int, n_kv_head: int,
                   head_dim: int, dtype=torch.bfloat16, *, device) -> KVCache:

@@ -33,6 +33,11 @@ from .common import (KVCache, attention_mask, init_kv_cache, read_kv,
                      update_kv, update_kv_cells)
 
 
+# no fused KV-update route: the decode kernels take head_dim 128 or 256,
+# so GPT-2 (64) keeps its decode attention plain
+FUSED_KV_UPDATE = False
+
+
 @dataclass(frozen=True)
 class GPT2Config:
     n_vocab: int = 50257

@@ -35,6 +35,11 @@ from .common import (KVCache, attention_mask, init_kv_cache, read_kv,
 from .common import params_from_jax  # noqa: F401  (kept importable here)
 
 
+# a single-token step and a decode-only celled ubatch can write their K/V
+# inside the attention kernel (fused_kv_update)
+FUSED_KV_UPDATE = True
+
+
 @dataclass(frozen=True)
 class GPTJConfig:
     n_vocab: int = 50400

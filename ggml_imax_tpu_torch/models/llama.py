@@ -44,6 +44,11 @@ from .common import (KVCache, attention_mask, init_kv_cache, read_kv,
 IQ4NL_STD = 67.18
 
 
+# a single-token step and a decode-only celled ubatch can write their K/V
+# inside the attention kernel (fused_kv_update)
+FUSED_KV_UPDATE = True
+
+
 @dataclass(frozen=True)
 class LlamaConfig:
     n_vocab: int = 32000

@@ -20,9 +20,13 @@ n_vocab 51865 dequantizes and multiplies unless its columns are padded
 (quant.device.pad_qtensor_cols, before repacking). Attention is flash
 for more than one query row (the encoder, the prompt step) and
 attention_xla for one (head_dim 64 is under the decode kernel's 128).
+decode(return_cross_attn=True) also returns each layer's cross-attention
+probabilities, the alignment signal of the DTW token timestamps
+(runtime/whisper_pipeline.token_timestamps).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -37,11 +41,6 @@ from ..ops.qmatmul import qmatmul
 from ..quant.device import QTensor, concat_qtensors
 from ..quant.formats import GGMLType
 from .common import KVCache, attention_mask, init_kv_cache, read_kv, update_kv
-
-# where the parts of the reference's Whisper that are not ported yet wait
-TIMESTAMPS_ITEM = ("DTW token timestamps are not ported yet (ROADMAP.md "
-                   "Queue 1 item 1b)")
-
 
 @dataclass(frozen=True)
 class WhisperConfig:
@@ -250,15 +249,25 @@ def init_cache(cfg: WhisperConfig, batch: int = 1, n_ctx: int | None = None,
 
 
 def decode(cfg: WhisperConfig, params, tokens, positions, cache: KVCache,
-           cross_kv, n_past: int, *, compute_dtype=torch.bfloat16,
+           cross_kv, n_past, *, compute_dtype=torch.bfloat16,
            return_cross_attn: bool = False):
     """tokens/positions (B, T) int on the params' device -> (logits
     (B, T, n_vocab) f32, cache); the KV cache's rows [n_past, n_past + T)
-    are written in place. cross_kv: precompute_cross_kv's (K, V) with B
-    rows. Takes the decoder's q/k/v fused (prepare_fused) or as three
-    products; padded head columns are sliced off."""
-    if return_cross_attn:
-        raise NotImplementedError(TIMESTAMPS_ITEM)
+    are written in place. n_past: an int, or a 0-d int64 tensor on the
+    params' device (a captured decode step reads it there). cross_kv:
+    precompute_cross_kv's (K, V) with B rows. Takes the decoder's q/k/v
+    fused (prepare_fused) or as three products; padded head columns are
+    sliced off. With return_cross_attn, also the cross-attention
+    probabilities (n_text_layer, B, H, T, T_audio) f32: softmax over the
+    audio axis of q K^T / sqrt(D), computed beside the layer's attention
+    (which is unchanged), as the reference computes them outside its
+    kernels."""
+    if "dec_stack" in params:
+        # the reference refuses these with return_cross_attn, and the port
+        # has no stacked decoder at all
+        raise ValueError("decode takes the unstacked decoder (dec_layers); "
+                         "return_cross_attn (DTW token timestamps) needs it "
+                         "too: keep a params copy without stack_decoder")
     H, E = cfg.n_text_head, cfg.n_text_state
     D = E // H
     B, T = tokens.shape
@@ -273,6 +282,7 @@ def decode(cfg: WhisperConfig, params, tokens, positions, cache: KVCache,
     x = get_rows(te, tokens.clamp(0, te.n - 1), dtype=torch.float32)
     x = x + params["d_pe"][positions]
     mask = attention_mask(positions, cache.n_ctx, n_past)
+    cross_probs = []
 
     for li, lp in enumerate(params["dec_layers"]):
         cur = layer_norm(x, lp["ln0_g"], lp["ln0_b"])
@@ -291,6 +301,10 @@ def decode(cfg: WhisperConfig, params, tokens, positions, cache: KVCache,
         cur = layer_norm(x, lp["xln_g"], lp["xln_b"])
         q = (mm(cur, lp["xq_w"]) + lp["xq_b"]).reshape(B, T, H, D)
         a = attention(q, xk[li], xv[li], None, out_dtype=torch.float32)
+        if return_cross_attn:
+            s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                             xk[li].float()) / math.sqrt(D)
+            cross_probs.append(torch.softmax(s, dim=-1))
         x = x + mm(a.reshape(B, T, E), lp["xo_w"]) + lp["xo_b"]
 
         cur = layer_norm(x, lp["ln1_g"], lp["ln1_b"])
@@ -301,4 +315,6 @@ def decode(cfg: WhisperConfig, params, tokens, positions, cache: KVCache,
     logits = mm(x, te)                                  # tied head
     if te.n > cfg.n_vocab:                              # padded head columns
         logits = logits[..., :cfg.n_vocab]
+    if return_cross_attn:
+        return logits, cache, torch.stack(cross_probs)
     return logits, cache

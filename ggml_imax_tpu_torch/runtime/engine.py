@@ -23,8 +23,9 @@ import torch
 
 from .. import _build
 from .._device import resolve_device
+from ..ops.qmm import params_repack
 from ..ops.sampling import gumbel, sample_gumbel, sample_greedy, sample_host
-from ..quant.device import params_to_dense_bf16
+from ..quant.device import QTensor, params_to_dense_bf16
 
 
 def _bucket(n: int, buckets=(8, 16, 32, 64, 128, 256, 512, 1024, 2048)) -> int:
@@ -103,6 +104,29 @@ class CapturedStep:
             self.capture_s = time.perf_counter() - t0
 
 
+def _qtensors(tree):
+    if isinstance(tree, dict):
+        return [q for v in tree.values() for q in _qtensors(v)]
+    if isinstance(tree, list):
+        return [q for v in tree for q in _qtensors(v)]
+    return [tree] if isinstance(tree, QTensor) else []
+
+
+def q4_resident(model_module, cfg, params):
+    """The "q4-fused" residency's params: model_module.prepare_fused (or
+    fuse_qkv where the model has no prepare_fused), then
+    ops.qmm.params_repack. Raises ValueError for params already repacked."""
+    if any(q.interleaved_bk for q in _qtensors(params)):
+        raise ValueError("the q4 residencies prepare unprepared params; these "
+                         "are already repacked (pass them with "
+                         "residency='as-is')")
+    if hasattr(model_module, "prepare_fused"):
+        params = model_module.prepare_fused(params, cfg)
+    elif hasattr(model_module, "fuse_qkv"):
+        params = model_module.fuse_qkv(params)
+    return params_repack(params)
+
+
 class Engine:
     """Single-sequence/batched generation over a model module exposing
     forward(cfg, params, tokens, positions, cache, n_past, ...) and
@@ -113,12 +137,18 @@ class Engine:
     fused_kv_update: single-token steps write their K/V row inside the
     attention kernel (the fused kernel's flat mode; a model without that
     route raises).
-    residency: "as-is" (the default: the params as given) or "bf16" (every
-    QTensor dequantized once, on its device, into a dense bf16 one:
-    quant.device.params_to_dense_bf16). The JAX package's "q4-fused" and
-    "q4-stacked" raise NotImplementedError: its prepare_fused is another
-    graph than the port's (ROADMAP Queue 3), and the port prepares a model
-    with prepare_fused and ops.qmm.params_repack itself.
+    residency: "as-is" (the default: the params as given), "q4-fused"
+    (the model's prepare_fused, or fuse_qkv where it has none, then
+    ops.qmm.params_repack: the decode graph the kernels take, built from
+    unprepared params, as the reference's residency builds it), "q4-stacked"
+    ("q4-fused" with fused_kv_update on a model that has that route: the
+    reference stacks the layers and writes each step's K/V inside its
+    attention kernel, and the port's per-layer lists leave only the fused
+    write to add; GPT-2, whose head_dim 64 keeps decode attention plain, has
+    no such route, so there it equals "q4-fused") or "bf16" (every QTensor
+    dequantized once, on its device, into a dense bf16 one:
+    quant.device.params_to_dense_bf16). The q4 residencies refuse params
+    that are already repacked (ValueError) rather than prepare them twice.
 
     generate() runs in the engine's own KV arena, allocated once (a
     captured span holds its addresses) and cleared at each call; its decode
@@ -130,12 +160,11 @@ class Engine:
                  n_ctx: int | None = None, batch: int = 1, device=None,
                  fused_kv_update: bool = False, residency: str = "as-is"):
         if residency in ("q4-fused", "q4-stacked"):
-            raise NotImplementedError(
-                f"residency {residency!r} is not ported: prepare_fused is a "
-                "different graph in each package (ROADMAP Queue 3); prepare "
-                "the params with the model's prepare_fused and "
-                "ops.qmm.params_repack instead")
-        if residency == "bf16":
+            params = q4_resident(model_module, cfg, params)
+            if residency == "q4-stacked":
+                fused_kv_update = fused_kv_update or getattr(
+                    model_module, "FUSED_KV_UPDATE", False)
+        elif residency == "bf16":
             params = params_to_dense_bf16(params)
         elif residency != "as-is":
             raise ValueError(residency)

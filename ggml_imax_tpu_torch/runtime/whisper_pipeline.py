@@ -16,12 +16,29 @@ The decode step runs on the device with batch = beam width; at temperature
 candidates are computed there, so a step brings back (beam, 2 beam) values
 and ids. The beam bookkeeping (ranking, the finished list, the sampling)
 stays on the host in numpy, as in the reference, so ties order alike.
-DTW token timestamps are not ported yet (FullParams(token_timestamps=True)
-raises).
+
+The decode loop runs as CUDA-graph replay (graphs=True, the default): the
+reference jits its step into one executable, the port captures it once
+per batch width (runtime/engine.CapturedStep: the beam step at B =
+beam_size with its top-2b, the sampled step at B 1 with its last row's
+logits) and replays it. A graph reads fixed addresses, so the pipeline
+owns each width's tensors, allocated once: the KV cache (zeroed for each
+attempt and reordered in place, KVCache.reorder_), the cross K/V (each
+window's copied in), the token, position and n_past inputs (n_past a 0-d
+int64 on the device: a capture would freeze a host int) and the outputs.
+The prompt step and detect_language stay eager. graphs=False is the
+eager route, which allocates per attempt and reorders by select_batch;
+on the CPU a captured step runs eagerly, over the same tensors.
+
+token_timestamps: DTW token-level times from the cross-attention of the
+alignment heads (FullParams(token_timestamps=True) fills
+Segment.token_times).
 """
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -29,6 +46,7 @@ import torch
 from .._device import resolve_device
 from ..audio.mel import N_SAMPLES, SAMPLE_RATE, log_mel_spectrogram
 from ..models import whisper as W
+from .engine import CapturedStep
 
 # openai whisper language ordering: id(lang) = token_sot + 1 + index
 LANGUAGES = (
@@ -50,13 +68,9 @@ class FullParams:
     logprob_thold: float = -1.0
     entropy_thold: float = 2.4
     no_timestamps: bool = True
-    token_timestamps: bool = False
+    token_timestamps: bool = False       # DTW token-level times
     max_tokens: int = 0                  # 0 = until eot / ctx limit
     seed: int = 0
-
-    def __post_init__(self):
-        if self.token_timestamps:
-            raise NotImplementedError(W.TIMESTAMPS_ITEM)
 
 
 @dataclass
@@ -67,7 +81,7 @@ class Segment:
     text: str
     avg_logprob: float
     temperature: float
-    token_times: list | None = None      # DTW token times: not ported yet
+    token_times: list | None = None      # per-token seconds (DTW), optional
 
 
 def log_softmax(x: torch.Tensor) -> torch.Tensor:
@@ -91,17 +105,26 @@ def top_k_lower_index_first(x: torch.Tensor, k: int):
 class WhisperPipeline:
     """Transcribes on `device` (the card unless "cpu"), where `params`
     live. `_encode_window`, `_decode` and `_decode_topk` are the device
-    steps the host loop calls; a test may replace them on an instance."""
+    steps the host loop calls; a test may replace them on an instance.
+    graphs: the decode loop through captured steps (the default), or the
+    eager route (False). `last_cache`: the KV cache of the latest attempt,
+    which the captured route overwrites at the next one."""
 
     def __init__(self, cfg: W.WhisperConfig, params, filters=None,
                  vocab: list[bytes] | None = None, *,
-                 compute_dtype=torch.bfloat16, device=None):
+                 compute_dtype=torch.bfloat16, device=None,
+                 graphs: bool = True):
         self.cfg = cfg
         self.params = params
         self.filters = filters
         self.vocab = vocab
         self.compute_dtype = compute_dtype
         self.device = resolve_device(device)
+        self.graphs = graphs
+        self.graph_pool = torch.cuda.graph_pool_handle() \
+            if graphs and self.device.type == "cuda" else None
+        self._static: dict = {}
+        self.last_cache = None
 
         def dec(params, toks, pos, cache, cross, n_past):
             return W.decode(cfg, params, toks, pos, cache, cross, n_past,
@@ -164,6 +187,59 @@ class WhisperPipeline:
         return W.precompute_cross_kv(self.cfg, self.params, enc,
                                      compute_dtype=self.compute_dtype)
 
+    # -- the captured decode steps ---------------------------------------
+    def _static_step(self, beam: int, k: int):
+        """The captured route's tensors and CapturedStep of one batch width:
+        the beam step (k > 0: top-k values and ids out) or the sampled step
+        (k == 0: the last row's logits out)."""
+        key = (beam, k)
+        if key not in self._static:
+            cfg, dev = self.cfg, self.device
+            H = cfg.n_text_head
+            xshape = (cfg.n_text_layer, beam, cfg.n_audio_ctx, H,
+                      cfg.n_text_state // H)
+            z = lambda *shape, dtype=torch.float32: torch.zeros(
+                shape, dtype=dtype, device=dev)
+            st = SimpleNamespace(
+                k=k, cache=W.init_cache(cfg, batch=beam,
+                                        dtype=self.compute_dtype, device=dev),
+                xk=z(*xshape), xv=z(*xshape),
+                tok=z(beam, 1, dtype=torch.long),
+                pos=z(beam, 1, dtype=torch.long), n_past=z(dtype=torch.long),
+                vals=z(beam, k), idx=z(beam, k, dtype=torch.long),
+                logits=z(beam, cfg.n_vocab))
+            me = weakref.ref(self)
+            st.run = CapturedStep(lambda: me()._captured(st), dev,
+                                  self.graph_pool)
+            self._static[key] = st
+        return self._static[key]
+
+    def _captured(self, st):
+        """What a captured step runs: a decode step over st's tensors, its
+        results copied into st's outputs."""
+        cross = (st.xk, st.xv)
+        if st.k:
+            vals, idx, _ = self._decode_topk(self.params, st.tok, st.pos,
+                                             st.cache, cross, st.n_past,
+                                             k=st.k)
+            st.vals.copy_(vals)
+            st.idx.copy_(idx)
+        else:
+            logits, _ = self._decode(self.params, st.tok, st.pos, st.cache,
+                                     cross, st.n_past)
+            st.logits.copy_(logits[:, -1])
+
+    def _fill(self, st, nxt, n_past: int):
+        """A captured step's inputs: the tokens just picked, at n_past."""
+        st.tok.copy_(self._tensor(np.asarray(nxt, np.int64)[:, None]))
+        st.pos.fill_(n_past)
+        st.n_past.fill_(n_past)
+
+    @property
+    def capture_s(self) -> float:
+        """Seconds the captured steps' warm-ups and captures took."""
+        return sum(st.run.capture_s for st in self._static.values())
+
     def _run_beam(self, cross, prompt, fp: FullParams, temperature: float,
                   rng: np.random.Generator):
         """One decoding attempt at one temperature. Returns
@@ -172,17 +248,27 @@ class WhisperPipeline:
         beam = fp.beam_size if temperature == 0.0 else 1
         n_ctx = cfg.n_text_ctx
         max_new = fp.max_tokens or (n_ctx // 2 - len(prompt))
+        use_topk = temperature == 0.0
+        K2 = 2 * beam
 
-        cache = W.init_cache(cfg, batch=beam, dtype=self.compute_dtype,
-                             device=self.device)
         xk, xv = cross
-        cross_b = (xk.repeat_interleave(beam, dim=1),
-                   xv.repeat_interleave(beam, dim=1))
+        if self.graphs:
+            st = self._static_step(beam, K2 if use_topk else 0)
+            cache = st.cache
+            for t in (cache.k, cache.v, cache.ks, cache.vs):
+                if t is not None:
+                    t.zero_()
+            st.xk.copy_(xk.expand_as(st.xk))
+            st.xv.copy_(xv.expand_as(st.xv))
+            cross_b = (st.xk, st.xv)
+        else:
+            cache = W.init_cache(cfg, batch=beam, dtype=self.compute_dtype,
+                                 device=self.device)
+            cross_b = (xk.repeat_interleave(beam, dim=1),
+                       xv.repeat_interleave(beam, dim=1))
 
         toks = np.tile(np.asarray(prompt, np.int32)[None], (beam, 1))
         pos = np.tile(np.arange(len(prompt), dtype=np.int32)[None], (beam, 1))
-        use_topk = temperature == 0.0
-        K2 = 2 * beam
         if use_topk:
             vals, idx, cache = self._decode_topk(
                 self.params, self._tensor(toks), self._tensor(pos), cache,
@@ -245,25 +331,39 @@ class WhisperPipeline:
             if len(finished) >= beam:
                 break
 
-            # the KV cache follows the surviving beams (a gather on the device)
+            # the KV cache follows the surviving beams (a gather on the
+            # device; in place where a graph holds the cache's address)
             if order != list(range(beam)):
-                cache = cache.select_batch(self._tensor(order))
-            tok_step = self._tensor(np.asarray(nxt, np.int32)[:, None])
-            pos_step = torch.full((beam, 1), n_past, dtype=torch.long,
-                                  device=self.device)
-            if use_topk:
-                vals, idx, cache = self._decode_topk(
-                    self.params, tok_step, pos_step, cache, cross_b, n_past,
-                    k=K2)
-                vals_h, idx_h = vals.cpu().numpy(), idx.cpu().numpy()
+                if self.graphs:
+                    cache.reorder_(self._tensor(order))
+                else:
+                    cache = cache.select_batch(self._tensor(order))
+            if self.graphs:
+                self._fill(st, nxt, n_past)
+                st.run()
+                if use_topk:
+                    vals_h, idx_h = st.vals.cpu().numpy(), st.idx.cpu().numpy()
+                else:
+                    logp = log_softmax(st.logits)
             else:
-                logits, cache = self._decode(self.params, tok_step, pos_step,
-                                             cache, cross_b, n_past)
-                logp = log_softmax(logits[:, 0])
+                tok_step = self._tensor(np.asarray(nxt, np.int32)[:, None])
+                pos_step = torch.full((beam, 1), n_past, dtype=torch.long,
+                                      device=self.device)
+                if use_topk:
+                    vals, idx, cache = self._decode_topk(
+                        self.params, tok_step, pos_step, cache, cross_b,
+                        n_past, k=K2)
+                    vals_h, idx_h = vals.cpu().numpy(), idx.cpu().numpy()
+                else:
+                    logits, cache = self._decode(self.params, tok_step,
+                                                 pos_step, cache, cross_b,
+                                                 n_past)
+                    logp = log_softmax(logits[:, 0])
             n_past += 1
             if n_past >= n_ctx - 1:
                 break
 
+        self.last_cache = cache
         if not finished:
             b = int(np.argmax(sum_lp))
             finished.append((sum_lp[b] / max(1, len(seqs[b])), seqs[b],
@@ -290,11 +390,16 @@ class WhisperPipeline:
                 used_t = t
                 if avg_lp >= fp.logprob_thold and ent <= fp.entropy_thold:
                     break
+            tt = None
+            if fp.token_timestamps and tokens:
+                full = token_timestamps(self, cross, prompt + tokens,
+                                        t_offset=seek / SAMPLE_RATE)
+                tt = list(full[len(prompt):])
             segments.append(Segment(
                 t0=seek / SAMPLE_RATE,
                 t1=min(n, seek + N_SAMPLES) / SAMPLE_RATE,
                 tokens=tokens, text=self.decode_text(tokens),
-                avg_logprob=avg_lp, temperature=used_t))
+                avg_logprob=avg_lp, temperature=used_t, token_times=tt))
             seek += N_SAMPLES
         return segments
 
@@ -321,6 +426,8 @@ class WhisperPipeline:
             for seg in self.transcribe(samples[s0:s1], fp):
                 seg.t0 += off
                 seg.t1 += off
+                if seg.token_times is not None:
+                    seg.token_times = [t + off for t in seg.token_times]
                 out.append(seg)
         return out
 
@@ -340,3 +447,89 @@ def _token_entropy(tokens) -> float:
     _, counts = np.unique(np.asarray(tokens), return_counts=True)
     p = counts / counts.sum()
     return float(-(p * np.log(p)).sum())
+
+
+# -- DTW token timestamps --------------------------------------------------
+
+def _median_filter(w: np.ndarray, width: int = 7) -> np.ndarray:
+    """Median filter along the last (audio) axis, edge-padded: the
+    smoothing applied to the alignment attention before DTW."""
+    pad = width // 2
+    wp = np.pad(w, [(0, 0)] * (w.ndim - 1) + [(pad, pad)], mode="edge")
+    stack = np.stack([wp[..., i:i + w.shape[-1]] for i in range(width)], -1)
+    return np.median(stack, axis=-1)
+
+
+def _dtw_path(cost: np.ndarray) -> np.ndarray:
+    """Monotonic DTW over cost (T_text, T_audio); returns for each text row
+    the matched audio column (backtraced path, first visit per row)."""
+    n, m = cost.shape
+    D = np.full((n + 1, m + 1), np.inf, np.float64)
+    D[0, 0] = 0.0
+    for i in range(1, n + 1):
+        row_prev = D[i - 1]
+        row = D[i]
+        for j in range(1, m + 1):
+            row[j] = cost[i - 1, j - 1] + min(row_prev[j - 1], row_prev[j],
+                                              row[j - 1])
+    # backtrace
+    i, j = n, m
+    match = np.zeros(n, np.int64)
+    while i > 0:
+        match[i - 1] = j - 1
+        moves = (D[i - 1, j - 1], D[i - 1, j], D[i, j - 1])
+        a = int(np.argmin(moves))
+        if a == 0:
+            i, j = i - 1, j - 1
+        elif a == 1:
+            i = i - 1
+        else:
+            j = j - 1
+            if j == 0:
+                j = 1
+    return match
+
+
+def alignment_weights(pipe: WhisperPipeline, cross, tokens: list,
+                      alignment_heads=None) -> np.ndarray:
+    """The device part of token_timestamps: one teacher-forced decode pass
+    over `tokens` (batch 1, a fresh cache) with return_cross_attn, the
+    alignment heads' probabilities selected on the device (by default
+    every head of the text layers L/2..L-1, layer-major) and fetched:
+    (A, T, T_audio) f32."""
+    cfg = pipe.cfg
+    cache = W.init_cache(cfg, batch=1, dtype=pipe.compute_dtype,
+                         device=pipe.device)
+    toks = pipe._tensor(np.asarray(tokens, np.int64)[None])
+    pos = pipe._tensor(np.arange(len(tokens), dtype=np.int64)[None])
+    _, _, probs = W.decode(cfg, pipe.params, toks, pos, cache, cross, 0,
+                           compute_dtype=pipe.compute_dtype,
+                           return_cross_attn=True)
+    L, _, H, T, TA = probs.shape
+    if alignment_heads is None:
+        sel = probs[L // 2:, 0].reshape(-1, T, TA)
+    else:
+        ls, hs = (pipe._tensor([a[i] for a in alignment_heads])
+                  for i in (0, 1))
+        sel = probs[ls, 0, hs]
+    return sel.cpu().numpy()
+
+
+def token_timestamps(pipe: WhisperPipeline, cross, tokens: list, *,
+                     alignment_heads=None, t_offset: float = 0.0):
+    """DTW token-level timestamps for one decoded segment.
+
+    cross: the cross K/V of the segment's audio window; tokens: the full
+    token sequence (prompt + text). The alignment heads' cross-attention
+    (alignment_weights: all heads of the top half of the text layers by
+    default, the fallback when no preset names them) is median-filtered,
+    normalized over the audio axis, averaged over the heads and
+    DTW-aligned on the host. Returns seconds per token (len == len(tokens));
+    each audio column is 20 ms (2 mel frames)."""
+    w = alignment_weights(pipe, cross, tokens, alignment_heads)
+    w = _median_filter(w)
+    std = w.std(axis=-1, keepdims=True)
+    w = (w - w.mean(axis=-1, keepdims=True)) / np.where(std > 0, std, 1.0)
+    cost = -w.mean(axis=0)                    # (T, TA)
+    match = _dtw_path(cost)
+    return t_offset + match.astype(np.float64) * 0.02

@@ -862,6 +862,10 @@ CELLS_CASES = {
     "two pad rows and a row that sees no key": (8, 16, 16, 256, 2048, 2,
                                                 (2,)),
     "S 6": (4, 20, 20, 128, 512, 1, ()),
+    # LLaMA-2 7B serving: 32 kv heads of 128 over 2048 cells
+    # (decode_plan(1, 32, 2048)), 8 and 16 rows
+    "llama NB 8 32x128 T 2048": (8, 32, 32, 128, 2048, 1, ()),
+    "llama NB 16 32x128 T 2048": (16, 32, 32, 128, 2048, 2, (3,)),
 }
 
 
@@ -1030,6 +1034,10 @@ UPDATE_CASES = {
                                              [384], ()),
     "llama flat gqa 32:16": ("flat", 1, 32, 16, 128, 512, [300], ()),
     "llama cells gqa 2:1": ("cells", 2, 2, 1, 128, 256, [17, 255], ()),
+    # LLaMA-2 7B serving: 32 kv heads of 128 over 2048 cells
+    "llama cells NB 8 32x128 T 2048": ("cells", 8, 32, 32, 128, 2048,
+                                       [0, 511, 512, 1023, 1024, 1535,
+                                        2046, 2047], ()),
 }
 
 
@@ -2375,3 +2383,96 @@ def test_select_batch_on_card_gathers_fresh_rows(gen, kv):
     update_kv(new, 0, torch.ones(5, 1, 2, 64, device="cuda"),
               torch.ones(5, 1, 2, 64, device="cuda"), 4)
     assert torch.equal(cache.k, old)
+
+
+# ---- the runtime layer's captured and resident routes ----
+
+def test_whisper_captured_pipeline_equals_eager_on_card(gen):
+    """The small Whisper's transcribe through the captured steps (beam 5,
+    and a sampled fallback step at one row) against the eager route on the
+    card: equal tokens, temperatures and avg_logprob, and the KV cache of
+    every attempt equal bit for bit; the steps were replayed, and the
+    launch counts of the two routes are equal."""
+    from ggml_imax_tpu_torch.audio.mel import mel_filterbank
+    from ggml_imax_tpu_torch.runtime.whisper_pipeline import (
+        FullParams, WhisperPipeline)
+    cfg, p = _small_whisper("cuda", pad=True)
+    rng = np.random.default_rng(4)
+    samples = (rng.standard_normal(45 * 16000) * 0.1).astype(np.float32)
+    fp = FullParams(beam_size=5, max_tokens=10, logprob_thold=0.0,
+                    temperatures=(0.0, 0.4))
+    runs = {}
+    for graphs in (False, True):
+        pipe = WhisperPipeline(cfg, p, mel_filterbank(cfg.n_mels),
+                               graphs=graphs)
+        caches = []
+        real = pipe._run_beam
+
+        def run_beam(*a, _real=real, _pipe=pipe, _caches=caches, **kw):
+            out = _real(*a, **kw)
+            c = _pipe.last_cache
+            _caches.append([t.clone() for t in (c.k, c.v)])
+            return out
+        pipe._run_beam = run_beam
+        pipe.transcribe(samples[:16000], fp)              # warm-up, capture
+        caches.clear()
+        _build.reset_launches()
+        segs = pipe.transcribe(samples, fp)
+        torch.cuda.synchronize()
+        runs[graphs] = (segs, caches, dict(_build.LAUNCHES), pipe)
+    (se, ce, ne, _), (sc, cc, nc, pipe) = runs[False], runs[True]
+    assert [(s.tokens, s.temperature, s.avg_logprob) for s in sc] == \
+        [(s.tokens, s.temperature, s.avg_logprob) for s in se]
+    assert len(cc) == len(ce) >= 4
+    assert all(torch.equal(a, b) for x, y in zip(cc, ce) for a, b in zip(x, y))
+    assert nc == ne and nc["nat8_w8a16"] > 0 and nc["nat8_w8a8"] > 0
+    assert {k for k in pipe._static} == {(5, 10), (1, 0)}
+    assert all(st.run.graph is not None for st in pipe._static.values())
+
+
+def test_whisper_timestamps_on_card_match_cpu(gen):
+    """token_timestamps of the small Whisper on the card against the CPU
+    (plain versions): the alignment weights within 1e-3 of each other, the
+    times monotone and within 10 audio columns (0.2 s) of the CPU's."""
+    from ggml_imax_tpu_torch.models import whisper as W
+    from ggml_imax_tpu_torch.runtime.whisper_pipeline import (
+        WhisperPipeline, alignment_weights, token_timestamps)
+    mel = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (1, 16, 300)).astype(np.float32))
+    toks = [50257, 50362] + list(range(100, 140, 3))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        cfg, p = _small_whisper(dev)
+        pipe = WhisperPipeline(cfg, p, device=dev)
+        cross = W.precompute_cross_kv(cfg, p, W.encode(cfg, p, mel.to(dev)))
+        out[dev] = (alignment_weights(pipe, cross, toks),
+                    token_timestamps(pipe, cross, toks))
+    (wc, tc), (wh, th) = out["cuda"], out["cpu"]
+    assert wc.shape == wh.shape == (2, len(toks), 150)
+    assert float(np.abs(wc - wh).max()) < 1e-3
+    assert (np.diff(tc) >= 0).all() and len(tc) == len(toks)
+    assert float(np.abs(tc - th).max()) <= 10 * 0.02
+
+
+@pytest.mark.parametrize("residency", ["q4-fused", "q4-stacked"])
+def test_engine_residency_on_card(gen, residency):
+    """Engine(residency) from the unprepared small GPT-J on the card: the
+    same greedy tokens as the engine on prepare_fused + params_repack with
+    the same route, and the decode attention that residency takes (the
+    fused KV update for q4-stacked) in every decode step."""
+    from ggml_imax_tpu_torch.runtime.engine import Engine
+    cfg = gptj.GPTJConfig(**SMALL_GPTJ)
+    raw = gptj.synthetic_params(cfg, seed=5, device="cuda")
+    fused = residency == "q4-stacked"
+    prompt = list(np.random.default_rng(2).integers(0, 512, 40))
+    ref = Engine(gptj, cfg, qmm.params_repack(gptj.prepare_fused(raw, cfg)),
+                 fused_kv_update=fused).generate(prompt, 9, temp=0)
+    eng = Engine(gptj, cfg, raw, residency=residency)
+    assert eng.fused_kv_update == fused
+    _build.reset_launches()
+    got = eng.generate(prompt, 9, temp=0)
+    assert got == ref
+    L = cfg.n_layer
+    route = "decode_attention_update" if fused else "decode_attention"
+    other = "decode_attention" if fused else "decode_attention_update"
+    assert _build.LAUNCHES[route] == 8 * L and _build.LAUNCHES[other] == 0

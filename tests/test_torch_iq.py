@@ -575,10 +575,17 @@ def test_engine_bf16_residency_matches_reference():
 
 
 def test_engine_residency_refusals():
+    """The q4 residencies are ported (ROADMAP Queue 1 item 3,
+    tests/test_torch_residency.py): what they refuse is params already
+    repacked (ValueError), and an unknown residency stays refused."""
     cfg = tllama.LlamaConfig(**LLAMA)
+    raw = tllama.synthetic_params_device(cfg, seed=1, device="cpu")
+    prepared = qmm.params_repack(tllama.prepare_fused(raw))
     for r in ("q4-fused", "q4-stacked"):
-        with pytest.raises(NotImplementedError, match="Queue 3"):
-            Engine(tllama, cfg, {}, residency=r, device="cpu")
+        with pytest.raises(ValueError, match="already repacked"):
+            Engine(tllama, cfg, prepared, residency=r, device="cpu")
+        assert Engine(tllama, cfg, raw, residency=r,
+                      device="cpu").residency == r
     with pytest.raises(ValueError):
         Engine(tllama, cfg, {}, residency="bf32", device="cpu")
     assert Engine(tllama, cfg, {}, device="cpu").residency == "as-is"

@@ -364,15 +364,25 @@ def test_params_from_jax_refuses_a_stacked_decoder():
 
 
 def test_token_timestamps_raise_not_implemented():
+    """Token timestamps are ported (ROADMAP Queue 1 item 1b):
+    return_cross_attn and FullParams(token_timestamps=True) no longer
+    raise NotImplementedError (tests/test_torch_whisper_timestamps.py holds
+    them to the reference); a stacked decoder is refused, as the
+    reference refuses it with return_cross_attn."""
     from ggml_imax_tpu_torch.runtime.whisper_pipeline import FullParams
     tp = params_from_jax(jax_params(True, False), device="cpu")
     cache = TW.init_cache(TCFG, device="cpu")
     cross = [torch.zeros(2, 1, 75, 2, 64)] * 2
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1b"):
-        TW.decode(TCFG, tp, torch.tensor([[1]]), torch.tensor([[0]]), cache,
-                  cross, 0, return_cross_attn=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1b"):
-        FullParams(token_timestamps=True)
+    lg, _, probs = TW.decode(TCFG, tp, torch.tensor([[1]]),
+                             torch.tensor([[0]]), cache, cross, 0,
+                             return_cross_attn=True)
+    assert probs.shape == (2, 1, 2, 1, 75) and probs.dtype == torch.float32
+    assert lg.shape == (1, 1, TCFG.n_vocab)
+    assert FullParams(token_timestamps=True).token_timestamps
+    with pytest.raises(ValueError, match="stack_decoder"):
+        TW.decode(TCFG, dict(tp, dec_stack={}), torch.tensor([[1]]),
+                  torch.tensor([[0]]), cache, cross, 0,
+                  return_cross_attn=True)
 
 
 @pytest.mark.parametrize("kv", [torch.bfloat16, "q8_0"])

@@ -112,10 +112,13 @@ class Script:
 
 def pipelines(cfg_kw=SCFG):
     """A JAX and a port pipeline with the same script in place of their
-    device steps."""
+    device steps. The port's is its eager route (graphs=False), whose
+    steps hand the cache on as the script's stand-in does; the captured
+    route, which keeps its cache in place, is held to the eager one in
+    tests/test_torch_whisper_capture.py."""
     jcfg, tcfg = JW.WhisperConfig(**cfg_kw), TW.WhisperConfig(**cfg_kw)
     jp = jwp.WhisperPipeline(jcfg, None)
-    tp = twp.WhisperPipeline(tcfg, None, device="cpu")
+    tp = twp.WhisperPipeline(tcfg, None, device="cpu", graphs=False)
     out = []
     for pipe, lib in ((jp, jnp.asarray), (tp, torch.from_numpy)):
         s = Script(lib, jcfg.n_vocab, jcfg.token_eot)
