@@ -7,7 +7,8 @@ Q4_1, Q5_0, Q5_1, Q5_K and Q6_K and in the nine IQ formats, LLaMA-2 7B in
 Q4_K, in the Q4_K_M mix (one stream and serving) and in the IQ4_XS mix
 (with its bf16 residency), and Whisper small and medium in Q5_0 (each
 through the transcription pipeline, eager and as CUDA-graph replay, with
-DTW token timestamps).
+DTW token timestamps); then GPT-J-6B, LLaMA-2 7B Q4_K_M, Whisper small and
+GPT-2 117M from model files through the port's loaders and tokenizers.
 
     python3 chip_smoke.py
 
@@ -148,7 +149,8 @@ Phases (any failure exits nonzero and prints no result line):
    then one step's loss and gradients with the kernels held to the same
    step with every plain version on the card (TRAIN_TOL), and a planted
    fault (dK without its scale) that must fail that check;
-8. GPT-2 117M K-quants: synthetic GPT2Config() weights drawn on the host
+8. GPT-2 117M K-quants at half depth (GPT2_117M_HOST: 6 layers of 768,
+   the script's time limit): synthetic weights drawn on the host
    in Q3_K (the reference's numpy stream and codecs, the quantization
    spread over HOST_WORKERS processes, bit-identical to
    gpt2.synthetic_params; 8b too), params_repack (every
@@ -161,7 +163,7 @@ Phases (any failure exits nonzero and prints no result line):
    held to the same with every plain version on the card (KQ_ROUTE_TOL),
    and a planted fault (the plane-split kernel with its low and high
    scale rows swapped) that must fail that check;
-8b. GPT-2 117M formats: synthetic GPT2Config() weights drawn on the host
+8b. GPT-2 117M formats at half depth: synthetic weights drawn on the host
    and quantized by the port's codecs in Q4_0 (the default natpair route),
    Q4_1 (natpair with a bias), Q5_0, Q5_1, Q5_K and Q6_K (nat8), each
    params_repack-ed and served by Engine(n_ctx=1024), one request each
@@ -169,7 +171,8 @@ Phases (any failure exits nonzero and prints no result line):
    a short greedy pass of each with the kernels held to every plain
    version on the card (KQ_ROUTE_TOL), and a planted fault (the nat8 W8A8
    GEMV without its bias term, on Q5_K) that must fail that check;
-8c. GPT-2 117M IQ formats: IQ4_NL and IQ4_XS quantized on the host by the
+8c. GPT-2 117M IQ formats at half depth: IQ4_NL and IQ4_XS quantized on
+   the host by the
    port's codecs (HOST_WORKERS processes), params_repack (nat8 g 32, f32
    scales, no bias), one request each with exact launch counts, a short
    greedy pass held to every plain version on the card (KQ_ROUTE_TOL) and
@@ -242,7 +245,7 @@ Phases (any failure exits nonzero and prints no result line):
    (the encoder's 36 padded keys counted as visible) that must fail it;
    10b WhisperPipeline on the same weights with the head unpadded
    (dequantize + matmul), beam 5, one temperature, 64 tokens a window: a
-   30 s warm-up, then 120 s of default_rng(3) noise x 0.1 through the
+   30 s warm-up, then 60 s of default_rng(3) noise x 0.1 through the
    eager route and through the captured steps (CUDA-graph replay): RTF,
    segments, tokens, exact launch counts (per window an encode, the prompt
    of 5 rows x 4 tokens and 72 W8A16 a beam step; the captured route's
@@ -250,10 +253,32 @@ Phases (any failure exits nonzero and prints no result line):
    KV cache after every window equal to the eager route's bit for bit, and
    a control (the captured steps with n_past frozen) that must fail that
    check; a beam step eager and captured, wall against device busy, and
-   the gated head's device time; then the 120 s with token_timestamps:
+   the gated head's device time; then the 60 s with token_timestamps:
    the timestamp pass's device and host (median filter, DTW) seconds, its
    launches, token_times monotone; 10c Whisper medium (24 + 24 layers of
    1024) as 10a without the route check, and 10d its pipeline as 10b.
+11. model files through the loaders and tokenizers (the path of the
+   reference's CLIs: file -> loader -> tokenizer -> Engine or
+   WhisperPipeline -> text): each file written by the port's own writers
+   under build/loaders (the free space checked first), its raw blocks drawn
+   on the host from a seed with finite f16 scales, loaded, checked and
+   deleted before the next: 11a GPT-J-6B Q4_0 .bin (gptj.load_legacy,
+   Engine(residency="q4-fused")), 11b LLaMA-2 7B Q4_K_M GGUF (llama.cpp's
+   keys and names, a byte-level vocab of 32000 with 300 merges;
+   llama.load_gguf, "q4-fused" refused, fuse_gate_up + params_repack with
+   bf16 scales), 11c Whisper small Q5_0 .bin in whisper.cpp's layout
+   (whisper.load_legacy, WhisperPipeline on 30 s of phase 10's audio, beam
+   5, the captured steps) and 11d GPT-2 117M Q4_0 .bin (gpt2.load_legacy,
+   "q4-fused"): every loaded tensor bit-equal on the card to the direct
+   build of the bytes written, dequantize_qtensor of the first and last
+   layer's largest weight bit-equal to codecs.dequantize of its bytes, the
+   tokenizer's round trip on LOADER_TEXT, one request of its first 448 ids
+   + 64 greedy tokens (the transcript for Whisper) with exact launch
+   counts; the file's bytes and write seconds, the load seconds
+   (eng.perf.load_us, eng.perf.report()), the prepare seconds, TTFT and
+   tok/s or RTF, peak memory. Phase 3 adds a small GPT-J .bin and LLaMA
+   Q4_K_M GGUF loaded on the card and the CPU: bit-equal tensors, then
+   held card vs CPU as the other small models.
 
     python3 chip_smoke.py --serving-kernels [ROOT]
     python3 chip_smoke.py --gpt2-kernels [ROOT]
@@ -314,6 +339,10 @@ ROUTE_TOL = 3.5e-2
 # loss): 2 warm-up AdamW steps through optimize.opt, then `steps` timed ones
 # through opt_resume
 GPT2_117M = dict(n_vocab=50257, n_ctx=1024, n_embd=768, n_head=12, n_layer=12)
+# Phases 8, 8b and 8c quantize their weights on the host with the numpy
+# codecs (~200 s of the script at 12 layers): they run GPT-2 117M's widths
+# at half its depth, so the whole script stays inside its time limit
+GPT2_117M_HOST = dict(GPT2_117M, n_layer=6)
 TRAIN = dict(batch=8, seq=512, warmup=2, steps=10, alpha=1e-4)
 # A training step's loss and gradients with the kernels against the same
 # step with every plain version on the card (phase 7): max |dg| per leaf
@@ -2961,7 +2990,8 @@ def swapped_planes():
 
 
 def kquant_gpt2(failures, pool):
-    """Phase 8. GPT-2 117M at full width in Q3_K (N_REQUESTS requests), Q2_K,
+    """Phase 8. GPT-2 117M at full width and half depth (GPT2_117M_HOST) in
+    Q3_K (N_REQUESTS requests), Q2_K,
     row-pair Q4_0 and u-order Q8_0 (one request each): weights drawn on the
     host (the reference's numpy stream and codecs, quantized in `pool`'s
     processes by host_params, a weight held to the serial codec's bytes),
@@ -2973,9 +3003,9 @@ def kquant_gpt2(failures, pool):
     from ggml_imax_tpu_torch.models import gpt2
     from ggml_imax_tpu_torch.ops.qmm import params_repack
     from ggml_imax_tpu_torch.quant.formats import GGMLType
-    cfg = gpt2.GPT2Config(**GPT2_117M)
+    cfg = gpt2.GPT2Config(**GPT2_117M_HOST)
     L = cfg.n_layer
-    products = N_PREDICT * 4 * L          # 64 forwards x 48 layer products
+    products = N_PREDICT * 4 * L          # 64 forwards x 4 L layer products
     runs = [("q3_k", "Q3_K", GGMLType.Q3_K, None, N_REQUESTS),
             ("q2_k", "Q2_K", GGMLType.Q2_K, None, 1),
             ("rowpair_q4_0", "row-pair Q4_0", GGMLType.Q4_0, "rowpair", 1),
@@ -3249,12 +3279,13 @@ def host_params(cfg, wtype, pool, seed=0, scale=0.02, piece=1 << 20):
 
 
 def formats_gpt2(failures, pool):
-    """Phase 8b. GPT-2 117M at full width in Q4_0 (the default natpair
+    """Phase 8b. GPT-2 117M at full width and half depth in Q4_0 (the default
+    natpair
     route), Q4_1, Q5_0, Q5_1, Q5_K and Q6_K: weights drawn on the host (the
     reference's numpy stream) and quantized by the port's codecs in
     HOST_WORKERS processes (host_params; a weight held to
     quantize_for_device's bytes), params_repack, Engine(n_ctx=1024) serving one request of phase 4's
-    shape with exact launch counts (every layer product, 48 a forward, on
+    shape with exact launch counts (every layer product, 4 L a forward, on
     a kernel; the tied head gated); then a short greedy pass of each with
     the kernels held to the same pass with every plain version on the card
     (KQ_ROUTE_TOL), and the nat8 W8A8 GEMV without its bias term on Q5_K,
@@ -3262,7 +3293,7 @@ def formats_gpt2(failures, pool):
     from ggml_imax_tpu_torch.models import gpt2
     from ggml_imax_tpu_torch.ops.qmm import params_repack
     from ggml_imax_tpu_torch.quant.formats import GGMLType
-    cfg = gpt2.GPT2Config(**GPT2_117M)
+    cfg = gpt2.GPT2Config(**GPT2_117M_HOST)
     L = cfg.n_layer
     summary, launches = {}, {}
     for fmt, gemv, gemm in FORMATS_117M:
@@ -3646,12 +3677,12 @@ def qt_bytes(params):
 
 
 def codebooks_gpt2(failures, pool):
-    """Phase 8c. GPT-2 117M at full width and depth in the nine IQ kinds.
+    """Phase 8c. GPT-2 117M at full width and half depth in the nine IQ kinds.
     IQ4_NL and IQ4_XS: weights drawn on the host and quantized by the
     port's codecs in HOST_WORKERS processes (host_params), params_repack
     (nat8 g 32, f32 scales, no bias), Engine(n_ctx=1024) serving one
-    request of phase 4's shape with exact launch counts (48 W8A8 a decode
-    step, 48 W8A16 a prefill; the tied head gated), a short greedy pass
+    request of phase 4's shape with exact launch counts (4 L W8A8 a decode
+    step, 4 L W8A16 a prefill; the tied head gated), a short greedy pass
     held to every plain version on the card (KQ_ROUTE_TOL), and the W8A8
     fed the IQ4 scales shifted by a group, which must fail it. The
     decode-only kinds: random blocks laid out on the card (IQ2 nib2, IQ3
@@ -3665,7 +3696,7 @@ def codebooks_gpt2(failures, pool):
     from ggml_imax_tpu_torch.ops.qmm import params_repack
     from ggml_imax_tpu_torch.quant import codecs
     from ggml_imax_tpu_torch.quant.formats import GGMLType
-    cfg = gpt2.GPT2Config(**GPT2_117M)
+    cfg = gpt2.GPT2Config(**GPT2_117M_HOST)
     L = cfg.n_layer
     summary, launches = {}, {}
     for fmt in IQ4_117M:
@@ -3890,9 +3921,10 @@ WHISPER_MEDIUM = dict(WHISPER_SMALL, n_audio_state=1024, n_audio_head=16,
                       n_audio_layer=24, n_text_state=1024, n_text_head=16,
                       n_text_layer=24)
 # measure_whisper: 64 greedy tokens from sot a rep; measure_whisper_rtf: a
-# 30 s warm-up, then 120 s of default_rng(3) noise x 0.1, beam 5, one
-# temperature, 64 tokens a window
-WHISPER_TOKENS, WHISPER_AUDIO_S = 64, 120
+# 30 s warm-up, then default_rng(3) noise x 0.1, beam 5, one temperature,
+# 64 tokens a window: 60 s of it here (the reference's 120 s halved so the
+# whole script stays inside its time limit)
+WHISPER_TOKENS, WHISPER_AUDIO_S = 64, 60
 # The small Whisper of phase 3 (the CPU tests' shape, 150 audio positions):
 # its card and CPU runs agree to this share of the largest |logit|, and the
 # encoder states to this share of their largest |value|. Readings of this
@@ -4380,7 +4412,7 @@ def whisper_pipeline_phase(key, cfg, params, failures):
     """tools/bench_models.py measure_whisper_rtf on the port: WhisperPipeline
     (head unpadded: N 51865 fails the N % 128 gate, so dequantize + matmul
     each step), FullParams(beam_size=5, temperatures=(0.0,), max_tokens=64),
-    a 30 s warm-up, then 120 s of default_rng(3) noise x 0.1, host clock,
+    a 30 s warm-up, then WHISPER_AUDIO_S of default_rng(3) noise x 0.1, host clock,
     through the eager route (graphs=False) and the captured steps: RTF,
     segments, tokens, exact launch counts (per window an encode, the prompt
     step at 5 rows x 4 tokens and 6 W8A16 a decoder layer at M 5 each beam
@@ -4389,7 +4421,7 @@ def whisper_pipeline_phase(key, cfg, params, failures):
     the eager route's bit for bit; a control, the captured steps with
     n_past frozen, which must fail that check on the first window; a beam
     step eager and captured, wall against device busy, and the gated head's
-    device time; then the 120 s again with token_timestamps: the timestamp
+    device time; then the same audio again with token_timestamps: the timestamp
     pass's device and host seconds, its launches (a decoder pass at M = the
     window's tokens: 6 W8A16 and 2 flash a layer, one map), token_times
     monotone within each window, tokens equal to the captured run's."""
@@ -4505,7 +4537,7 @@ def whisper_pipeline_phase(key, cfg, params, failures):
     out.update(eager_beam_step_ms=e_wall, eager_beam_step_busy_ms=e_busy,
                captured_beam_step_ms=c_wall, captured_beam_step_busy_ms=c_busy,
                gated_head_ms=head_ms, capture_s=pipe.capture_s)
-    # the timestamp pass, over the same 120 s on the captured steps
+    # the timestamp pass, over the same audio on the captured steps
     fpt = FullParams(beam_size=5, temperatures=(0.0,),
                      max_tokens=WHISPER_TOKENS, token_timestamps=True)
     segs, wall, counts, secs, n_pass = timed_timestamps(pipe, samples, fpt)
@@ -4585,6 +4617,827 @@ def whisper_phase(failures):
     return summary, launches
 
 
+# ---- phase 11: the loaders and tokenizers
+# A fixed English text: every phase-11 prompt is the first PROMPT ids of
+# it through the file's own tokenizer.
+LOADER_TEXT = " ".join([
+    "The river town woke slowly that morning, as it did every spring, with "
+    "the bakers first and the boatmen soon after. Mist hung over the water "
+    "and the bridge, and the bells of the old church counted six, then "
+    "seven. A girl named Mara carried bread to her grandfather, who kept the "
+    "lock at the bend of the river and knew every barge by the sound of its "
+    "engine. He told her that the water was higher than last year, that the "
+    "north fields would flood by May, and that the mayor, who never walked "
+    "farther than the square, would blame the weather again."] * 4 + [
+    "In the afternoon the market filled with apples, cheese, wool and tools; "
+    "traders argued about prices in three languages, and children ran "
+    "between the stalls with dogs at their heels. Mara counted coins for "
+    "her aunt, 12 silver and 40 copper, and wrote the sums in a small book. "
+    "When the sun went down, the lamps were lit along the quay, and the "
+    "boats came home one by one, heavy with sand from the quarries upstream."
+    ] * 4)
+# the byte-level merges learned from LOADER_TEXT for the GGUF vocab
+LOADER_MERGES = 300
+# the f16 fields of the block formats, drawn as the models'
+# synthetic_params draw their scales (scale 0.02): field -> the divisor of
+# |N| * scale. Q4_K's and Q6_K's sub-scales multiply d by the block's
+# 6-bit (mean 31.5) or int8 (mean |.| 64) scales.
+BLOCK_SCALES = {"Q4_0": {"d": 4.6}, "Q5_0": {"d": 9.2},
+                "Q4_K": {"d": 9 * 31.5, "dmin": 3 * 31.5},
+                "Q6_K": {"d": 18.5 * 64}}
+
+
+def loader_dir() -> Path:
+    """The phase's files go under the checkout's git-ignored build/."""
+    d = Path(__file__).resolve().parent / "build" / "loaders"
+    d.mkdir(parents=True, exist_ok=True)
+    return d
+
+
+def greedy_vocab(n_vocab, text=LOADER_TEXT) -> list:
+    """A legacy file's vocab: every printable ASCII character alone (so any
+    ASCII text round-trips through GreedyBPETokenizer), the text's words
+    alone and after a space, then numbered fillers up to n_vocab."""
+    toks = [chr(c) for c in range(0x20, 0x7F)]
+    toks += [w for w in dict.fromkeys(x for word in text.split(" ")
+                                      for x in (word, " " + word))
+             if len(w) > 1]
+    toks += [f"<unused{i}>" for i in range(n_vocab - len(toks))]
+    return [t.encode() for t in toks]
+
+
+def byte_level_vocab(n_vocab, text=LOADER_TEXT, n_merges=LOADER_MERGES):
+    """A GGUF vocab for ByteLevelBPETokenizer: the 256 byte tokens (any text
+    round-trips), n_merges merges learned from the text's words as the
+    tokenizer splits them (the most frequent adjacent pair first, ties to
+    the first seen), then numbered fillers up to n_vocab. Returns (tokens,
+    merges)."""
+    from ggml_imax_tpu_torch.tokenizer.bpe import bytes_to_unicode, split_words
+    b2u = bytes_to_unicode()
+    tokens = [b2u[b] for b in range(256)]
+    words = {}
+    for w in split_words(text):
+        key = tuple(b2u[b] for b in w.encode())
+        words[key] = words.get(key, 0) + 1
+    words = [[list(k), n] for k, n in words.items()]
+    merges = []
+    for _ in range(n_merges):
+        counts = {}
+        for w, n in words:
+            for pair in zip(w, w[1:]):
+                counts[pair] = counts.get(pair, 0) + n
+        if not counts:
+            break
+        a, b = max(counts, key=counts.get)
+        merges.append(f"{a} {b}")
+        tokens.append(a + b)
+        for entry in words:
+            w, out, i = entry[0], [], 0
+            while i < len(w):
+                if i + 1 < len(w) and (w[i], w[i + 1]) == (a, b):
+                    out.append(a + b)
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            entry[0] = out
+    tokens += [f"<unused{i}>" for i in range(n_vocab - len(tokens))]
+    return tokens, merges
+
+
+def random_raw(t, ne, rng, scale=0.02):
+    """A tensor's encoded bytes drawn on the host from rng: uniform bytes
+    for the quants and the packed sub-scales, the f16 fields set finite
+    (BLOCK_SCALES; uniform bytes there would give NaN and Inf)."""
+    from ggml_imax_tpu_torch.quant import codecs
+    from ggml_imax_tpu_torch.quant.formats import FORMATS
+    info = FORMATS[t]
+    n_blocks = math.prod(ne) // info.block_size
+    nbytes = n_blocks * info.type_size
+    raw = rng.bit_generator.random_raw(-(-nbytes // 8)).view(np.uint8)[:nbytes]
+    blocks = raw.view(codecs.BLOCK_DTYPES[t])
+    for field, div in BLOCK_SCALES[t.name].items():
+        blocks[field] = (np.abs(rng.standard_normal(n_blocks, np.float32))
+                         * (scale / div)).astype(np.float16)
+    return raw
+
+
+def file_tensors(spec, rng, scale=0.02):
+    """spec: (file name, params path, type, ne) rows -> name -> (type, ne,
+    encoded bytes): block formats by random_raw, float tensors N * scale
+    (+ 1 for a norm's gain: a path ending in _g or norm)."""
+    from ggml_imax_tpu_torch.quant.formats import GGMLType
+    out = {}
+    for name, path, t, ne in spec:
+        if t in (GGMLType.F32, GGMLType.F16):
+            x = rng.standard_normal(math.prod(ne), np.float32) * scale
+            if str(path[-1]).endswith(("_g", "norm")):
+                x += 1.0
+            x = x.astype(np.float16 if t == GGMLType.F16 else np.float32)
+            out[name] = (t, tuple(ne), x.view(np.uint8))
+        else:
+            out[name] = (t, tuple(ne), random_raw(t, ne, rng, scale))
+    return out
+
+
+def gptj_spec(cfg):
+    """GPT-J's tensors as the reference's convert script writes a Q4_0
+    file: (name, params path, type, ne); 2-D weights Q4_0, the rest F32."""
+    from ggml_imax_tpu_torch.quant.formats import GGMLType as T
+    E, V = cfg.n_embd, cfg.n_vocab
+    spec = [("transformer.wte.weight", ("wte",), T.Q4_0, (E, V)),
+            ("transformer.ln_f.weight", ("ln_f_g",), T.F32, (E,)),
+            ("transformer.ln_f.bias", ("ln_f_b",), T.F32, (E,)),
+            ("lm_head.weight", ("lmh_w",), T.Q4_0, (E, V)),
+            ("lm_head.bias", ("lmh_b",), T.F32, (V,))]
+    for i in range(cfg.n_layer):
+        p, lp = f"transformer.h.{i}", ("layers", i)
+        spec += [(f"{p}.ln_1.weight", lp + ("ln_1_g",), T.F32, (E,)),
+                 (f"{p}.ln_1.bias", lp + ("ln_1_b",), T.F32, (E,))]
+        spec += [(f"{p}.attn.{n}_proj.weight", lp + (f"{n[0]}_w",), T.Q4_0,
+                  (E, E)) for n in ("q", "k", "v", "out")]
+        spec += [(f"{p}.mlp.fc_in.weight", lp + ("fc_in_w",), T.Q4_0,
+                  (E, 4 * E)),
+                 (f"{p}.mlp.fc_in.bias", lp + ("fc_in_b",), T.F32, (4 * E,)),
+                 (f"{p}.mlp.fc_out.weight", lp + ("fc_out_w",), T.Q4_0,
+                  (4 * E, E)),
+                 (f"{p}.mlp.fc_out.bias", lp + ("fc_out_b",), T.F32, (E,))]
+    return spec
+
+
+def gpt2_spec(cfg):
+    """GPT-2's tensors as the reference's convert script writes a Q4_0
+    file (the LM head tied to wte): 2-D weights Q4_0, the rest F32."""
+    from ggml_imax_tpu_torch.quant.formats import GGMLType as T
+    E, V, C = cfg.n_embd, cfg.n_vocab, cfg.n_ctx
+    spec = [("model/wte", ("wte",), T.Q4_0, (E, V)),
+            ("model/wpe", ("wpe",), T.F32, (E, C)),
+            ("model/ln_f/g", ("ln_f_g",), T.F32, (E,)),
+            ("model/ln_f/b", ("ln_f_b",), T.F32, (E,))]
+    for i in range(cfg.n_layer):
+        p, lp = f"model/h{i}", ("layers", i)
+        for n in ("ln_1", "ln_2"):
+            spec += [(f"{p}/{n}/g", lp + (f"{n}_g",), T.F32, (E,)),
+                     (f"{p}/{n}/b", lp + (f"{n}_b",), T.F32, (E,))]
+        for f, key, n_out, k_in in (("attn/c_attn", "attn", 3 * E, E),
+                                    ("attn/c_proj", "proj", E, E),
+                                    ("mlp/c_fc", "fc", 4 * E, E),
+                                    ("mlp/c_proj", "out", E, 4 * E)):
+            spec += [(f"{p}/{f}/w", lp + (f"{key}_w",), T.Q4_0, (k_in, n_out)),
+                     (f"{p}/{f}/b", lp + (f"{key}_b",), T.F32, (n_out,))]
+    return spec
+
+
+def llama_spec(cfg, types):
+    """LLaMA's tensors under llama.cpp's GGUF names, each 2-D weight in the
+    type `types(params key, layer)` gives (q4_k_m: Q4_K_M's mix), norms
+    F32."""
+    from ggml_imax_tpu_torch.quant.formats import GGMLType as T
+    E, V, F = cfg.n_embd, cfg.n_vocab, cfg.n_ff
+    kv = cfg.n_head_kv * cfg.head_dim
+    spec = [("token_embd.weight", ("tok_embd",), types("tok_embd", None),
+             (E, V)),
+            ("output_norm.weight", ("out_norm",), T.F32, (E,)),
+            ("output.weight", ("output",), types("output", None), (E, V))]
+    for i in range(cfg.n_layer):
+        lp = ("layers", i)
+        for name, key, ne in (("attn_norm", "attn_norm", (E,)),
+                              ("attn_q", "q_w", (E, E)),
+                              ("attn_k", "k_w", (E, kv)),
+                              ("attn_v", "v_w", (E, kv)),
+                              ("attn_output", "o_w", (E, E)),
+                              ("ffn_norm", "ffn_norm", (E,)),
+                              ("ffn_gate", "gate_w", (E, F)),
+                              ("ffn_up", "up_w", (E, F)),
+                              ("ffn_down", "down_w", (F, E))):
+            t = T.F32 if len(ne) == 1 else types(key, i)
+            spec.append((f"blk.{i}.{name}.weight", lp + (key,), t, ne))
+    return spec
+
+
+# whisper.cpp's names of a block's tensors -> params keys (an encoder
+# block has the first 15, a decoder block all 24)
+WHISPER_BLOCK = [("attn_ln.weight", "ln0_g"), ("attn_ln.bias", "ln0_b"),
+                 ("attn.query.weight", "q_w"), ("attn.query.bias", "q_b"),
+                 ("attn.key.weight", "k_w"), ("attn.value.weight", "v_w"),
+                 ("attn.value.bias", "v_b"), ("attn.out.weight", "o_w"),
+                 ("attn.out.bias", "o_b"), ("mlp_ln.weight", "ln1_g"),
+                 ("mlp_ln.bias", "ln1_b"), ("mlp.0.weight", "mlp0_w"),
+                 ("mlp.0.bias", "mlp0_b"), ("mlp.2.weight", "mlp1_w"),
+                 ("mlp.2.bias", "mlp1_b")]
+WHISPER_BLOCK_X = WHISPER_BLOCK + [
+    ("cross_" + n, "x" + k.replace("ln0", "ln")) for n, k in WHISPER_BLOCK[:9]]
+
+
+def whisper_spec(cfg, wtype):
+    """Whisper's tensors as whisper.cpp's quantized files hold them: linear
+    weights and the token embedding in wtype, the convolutions F16, the
+    positional tables and 1-D tensors F32."""
+    from ggml_imax_tpu_torch.quant.formats import GGMLType as T
+    E, D, V = cfg.n_audio_state, cfg.n_text_state, cfg.n_vocab
+    spec = [("encoder.positional_embedding", ("e_pe",), T.F32,
+             (E, cfg.n_audio_ctx)),
+            ("encoder.conv1.weight", ("e_conv1_w",), T.F16,
+             (3, cfg.n_mels, E)),
+            ("encoder.conv1.bias", ("e_conv1_b",), T.F32, (E,)),
+            ("encoder.conv2.weight", ("e_conv2_w",), T.F16, (3, E, E)),
+            ("encoder.conv2.bias", ("e_conv2_b",), T.F32, (E,)),
+            ("encoder.ln_post.weight", ("e_ln_g",), T.F32, (E,)),
+            ("encoder.ln_post.bias", ("e_ln_b",), T.F32, (E,)),
+            ("decoder.token_embedding.weight", ("d_te",), wtype, (D, V)),
+            ("decoder.positional_embedding", ("d_pe",), T.F32,
+             (D, cfg.n_text_ctx)),
+            ("decoder.ln.weight", ("d_ln_g",), T.F32, (D,)),
+            ("decoder.ln.bias", ("d_ln_b",), T.F32, (D,))]
+    for side, W_, n, block in (("encoder", E, cfg.n_audio_layer,
+                                WHISPER_BLOCK),
+                               ("decoder", D, cfg.n_text_layer,
+                                WHISPER_BLOCK_X)):
+        for i in range(n):
+            lp = ("enc_layers" if side == "encoder" else "dec_layers", i)
+            for name, key in block:
+                ne = {"mlp.0.weight": (W_, 4 * W_), "mlp.2.weight": (4 * W_, W_),
+                      "mlp.0.bias": (4 * W_,)}.get(name)
+                if ne is None:
+                    ne = (W_,) if name.endswith(("ln.weight", ".bias")) \
+                        else (W_, W_)
+                t = wtype if len(ne) == 2 else T.F32
+                spec.append((f"{side}.blocks.{i}.{name}", lp + (key,), t, ne))
+    return spec
+
+
+def write_whisper_bin(path, cfg, filters, vocab, tensors, ftype=2008):
+    """A whisper.cpp ggml .bin (whisper.cpp:1320-1750, as
+    tests/test_whisper.py writes one): magic, 11 i32 hparams, the mel
+    filters, the vocab, then each tensor's record, written one at a
+    time."""
+    import struct
+    with open(path, "wb") as f:
+        f.write(struct.pack("<I", 0x67676D6C))
+        f.write(struct.pack("<11i", cfg.n_vocab, cfg.n_audio_ctx,
+                            cfg.n_audio_state, cfg.n_audio_head,
+                            cfg.n_audio_layer, cfg.n_text_ctx,
+                            cfg.n_text_state, cfg.n_text_head,
+                            cfg.n_text_layer, cfg.n_mels, ftype))
+        f.write(struct.pack("<2i", *filters.shape))
+        f.write(np.ascontiguousarray(filters, np.float32).tobytes())
+        f.write(struct.pack("<i", len(vocab)))
+        for tok in vocab:
+            f.write(struct.pack("<I", len(tok)) + tok)
+        for name, (t, ne, raw) in tensors.items():
+            nb = name.encode()
+            f.write(struct.pack(f"<3i{len(ne)}i", len(ne), len(nb), int(t),
+                                *ne))
+            f.write(nb)
+            f.write(raw.data)
+
+
+def leaf(params, path):
+    for k in path:
+        params = params[k]
+    return params
+
+
+def is_weight(path, ne) -> bool:
+    """Whether a file tensor becomes a product's weight (laid out by
+    to_device_format): every 2-D tensor but the positional tables (GPT-2's
+    wpe, Whisper's e_pe and d_pe)."""
+    return len(ne) == 2 and path[-1] not in ("wpe", "e_pe", "d_pe")
+
+
+def check_loaded(label, params, spec, tensors, failures):
+    """Every loaded tensor against the direct build of the bytes that were
+    written: to_device_format on the card for a 2-D weight (field by field:
+    q, scale, bias, lut, signs and the layout's tags), codecs.dequantize
+    for the rest, bit for bit; then, for the first and last layer's largest
+    weight, dequantize_qtensor of the loaded tensor against
+    codecs.dequantize of the raw bytes, bit for bit."""
+    from ggml_imax_tpu_torch.quant import codecs
+    from ggml_imax_tpu_torch.quant.device import (QTensor, dequantize_qtensor,
+                                                  to_device_format)
+    bad, n_w, n_v = [], 0, 0
+    for name, path, t, ne in spec:
+        got = leaf(params, path)
+        _, _, raw = tensors[name]
+        if is_weight(path, ne):
+            want = to_device_format(raw, t, ne, device="cuda")
+            n_w += 1
+            same = isinstance(got, QTensor) and all(
+                getattr(got, f) == getattr(want, f)
+                for f in ("kind", "k", "n", "ggml_type", "zero",
+                          "interleaved_bk", "q4_layout")) and all(
+                (a is None and b is None) or (
+                    a is not None and b is not None and a.dtype == b.dtype
+                    and a.is_cuda and torch.equal(a, b))
+                for a, b in ((getattr(got, f), getattr(want, f))
+                             for f in ("q", "scale", "bias", "lut", "signs")))
+        else:
+            want = torch.from_numpy(codecs.dequantize(
+                raw, t, shape=tuple(reversed(ne)))).cuda()
+            n_v += 1
+            same = got.is_cuda and got.dtype == want.dtype and \
+                got.numel() == want.numel() and \
+                torch.equal(got, want.reshape(got.shape))
+        if not same:
+            bad.append(name)
+    layers = [s for s in spec if is_weight(s[1], s[3])
+              and "layers" in str(s[1][0])]
+    firsts = [s for s in layers if s[1][1] == 0]
+    lasts = [s for s in layers if s[1][1] == max(x[1][1] for x in layers)]
+    dec = []
+    for s in (max(firsts, key=lambda s: math.prod(s[3])),
+              max(lasts, key=lambda s: math.prod(s[3]))):
+        name, path, t, ne = s
+        got = dequantize_qtensor(leaf(params, path)).cpu().numpy()
+        want = codecs.dequantize(tensors[name][2], t,
+                                 shape=(ne[1], ne[0])).T
+        dec.append((name, bool(np.array_equal(got, want))))
+    log(f"  {label}: loaded vs direct build, bit for bit: {n_w} 2-D weights "
+        f"and {n_v} other tensors, {len(bad)} differ {bad[:4]}; "
+        f"dequantize_qtensor vs codecs.dequantize of the raw bytes, equal: "
+        f"{dec}")
+    if bad or not all(ok for _, ok in dec):
+        failures.append(f"{label}: loaded tensors differ from the direct "
+                        f"build {bad[:8]}, decode check {dec}")
+
+
+def write_timed(label, path, write, nbytes):
+    """Check the free space, write the file, log its bytes and seconds."""
+    import shutil
+    free = shutil.disk_usage(path.parent).free
+    if free < nbytes + (1 << 30):
+        raise SystemExit(f"chip_smoke FAILED: {label}: {path.parent} has "
+                         f"{free / 2**30:.2f} GiB free, the file needs "
+                         f"{nbytes / 2**30:.2f} GiB + 1 GiB")
+    t0 = time.time()
+    write()
+    secs = time.time() - t0
+    size = path.stat().st_size
+    log(f"  {label}: wrote {path.name}, {size} bytes ({size / 2**30:.3f} "
+        f"GiB), in {secs:.2f} s")
+    return size, secs
+
+
+# the card's host link, PCIe Gen5 x16: the bound of a load's upload
+PCIE_BYTES_S = 64e9
+
+
+def load_floors(label, path):
+    """Two floors of a load, each timed alone on this file: its bytes read
+    into host memory (np.fromfile; a file just written is read from the
+    page cache, warm) and one pageable copy of them to the card, beside the
+    upload's bound (bytes / PCIE_BYTES_S). Returns (read s, upload s)."""
+    t0 = time.perf_counter()
+    buf = np.fromfile(path, np.uint8)
+    read_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_card = torch.from_numpy(buf).to("cuda")
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    log(f"  {label}: the file's {buf.nbytes} bytes read (warm) in "
+        f"{read_s:.3f} s, copied to the card in {upload_s:.3f} s "
+        f"({buf.nbytes / upload_s / 1e9:.1f} GB/s; bound "
+        f"{buf.nbytes / PCIE_BYTES_S:.3f} s at 64 GB/s)")
+    del buf, on_card
+    torch.cuda.empty_cache()
+    return read_s, upload_s
+
+
+def timed_load(label, load):
+    """The loader call, synchronized, its device peak: (result, seconds)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = load()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    log(f"  {label}: loaded in {secs:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated (peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB during the "
+        f"load)")
+    return out, secs
+
+
+def check_tokenizer(label, tok, n_vocab, failures, text=LOADER_TEXT):
+    """The tokenizer's round trip on the text; its first PROMPT ids."""
+    ids = tok.encode(text)
+    back = tok.decode(ids)
+    ok = back == text and len(ids) >= PROMPT and \
+        all(0 <= i < n_vocab for i in ids)
+    log(f"  {label}: tokenizer: {len(text)} characters -> {len(ids)} ids, "
+        f"decode(encode(text)) == text {back == text}, every id < {n_vocab} "
+        f"{all(0 <= i < n_vocab for i in ids)}; prompt: the first {PROMPT}")
+    if not ok:
+        failures.append(f"{label}: tokenizer round trip {back == text}, "
+                        f"{len(ids)} ids")
+    return ids[:PROMPT]
+
+
+def loaded_request(label, eng, prompt, tok, load_s, expect, failures):
+    """run_generation's path on a loaded engine: a warm-up of 2 tokens,
+    then the prompt + N_PREDICT greedy tokens with fresh perf counters
+    (load_us the loader's seconds) and the launch counters set to 0 just
+    before and read just after; logs the text and eng.perf as the
+    reference CLI prints them. Returns the request's numbers."""
+    from ggml_imax_tpu_torch import _build
+    from ggml_imax_tpu_torch.runtime.engine import PerfCounters
+    eng.generate(prompt, 2, temp=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng.perf = PerfCounters(load_us=load_s * 1e6)
+    stamps = []
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = eng.generate(prompt, N_PREDICT, temp=0,
+                       callback=lambda t: stamps.append(time.perf_counter()))
+    counts = dict(_build.LAUNCHES)
+    ttft = (stamps[0] - t0) * 1e3
+    tok_s = (len(stamps) - 1) / (stamps[-1] - stamps[0])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  {label}: TTFT {ttft:.2f} ms, decode {tok_s:.2f} tok/s "
+        f"({1e3 / tok_s:.3f} ms a token), peak {peak:.3f} GiB allocated; "
+        f"text {tok.decode(out)!r}")
+    log(f"  {label}: load: {eng.perf.load_us / 1e3:.1f} ms")
+    for line in eng.perf.report().splitlines():
+        log(f"  {label}: {line}")
+    log(f"  {label}: launches { {k: n for k, n in counts.items() if n} }")
+    check_counts(counts, expect, failures)
+    if len(out) != N_PREDICT or not all(0 <= t < eng.cfg.n_vocab for t in out):
+        failures.append(f"{label}: bad tokens {out}")
+    return {"ttft_ms": ttft, "decode_tok_s": tok_s, "peak_gib": peak,
+            "tokens": out}, counts
+
+
+def loaders_gptj(failures):
+    """11a. GPT-J-6B Q4_0 .bin at GPTJ_6B's widths (n_ctx 2048, as the
+    model's): written by io.legacy_bin.write_legacy_bin, gptj.load_legacy,
+    Engine(residency="q4-fused") at n_ctx 512, one request."""
+    from ggml_imax_tpu_torch.io.legacy_bin import write_legacy_bin
+    from ggml_imax_tpu_torch.models import gptj
+    from ggml_imax_tpu_torch.runtime.engine import Engine
+    cfg = gptj.GPTJConfig(**dict(GPTJ_6B, n_ctx=2048))
+    spec = gptj_spec(cfg)
+    t0 = time.time()
+    tensors = file_tensors(spec, np.random.default_rng(11))
+    vocab = greedy_vocab(cfg.n_vocab)
+    hp = dict(n_vocab=cfg.n_vocab, n_ctx=cfg.n_ctx, n_embd=cfg.n_embd,
+              n_head=cfg.n_head, n_layer=cfg.n_layer, n_rot=cfg.n_rot,
+              ftype=2002)
+    log(f"  11a: {len(tensors)} tensors drawn on the host in "
+        f"{time.time() - t0:.2f} s")
+    path = loader_dir() / "gptj-6b-q4_0.bin"
+    nbytes = sum(r.nbytes for _, _, r in tensors.values())
+    size, write_s = write_timed("11a", path, lambda: write_legacy_bin(
+        path, hp, gptj.HPARAM_NAMES, vocab, tensors), nbytes)
+    try:
+        floors = load_floors("11a", path)
+        (lcfg, params, tok), load_s = timed_load(
+            "11a gptj.load_legacy", lambda: gptj.load_legacy(path))
+    finally:
+        path.unlink()
+    if lcfg != cfg:
+        failures.append(f"11a: config {lcfg} != {cfg}")
+    check_loaded("11a", params, spec, tensors, failures)
+    del tensors
+    prompt = check_tokenizer("11a", tok, cfg.n_vocab, failures)
+    if failures:
+        return None, None
+    t0 = time.time()
+    eng = Engine(gptj, cfg, params, n_ctx=512, residency="q4-fused")
+    del params
+    torch.cuda.synchronize()
+    prep_s = time.time() - t0
+    log(f"  11a Engine(residency='q4-fused'): prepared in {prep_s:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
+    L, n_dec = cfg.n_layer, N_PREDICT - 1
+    out, counts = loaded_request(
+        "11a", eng, prompt, tok, load_s,
+        {"w4a8_gemv": n_dec * (2 * L + 1), "decode_attention": n_dec * L,
+         "w4a16_gemm": 2 * L + 1, "flash_attention": L,
+         "flash_backward_tiles": L}, failures)
+    del eng
+    torch.cuda.empty_cache()
+    return dict(out, file_bytes=size, write_s=write_s, read_s=floors[0],
+                upload_s=floors[1], load_s=load_s, prepare_s=prep_s), counts
+
+
+def loaders_llama(failures):
+    """11b. LLaMA-2 7B Q4_K_M GGUF at LLAMA2_7B's widths (n_ctx 4096, as the
+    model's): llama.cpp's keys and names, Q4_K_M's mix (q4_k_m), the
+    byte-level vocab and merges; written by io.gguf.GGUFWriter,
+    llama.load_gguf, prepared as phase 9b (fuse_gate_up, params_repack with
+    bf16 scales; "q4-fused" refuses the mix), Engine at n_ctx 512, one
+    request."""
+    from ggml_imax_tpu_torch.io.gguf import GGUFWriter
+    from ggml_imax_tpu_torch.models import llama
+    from ggml_imax_tpu_torch.ops.qmm import params_repack
+    from ggml_imax_tpu_torch.runtime.engine import Engine
+    # the file keeps the rms epsilon as f32, as llama.cpp's do
+    cfg = llama.LlamaConfig(**dict(LLAMA2_7B, n_ctx=4096,
+                                   rms_eps=float(np.float32(1e-5))))
+    spec = llama_spec(cfg, q4_k_m(cfg.n_layer))
+    t0 = time.time()
+    tensors = file_tensors(spec, np.random.default_rng(12))
+    tokens, merges = byte_level_vocab(cfg.n_vocab)
+    log(f"  11b: {len(tensors)} tensors drawn on the host, {len(merges)} "
+        f"merges learned, in {time.time() - t0:.2f} s")
+    path = loader_dir() / "llama-2-7b-q4_k_m.gguf"
+
+    def write():
+        w = GGUFWriter(path)
+        w.add_kv("general.architecture", "llama")
+        w.add_kv("general.name", "LLaMA v2 (random weights)")
+        w.add_kv("general.file_type", np.uint32(15))      # MOSTLY_Q4_K_M
+        for k, v in (("context_length", cfg.n_ctx),
+                     ("embedding_length", cfg.n_embd),
+                     ("block_count", cfg.n_layer),
+                     ("feed_forward_length", cfg.n_ff),
+                     ("rope.dimension_count", cfg.head_dim),
+                     ("attention.head_count", cfg.n_head),
+                     ("attention.head_count_kv", cfg.n_head_kv)):
+            w.add_kv(f"llama.{k}", np.uint32(v))
+        w.add_kv("llama.attention.layer_norm_rms_epsilon",
+                 np.float32(cfg.rms_eps))
+        w.add_kv("llama.rope.freq_base", np.float32(cfg.rope_base))
+        w.add_kv("tokenizer.ggml.model", "gpt2")
+        w.add_kv("tokenizer.ggml.tokens", tokens)
+        w.add_kv("tokenizer.ggml.merges", merges)
+        for name, (t, ne, raw) in tensors.items():
+            w.add_tensor(name, raw, t, shape=ne)
+        w.write()
+    nbytes = sum(r.nbytes for _, _, r in tensors.values())
+    size, write_s = write_timed("11b", path, write, nbytes)
+    try:
+        floors = load_floors("11b", path)
+        (lcfg, params, tok), load_s = timed_load(
+            "11b llama.load_gguf", lambda: llama.load_gguf(path))
+    finally:
+        path.unlink()
+    if lcfg != cfg:
+        failures.append(f"11b: config {lcfg} != {cfg}")
+    check_loaded("11b", params, spec, tensors, failures)
+    del tensors
+    prompt = check_tokenizer("11b", tok, cfg.n_vocab, failures)
+    if failures:
+        return None, None
+    try:
+        Engine(llama, cfg, params, residency="q4-fused")
+        failures.append("11b: residency 'q4-fused' took a Q4_K_M mix")
+    except ValueError as e:
+        log(f"  11b Engine(residency='q4-fused') refuses the mix: {e}")
+    t0 = time.time()
+    prepared = params_repack(llama.fuse_gate_up(params),
+                             scale_dtype=torch.bfloat16)
+    del params
+    eng = Engine(llama, cfg, prepared, n_ctx=512)
+    del prepared
+    torch.cuda.synchronize()
+    prep_s = time.time() - t0
+    log(f"  11b fuse_gate_up + params_repack: prepared in {prep_s:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
+    L, n_dec = cfg.n_layer, N_PREDICT - 1
+    out, counts = loaded_request(
+        "11b", eng, prompt, tok, load_s,
+        {"w4a8_gemv": n_dec * 160, "nat8_w8a8": n_dec * 33,
+         "decode_attention": n_dec * L, "w4a16_gemm": 160, "nat8_w8a16": 33,
+         "flash_attention": L, "flash_backward_tiles": L}, failures)
+    del eng
+    torch.cuda.empty_cache()
+    return dict(out, file_bytes=size, write_s=write_s, read_s=floors[0],
+                upload_s=floors[1], load_s=load_s, prepare_s=prep_s), counts
+
+
+def loaders_whisper(failures):
+    """11c. Whisper small Q5_0 in whisper.cpp's layout (write_whisper_bin:
+    the mel filters of audio.mel.mel_filterbank, a 50257-entry vocab that
+    the loader pads to n_vocab), whisper.load_legacy, prepare_fused +
+    params_repack, WhisperPipeline(cfg, params, filters, vocab) on the
+    captured steps: 30 s of phase 10's audio, beam 5."""
+    from ggml_imax_tpu_torch import _build
+    from ggml_imax_tpu_torch.audio.mel import mel_filterbank
+    from ggml_imax_tpu_torch.models import whisper as W
+    from ggml_imax_tpu_torch.ops.qmm import params_repack
+    from ggml_imax_tpu_torch.quant.formats import GGMLType
+    from ggml_imax_tpu_torch.runtime.whisper_pipeline import (FullParams,
+                                                              WhisperPipeline)
+    cfg = W.WhisperConfig(**WHISPER_SMALL)
+    spec = whisper_spec(cfg, GGMLType.Q5_0)
+    t0 = time.time()
+    tensors = file_tensors(spec, np.random.default_rng(13))
+    filters = mel_filterbank(cfg.n_mels)
+    vocab = greedy_vocab(50257)
+    log(f"  11c: {len(tensors)} tensors drawn on the host in "
+        f"{time.time() - t0:.2f} s")
+    path = loader_dir() / "whisper-small-q5_0.bin"
+    nbytes = sum(r.nbytes for _, _, r in tensors.values())
+    size, write_s = write_timed("11c", path, lambda: write_whisper_bin(
+        path, cfg, filters, vocab, tensors), nbytes)
+    try:
+        floors = load_floors("11c", path)
+        (lcfg, params, lfilters, lvocab), load_s = timed_load(
+            "11c whisper.load_legacy", lambda: W.load_legacy(path))
+    finally:
+        path.unlink()
+    ok = lcfg == cfg and np.array_equal(lfilters, filters) and \
+        lvocab[:len(vocab)] == vocab and len(lvocab) == cfg.n_vocab
+    log(f"  11c: config, mel filters and vocab (padded to {len(lvocab)}) as "
+        f"written {ok}")
+    if not ok:
+        failures.append("11c: config, filters or vocab differ")
+    check_loaded("11c", params, spec, tensors, failures)
+    del tensors
+    if failures:
+        return None, None
+    t0 = time.time()
+    params = params_repack(W.prepare_fused(params))
+    pipe = WhisperPipeline(cfg, params, lfilters, lvocab)
+    torch.cuda.synchronize()
+    prep_s = time.time() - t0
+    rng = np.random.default_rng(3)
+    samples = (rng.standard_normal(30 * 16000) * 0.1).astype(np.float32)
+    fp = FullParams(beam_size=5, temperatures=(0.0,),
+                    max_tokens=WHISPER_TOKENS)
+    steps, real = [], pipe._fill
+
+    def fill(st, nxt, n_past):
+        steps.append(n_past)
+        real(st, nxt, n_past)
+    pipe._fill = fill
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    segs = pipe.transcribe(samples, fp)
+    wall = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    del pipe._fill
+    Le, Ld = cfg.n_audio_layer, cfg.n_text_layer
+    windows = len(segs)
+    expect = {"nat8_w8a16": windows * (6 * Le + 2 * Ld)
+              + (windows + len(steps)) * 6 * Ld,
+              "flash_attention": windows * (Le + 2 * Ld),
+              "flash_backward_tiles": windows * Ld}
+    check_counts(counts, expect, failures)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  11c WhisperPipeline: prepared in {prep_s:.2f} s; 30 s of audio "
+        f"in {wall:.3f} s (RTF {30 / wall:.2f}x real time, the captured "
+        f"steps' first runs and captures {pipe.capture_s:.2f} s of it), "
+        f"{windows} segment(s), {len(steps)} captured beam steps, peak "
+        f"{peak:.3f} GiB allocated; launches "
+        f"{ {k: n for k, n in counts.items() if n} }")
+    for s in segs:
+        log(f"  11c [{s.t0:6.2f} -> {s.t1:6.2f}] {s.text!r}")
+    if windows != 1 or not all(0 <= t < cfg.n_vocab for s in segs
+                               for t in s.tokens):
+        failures.append(f"11c: {windows} segments, tokens "
+                        f"{[s.tokens[:8] for s in segs]}")
+    del pipe, params
+    torch.cuda.empty_cache()
+    return {"file_bytes": size, "write_s": write_s, "read_s": floors[0],
+            "upload_s": floors[1], "load_s": load_s, "prepare_s": prep_s, "wall_s": wall, "rtf": 30 / wall,
+            "beam_steps": len(steps), "peak_gib": peak,
+            "text": [s.text for s in segs]}, counts
+
+
+def loaders_gpt2(failures):
+    """11d. GPT-2 117M Q4_0 .bin (the reference CI's model size), written
+    by write_legacy_bin, gpt2.load_legacy, Engine(residency="q4-fused") at
+    n_ctx 1024, one request."""
+    from ggml_imax_tpu_torch.io.legacy_bin import write_legacy_bin
+    from ggml_imax_tpu_torch.models import gpt2
+    from ggml_imax_tpu_torch.runtime.engine import Engine
+    cfg = gpt2.GPT2Config(**GPT2_117M)
+    spec = gpt2_spec(cfg)
+    tensors = file_tensors(spec, np.random.default_rng(14))
+    hp = dict(n_vocab=cfg.n_vocab, n_ctx=cfg.n_ctx, n_embd=cfg.n_embd,
+              n_head=cfg.n_head, n_layer=cfg.n_layer, ftype=2002)
+    path = loader_dir() / "gpt-2-117m-q4_0.bin"
+    nbytes = sum(r.nbytes for _, _, r in tensors.values())
+    size, write_s = write_timed("11d", path, lambda: write_legacy_bin(
+        path, hp, gpt2.HPARAM_NAMES, greedy_vocab(cfg.n_vocab), tensors),
+        nbytes)
+    try:
+        floors = load_floors("11d", path)
+        (lcfg, params, tok), load_s = timed_load(
+            "11d gpt2.load_legacy", lambda: gpt2.load_legacy(path))
+    finally:
+        path.unlink()
+    if lcfg != cfg:
+        failures.append(f"11d: config {lcfg} != {cfg}")
+    check_loaded("11d", params, spec, tensors, failures)
+    del tensors
+    prompt = check_tokenizer("11d", tok, cfg.n_vocab, failures)
+    if failures:
+        return None, None
+    t0 = time.time()
+    eng = Engine(gpt2, cfg, params, n_ctx=1024, residency="q4-fused")
+    del params
+    torch.cuda.synchronize()
+    prep_s = time.time() - t0
+    L, n_dec = cfg.n_layer, N_PREDICT - 1
+    out, counts = loaded_request(
+        "11d", eng, prompt, tok, load_s,
+        {"w4a8_gemv": n_dec * 4 * L, "w4a16_gemm": 4 * L,
+         "flash_attention": L, "flash_backward_tiles": L}, failures)
+    del eng
+    torch.cuda.empty_cache()
+    return dict(out, file_bytes=size, write_s=write_s, read_s=floors[0],
+                upload_s=floors[1], load_s=load_s, prepare_s=prep_s), counts
+
+
+def loaders_phase(failures):
+    """Phase 11: 11a-11d, each file written, loaded, checked and deleted
+    before the next. Returns (summary, launch counts by run)."""
+    summary, launches = {}, {}
+    for key, run in (("gptj_bin", loaders_gptj), ("llama_gguf", loaders_llama),
+                     ("whisper_bin", loaders_whisper),
+                     ("gpt2_bin", loaders_gpt2)):
+        t0 = time.time()
+        out, counts = run(failures)
+        log(f"  -- {key}: {time.time() - t0:.1f} s")
+        if failures:
+            break
+        summary[key], launches[f"loaders_{key}"] = out, counts
+    return summary, launches
+
+
+def check_small_loaders(failures):
+    """Phase 3's loaders: a small GPT-J Q4_0 .bin and a small LLaMA Q4_K_M
+    GGUF (the phase's small widths, written by the port's writers),
+    loaded on the card and on the CPU: every tensor on the card, bit-equal
+    to the CPU load; then prepared (GPT-J prepare_fused, LLaMA
+    fuse_gate_up, both params_repack) and held card vs CPU as
+    check_small_model holds the other small models."""
+    from ggml_imax_tpu_torch.io.gguf import GGUFWriter
+    from ggml_imax_tpu_torch.io.legacy_bin import write_legacy_bin
+    from ggml_imax_tpu_torch.models import gptj, llama
+    from ggml_imax_tpu_torch.ops.qmm import params_repack
+    from ggml_imax_tpu_torch.quant.device import QTensor
+    d = loader_dir()
+    gcfg = gptj.GPTJConfig(n_vocab=512, n_ctx=256, n_embd=512, n_head=2,
+                           n_layer=2, n_rot=64)
+    lcfg = llama.LlamaConfig(**dict(SMALL_LLAMA, n_vocab=512))
+    rng = np.random.default_rng(15)
+    gpath, lpath = d / "small-gptj.bin", d / "small-llama.gguf"
+    write_legacy_bin(gpath, dict(n_vocab=512, n_ctx=256, n_embd=512,
+                                 n_head=2, n_layer=2, n_rot=64, ftype=2002),
+                     gptj.HPARAM_NAMES, greedy_vocab(512),
+                     file_tensors(gptj_spec(gcfg), rng))
+    tokens, merges = byte_level_vocab(512, n_merges=64)
+    w = GGUFWriter(lpath)
+    w.add_kv("general.architecture", "llama")
+    for k in ("context_length", "embedding_length", "block_count",
+              "feed_forward_length", "attention.head_count",
+              "attention.head_count_kv"):
+        attr = {"context_length": "n_ctx", "embedding_length": "n_embd",
+                "block_count": "n_layer", "feed_forward_length": "n_ff",
+                "attention.head_count": "n_head",
+                "attention.head_count_kv": "n_head_kv"}[k]
+        w.add_kv(f"llama.{k}", np.uint32(getattr(lcfg, attr)))
+    w.add_kv("tokenizer.ggml.tokens", tokens)
+    w.add_kv("tokenizer.ggml.merges", merges)
+    for name, (t, ne, raw) in file_tensors(
+            llama_spec(lcfg, q4_k_m(lcfg.n_layer)), rng).items():
+        w.add_tensor(name, raw, t, shape=ne)
+    w.write()
+
+    def flat(tree):
+        if isinstance(tree, dict):
+            return [x for v in tree.values() for x in flat(v)]
+        if isinstance(tree, list):
+            return [x for v in tree for x in flat(v)]
+        if isinstance(tree, QTensor):
+            return [t for t in (tree.q, tree.scale, tree.bias, tree.lut,
+                                tree.signs) if t is not None]
+        return [] if tree is None else [tree]
+
+    loaded = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            loaded[dev] = (gptj.load_legacy(gpath, device=dev)[1],
+                           llama.load_gguf(lpath, device=dev)[1])
+    finally:
+        gpath.unlink()
+        lpath.unlink()
+    for i, label in enumerate(("GPT-J .bin", "LLaMA Q4_K_M GGUF")):
+        card, cpu = flat(loaded["cuda"][i]), flat(loaded["cpu"][i])
+        same = len(card) == len(cpu) and all(
+            a.is_cuda and a.dtype == b.dtype and torch.equal(a.cpu(), b)
+            for a, b in zip(card, cpu))
+        log(f"  small {label} loaded on the card: {len(card)} tensors, all on "
+            f"the card and bit-equal to the CPU load {same}")
+        if not same:
+            failures.append(f"small {label}: card load differs from the CPU")
+    check_small_model(failures, gptj, gcfg, [(
+        "loaded .bin", lambda dev: params_repack(gptj.prepare_fused(
+            loaded[dev][0], gcfg)), {})], "GPT-J")
+    check_small_model(failures, llama, lcfg, [(
+        "loaded GGUF", lambda dev: params_repack(llama.fuse_gate_up(
+            loaded[dev][1])), {})], "LLaMA Q4_K_M", tol=ROUTE_TOL,
+        relative=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4657,6 +5510,7 @@ def main() -> int:
     check_small_batched(failures)
     check_small_chunked(failures)
     check_small_whisper(failures)
+    check_small_loaders(failures)
     if failures:
         raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
     log(f"# phase 3: {time.time() - t0:.1f} s")
@@ -4861,8 +5715,19 @@ def main() -> int:
         raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
     launches.update(by_run)
     log(f"# phase 10: {time.time() - t0:.1f} s")
-    log("# phases run: 1, 2, 3, 4, 5, 5b, 6, 7, 8, 8b, 8c, 9, 9b, 9c, 10")
-    log(f"# phases 1-10: {time.time() - t_start:.1f} s")
+
+    # ---- 11. model files through the loaders and tokenizers
+    log("# phase 11: GPT-J-6B Q4_0 .bin, LLaMA-2 7B Q4_K_M GGUF, Whisper "
+        "small Q5_0 .bin and GPT-2 117M Q4_0 .bin, written by the port's "
+        "writers, loaded, run")
+    t0 = time.time()
+    engines["loaders"], by_run = loaders_phase(failures)
+    if failures:
+        raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
+    launches.update(by_run)
+    log(f"# phase 11: {time.time() - t0:.1f} s")
+    log("# phases run: 1, 2, 3, 4, 5, 5b, 6, 7, 8, 8b, 8c, 9, 9b, 9c, 10, 11")
+    log(f"# phases 1-11: {time.time() - t_start:.1f} s")
 
     kernels = []
     for k in KERNELS:

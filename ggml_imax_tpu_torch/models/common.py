@@ -1,5 +1,5 @@
-"""KV cache, masks and the params carry-over shared by the models
-(counterpart of ggml_imax_tpu/models/common.py).
+"""KV cache, masks, the params carry-over and the loaders' tensor helpers
+shared by the models (counterpart of ggml_imax_tpu/models/common.py).
 
 The cache is the flat arena the decode kernel reads: k/v are
 (n_layer, B, n_ctx, H*D), bf16 (or another float dtype) or q8_0 — int8 with
@@ -17,7 +17,8 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..quant.device import QTensor
+from ..quant import codecs
+from ..quant.device import QTensor, quantize_for_device
 from ..quant.formats import GGMLType
 
 KV_GROUP = 32
@@ -231,3 +232,32 @@ def params_from_jax(params, *, device=None):
         return leaf(d)
 
     return walk(params)
+
+
+def file_vector(raw: np.ndarray, t: GGMLType, ne: tuple[int, ...], *,
+                device=None) -> torch.Tensor:
+    """A model-file tensor kept as floats (a norm, a bias, a positional
+    table, a conv kernel): dequantized to f32 in numpy order (ne
+    reversed)."""
+    w = codecs.dequantize(raw, t, shape=tuple(reversed(ne)))
+    return torch.from_numpy(w).to(resolve_device(device))
+
+
+def host_f32(x) -> np.ndarray:
+    """A state-dict entry (a numpy array or a CPU torch tensor) as an owned
+    f32 numpy array."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().to("cpu", torch.float32).numpy()
+    return np.array(x, np.float32)
+
+
+def hf_weight(w_kn, wtype: GGMLType, *, device=None) -> QTensor:
+    """A float (K, N) weight of a HuggingFace state dict, quantized through
+    the codec and laid out (quant.device.quantize_for_device: F32, F16 and
+    BF16 become dense f32, as the JAX package's converters give them)."""
+    return quantize_for_device(host_f32(w_kn), wtype, device=device)
+
+
+def hf_vector(x, *, device=None) -> torch.Tensor:
+    """A state-dict entry kept as floats, f32 on `device`."""
+    return torch.from_numpy(host_f32(x)).to(resolve_device(device))

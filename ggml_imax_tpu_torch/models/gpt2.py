@@ -17,20 +17,27 @@ kernel's 128).
 from __future__ import annotations
 
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..io.legacy_bin import read_legacy_bin
 from ..ops.activations import gelu
 from ..ops.embedding import get_rows
 from ..ops.flash_attention import attention
 from ..ops.norms import layer_norm
 from ..ops.qmatmul import qmatmul
-from ..quant.device import LAID_OUT, QTensor, quantize_for_device
+from ..quant.device import (LAID_OUT, QTensor, quantize_for_device,
+                            to_device_format)
 from ..quant.formats import GGMLType
-from .common import (KVCache, attention_mask, init_kv_cache, read_kv,
-                     update_kv, update_kv_cells)
+from ..tokenizer.bpe import GreedyBPETokenizer
+from .common import (KVCache, attention_mask, file_vector, hf_vector,
+                     hf_weight, init_kv_cache, read_kv, update_kv,
+                     update_kv_cells)
+
+HPARAM_NAMES = ["n_vocab", "n_ctx", "n_embd", "n_head", "n_layer", "ftype"]
 
 
 # no fused KV-update route: the decode kernels take head_dim 128 or 256,
@@ -65,6 +72,82 @@ def _param_tree(cfg: GPT2Config, q, vec):
             "proj_w": q((E, E)), "proj_b": vec(E),
             "fc_w": q((E, 4 * E)), "fc_b": vec(4 * E),
             "out_w": q((4 * E, E)), "out_b": vec(E),
+        })
+    return params
+
+
+def load_legacy(path: str | Path, *, device=None):
+    """A reference-format gpt-2 .bin -> (config, params, tokenizer): 2-D
+    weights in the device layout, the rest f32, on `device` (the card
+    unless "cpu" is passed); the reference's tensor names
+    (examples/gpt-2/main-backend.cpp:102-439). The LM head is tied to
+    ``wte`` unless the file holds model/lm_head."""
+    dev = resolve_device(device)
+    f = read_legacy_bin(path, HPARAM_NAMES)
+    cfg = GPT2Config(f.hparams["n_vocab"], f.hparams["n_ctx"],
+                     f.hparams["n_embd"], f.hparams["n_head"],
+                     f.hparams["n_layer"])
+    tok = GreedyBPETokenizer(f.vocab)
+
+    def w(name):
+        t = f.tensors[name]
+        return to_device_format(t.data, t.ggml_type, t.shape, device=dev)
+
+    def vec(name):
+        t = f.tensors[name]
+        return file_vector(t.data, t.ggml_type, t.shape, device=dev)
+
+    params = {
+        "wte": w("model/wte"),
+        "wpe": vec("model/wpe").reshape(cfg.n_ctx, cfg.n_embd),
+        "ln_f_g": vec("model/ln_f/g"), "ln_f_b": vec("model/ln_f/b"),
+        "lm_head": w("model/lm_head") if "model/lm_head" in f.tensors
+        else None,
+        "layers": [],
+    }
+    for i in range(cfg.n_layer):
+        p = f"model/h{i}"
+        params["layers"].append({
+            "ln_1_g": vec(f"{p}/ln_1/g"), "ln_1_b": vec(f"{p}/ln_1/b"),
+            "ln_2_g": vec(f"{p}/ln_2/g"), "ln_2_b": vec(f"{p}/ln_2/b"),
+            "attn_w": w(f"{p}/attn/c_attn/w"),
+            "attn_b": vec(f"{p}/attn/c_attn/b"),
+            "proj_w": w(f"{p}/attn/c_proj/w"),
+            "proj_b": vec(f"{p}/attn/c_proj/b"),
+            "fc_w": w(f"{p}/mlp/c_fc/w"), "fc_b": vec(f"{p}/mlp/c_fc/b"),
+            "out_w": w(f"{p}/mlp/c_proj/w"), "out_b": vec(f"{p}/mlp/c_proj/b"),
+        })
+    return cfg, params, tok
+
+
+def from_hf_state_dict(cfg: GPT2Config, sd: dict,
+                       wtype: GGMLType = GGMLType.F32, *, device=None):
+    """HF GPT2LMHeadModel state dict (numpy arrays or CPU torch tensors) ->
+    params. HF's Conv1D weights are (in, out), the products' (K, N) as
+    they are; the token embedding (V, E) is transposed."""
+    dev = resolve_device(device)
+    q2d = lambda name: hf_weight(sd[name], wtype, device=dev)
+    arr = lambda name: hf_vector(sd[name], device=dev)
+    params = {
+        "wte": hf_weight(sd["transformer.wte.weight"].T, wtype, device=dev),
+        "wpe": arr("transformer.wpe.weight"),
+        "ln_f_g": arr("transformer.ln_f.weight"),
+        "ln_f_b": arr("transformer.ln_f.bias"),
+        "lm_head": None,
+        "layers": [],
+    }
+    for i in range(cfg.n_layer):
+        p = f"transformer.h.{i}"
+        params["layers"].append({
+            "ln_1_g": arr(f"{p}.ln_1.weight"), "ln_1_b": arr(f"{p}.ln_1.bias"),
+            "ln_2_g": arr(f"{p}.ln_2.weight"), "ln_2_b": arr(f"{p}.ln_2.bias"),
+            "attn_w": q2d(f"{p}.attn.c_attn.weight"),
+            "attn_b": arr(f"{p}.attn.c_attn.bias"),
+            "proj_w": q2d(f"{p}.attn.c_proj.weight"),
+            "proj_b": arr(f"{p}.attn.c_proj.bias"),
+            "fc_w": q2d(f"{p}.mlp.c_fc.weight"), "fc_b": arr(f"{p}.mlp.c_fc.bias"),
+            "out_w": q2d(f"{p}.mlp.c_proj.weight"),
+            "out_b": arr(f"{p}.mlp.c_proj.bias"),
         })
     return params
 

@@ -12,11 +12,13 @@ ops.qmm.params_repack puts every weight in the natpair layout.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..io.legacy_bin import read_legacy_bin
 from ..ops.activations import gelu
 from ..ops.decode_attention import (decode_attention, decode_attention_cells,
                                     decode_attention_update,
@@ -28,11 +30,17 @@ from ..ops.norms import layer_norm
 from ..ops.qmatmul import qmatmul
 from ..ops.rope import rope, rope_split, split_rope_permutation
 from ..quant.device import (QTensor, concat_qtensors, concat_qtensors_k,
-                            pad_qtensor_cols, permute_qtensor_cols)
+                            pad_qtensor_cols, permute_qtensor_cols,
+                            to_device_format)
 from ..quant.formats import GGMLType
-from .common import (KVCache, attention_mask, init_kv_cache, read_kv,
-                     update_kv, update_kv_cells)
+from ..tokenizer.bpe import GreedyBPETokenizer
+from .common import (KVCache, attention_mask, file_vector, hf_vector,
+                     hf_weight, init_kv_cache, read_kv, update_kv,
+                     update_kv_cells)
 from .common import params_from_jax  # noqa: F401  (kept importable here)
+
+HPARAM_NAMES = ["n_vocab", "n_ctx", "n_embd", "n_head", "n_layer", "n_rot",
+                "ftype"]
 
 
 # a single-token step and a decode-only celled ubatch can write their K/V
@@ -65,6 +73,80 @@ def _param_tree(cfg: GPTJConfig, q, vec):
             "o_w": q((E, E)),
             "fc_in_w": q((E, 4 * E)), "fc_in_b": vec(4 * E),
             "fc_out_w": q((4 * E, E)), "fc_out_b": vec(E),
+        })
+    return params
+
+
+def load_legacy(path: str | Path, *, device=None):
+    """A reference-format gpt-j .bin -> (config, params, tokenizer): 2-D
+    weights in the device layout, 1-D tensors f32, on `device` (the card
+    unless "cpu" is passed); the reference's tensor names
+    (examples/gpt-j/main.cpp:96-352)."""
+    dev = resolve_device(device)
+    f = read_legacy_bin(path, HPARAM_NAMES)
+    cfg = GPTJConfig(f.hparams["n_vocab"], f.hparams["n_ctx"],
+                     f.hparams["n_embd"], f.hparams["n_head"],
+                     f.hparams["n_layer"], f.hparams["n_rot"])
+    tok = GreedyBPETokenizer(f.vocab)
+
+    def w(name):
+        t = f.tensors[name]
+        return to_device_format(t.data, t.ggml_type, t.shape, device=dev)
+
+    def vec(name):
+        t = f.tensors[name]
+        return file_vector(t.data, t.ggml_type, t.shape, device=dev)
+
+    params = {
+        "wte": w("transformer.wte.weight"),
+        "ln_f_g": vec("transformer.ln_f.weight"),
+        "ln_f_b": vec("transformer.ln_f.bias"),
+        "lmh_w": w("lm_head.weight"), "lmh_b": vec("lm_head.bias"),
+        "layers": [],
+    }
+    for i in range(cfg.n_layer):
+        p = f"transformer.h.{i}"
+        params["layers"].append({
+            "ln_1_g": vec(f"{p}.ln_1.weight"), "ln_1_b": vec(f"{p}.ln_1.bias"),
+            "q_w": w(f"{p}.attn.q_proj.weight"),
+            "k_w": w(f"{p}.attn.k_proj.weight"),
+            "v_w": w(f"{p}.attn.v_proj.weight"),
+            "o_w": w(f"{p}.attn.out_proj.weight"),
+            "fc_in_w": w(f"{p}.mlp.fc_in.weight"),
+            "fc_in_b": vec(f"{p}.mlp.fc_in.bias"),
+            "fc_out_w": w(f"{p}.mlp.fc_out.weight"),
+            "fc_out_b": vec(f"{p}.mlp.fc_out.bias"),
+        })
+    return cfg, params, tok
+
+
+def from_hf_state_dict(cfg: GPTJConfig, sd: dict,
+                       wtype: GGMLType = GGMLType.F32, *, device=None):
+    """HF GPTJForCausalLM state dict (numpy arrays or CPU torch tensors) ->
+    params. HF Linear weights are (out, in); the products take (K = in,
+    N = out), the transpose."""
+    dev = resolve_device(device)
+    q2d = lambda name: hf_weight(sd[name].T, wtype, device=dev)
+    arr = lambda name: hf_vector(sd[name], device=dev)
+    params = {
+        "wte": q2d("transformer.wte.weight"),        # (V, E) -> (E, V)
+        "ln_f_g": arr("transformer.ln_f.weight"),
+        "ln_f_b": arr("transformer.ln_f.bias"),
+        "lmh_w": q2d("lm_head.weight"), "lmh_b": arr("lm_head.bias"),
+        "layers": [],
+    }
+    for i in range(cfg.n_layer):
+        p = f"transformer.h.{i}"
+        params["layers"].append({
+            "ln_1_g": arr(f"{p}.ln_1.weight"), "ln_1_b": arr(f"{p}.ln_1.bias"),
+            "q_w": q2d(f"{p}.attn.q_proj.weight"),
+            "k_w": q2d(f"{p}.attn.k_proj.weight"),
+            "v_w": q2d(f"{p}.attn.v_proj.weight"),
+            "o_w": q2d(f"{p}.attn.out_proj.weight"),
+            "fc_in_w": q2d(f"{p}.mlp.fc_in.weight"),
+            "fc_in_b": arr(f"{p}.mlp.fc_in.bias"),
+            "fc_out_w": q2d(f"{p}.mlp.fc_out.weight"),
+            "fc_out_b": arr(f"{p}.mlp.fc_out.bias"),
         })
     return params
 

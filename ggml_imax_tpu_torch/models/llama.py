@@ -18,10 +18,12 @@ q/k/v stay unfused, Q4_K weights go natpair and Q6_K ones nat8.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from pathlib import Path
 
 import torch
 
 from .._device import resolve_device
+from ..io.gguf import GGUFReader
 from ..ops.activations import silu
 from ..ops.decode_attention import (decode_attention, decode_attention_cells,
                                     decode_attention_update,
@@ -33,11 +35,13 @@ from ..ops.norms import rms_norm
 from ..ops.qmatmul import qmatmul
 from ..ops.rope import ROPE_MODE_NORMAL, rope
 from ..quant.device import (QTensor, concat_qtensors, pad_qtensor_cols,
-                            pad_qtensor_rows)
+                            pad_qtensor_rows, to_device_format)
 from ..quant.codecs import KVALUES_IQ4NL
 from ..quant.formats import GGMLType
-from .common import (KVCache, attention_mask, init_kv_cache, read_kv,
-                     update_kv, update_kv_cells)
+from ..tokenizer.bpe import ByteLevelBPETokenizer
+from .common import (KVCache, attention_mask, file_vector, hf_vector,
+                     hf_weight, init_kv_cache, read_kv, update_kv,
+                     update_kv_cells)
 
 
 # the standard deviation of KVALUES_IQ4NL's 16 values (population)
@@ -66,6 +70,106 @@ class LlamaConfig:
     @property
     def head_dim(self):
         return self.n_embd // self.n_head
+
+
+def load_gguf(path: str | Path, max_layers: int | None = None, *,
+              device=None):
+    """A LLaMA-architecture GGUF -> (config, params, tokenizer or None), on
+    `device` (the card unless "cpu" is passed): llama.cpp's metadata keys
+    and tensor names, the first `max_layers` blocks when given. The
+    tokenizer is the byte-level BPE of tokenizer.ggml.tokens and
+    tokenizer.ggml.merges when the file holds both. The tensors are read
+    through the reader's mapping, one at a time."""
+    dev = resolve_device(device)
+    with GGUFReader(path) as r:
+        md = r.metadata
+        arch = md.get("general.architecture", "llama")
+
+        def key(k, default=None):
+            return md.get(f"{arch}.{k}", default)
+
+        n_head = int(key("attention.head_count"))
+        cfg = LlamaConfig(
+            n_vocab=len(md.get("tokenizer.ggml.tokens", []))
+            or int(key("vocab_size", 32000)),
+            n_ctx=int(key("context_length", 4096)),
+            n_embd=int(key("embedding_length")),
+            n_head=n_head,
+            n_head_kv=int(key("attention.head_count_kv", n_head)),
+            n_layer=int(key("block_count")) if max_layers is None
+            else min(int(key("block_count")), max_layers),
+            n_ff=int(key("feed_forward_length")),
+            rms_eps=float(key("attention.layer_norm_rms_epsilon", 1e-5)),
+            rope_base=float(key("rope.freq_base", 10000.0)),
+            rope_scale=1.0 / float(key("rope.scale_linear", 1.0)),
+        )
+
+        def w(name):
+            ti = r.tensors[name]
+            return to_device_format(r.tensor_data(name), ti.ggml_type, ti.shape,
+                               device=dev)
+
+        def vec(name):
+            ti = r.tensors[name]
+            return file_vector(r.tensor_data(name), ti.ggml_type, ti.shape,
+                               device=dev)
+
+        params = {
+            "tok_embd": w("token_embd.weight"),
+            "out_norm": vec("output_norm.weight"),
+            "output": w("output.weight") if "output.weight" in r.tensors
+            else None,
+            "layers": [],
+        }
+        for i in range(cfg.n_layer):
+            p = f"blk.{i}"
+            params["layers"].append({
+                "attn_norm": vec(f"{p}.attn_norm.weight"),
+                "q_w": w(f"{p}.attn_q.weight"),
+                "k_w": w(f"{p}.attn_k.weight"),
+                "v_w": w(f"{p}.attn_v.weight"),
+                "o_w": w(f"{p}.attn_output.weight"),
+                "ffn_norm": vec(f"{p}.ffn_norm.weight"),
+                "gate_w": w(f"{p}.ffn_gate.weight"),
+                "up_w": w(f"{p}.ffn_up.weight"),
+                "down_w": w(f"{p}.ffn_down.weight"),
+            })
+
+        tok = None
+        if "tokenizer.ggml.tokens" in md and "tokenizer.ggml.merges" in md:
+            tok = ByteLevelBPETokenizer(list(md["tokenizer.ggml.tokens"]),
+                                        list(md["tokenizer.ggml.merges"]))
+    return cfg, params, tok
+
+
+def from_hf_state_dict(cfg: LlamaConfig, sd: dict,
+                       wtype: GGMLType = GGMLType.F32, *, device=None):
+    """HF LlamaForCausalLM state dict (numpy arrays or CPU torch tensors)
+    -> params. HF Linear weights are (out, in), transposed to (K, N); run
+    it with rope_mode ROPE_MODE_NEOX (HF's half-split pairing)."""
+    dev = resolve_device(device)
+    q2d = lambda name: hf_weight(sd[name].T, wtype, device=dev)
+    arr = lambda name: hf_vector(sd[name], device=dev)
+    params = {
+        "tok_embd": q2d("model.embed_tokens.weight"),
+        "out_norm": arr("model.norm.weight"),
+        "output": q2d("lm_head.weight") if "lm_head.weight" in sd else None,
+        "layers": [],
+    }
+    for i in range(cfg.n_layer):
+        p = f"model.layers.{i}"
+        params["layers"].append({
+            "attn_norm": arr(f"{p}.input_layernorm.weight"),
+            "q_w": q2d(f"{p}.self_attn.q_proj.weight"),
+            "k_w": q2d(f"{p}.self_attn.k_proj.weight"),
+            "v_w": q2d(f"{p}.self_attn.v_proj.weight"),
+            "o_w": q2d(f"{p}.self_attn.o_proj.weight"),
+            "ffn_norm": arr(f"{p}.post_attention_layernorm.weight"),
+            "gate_w": q2d(f"{p}.mlp.gate_proj.weight"),
+            "up_w": q2d(f"{p}.mlp.up_proj.weight"),
+            "down_w": q2d(f"{p}.mlp.down_proj.weight"),
+        })
+    return params
 
 
 def synthetic_params_device(cfg: LlamaConfig, wtype: GGMLType = GGMLType.Q4_K,

@@ -27,8 +27,11 @@ probabilities, the alignment signal of the DTW token timestamps
 from __future__ import annotations
 
 import math
+import struct
 from dataclasses import dataclass
+from pathlib import Path
 
+import numpy as np
 import torch
 
 from .._device import resolve_device
@@ -38,9 +41,11 @@ from ..ops.embedding import get_rows
 from ..ops.flash_attention import attention
 from ..ops.norms import layer_norm
 from ..ops.qmatmul import qmatmul
-from ..quant.device import QTensor, concat_qtensors
-from ..quant.formats import GGMLType
-from .common import KVCache, attention_mask, init_kv_cache, read_kv, update_kv
+from ..quant.device import QTensor, concat_qtensors, to_device_format
+from ..quant.formats import FORMATS, GGMLType
+from .common import (KVCache, attention_mask, file_vector, hf_vector,
+                     hf_weight, init_kv_cache, read_kv, update_kv)
+
 
 @dataclass(frozen=True)
 class WhisperConfig:
@@ -92,6 +97,198 @@ class WhisperConfig:
     @property
     def token_translate(self):
         return 50357 + int(self.is_multilingual)
+
+
+def load_legacy(path: str | Path, *, device=None):
+    """A whisper.cpp ggml .bin (whisper.cpp:1320-1750: magic, 11 i32
+    hparams, the mel filters, the vocab, tensor records) -> (cfg, params,
+    filters (n_mel, n_fft) f32 numpy, vocab list[bytes] padded to n_vocab
+    with whisper.cpp's extra-token names), the params on `device` (the
+    card unless "cpu" is passed)."""
+    dev = resolve_device(device)
+    buf = np.fromfile(path, dtype=np.uint8)
+    pos = 0
+
+    def rd(fmt):
+        nonlocal pos
+        size = struct.calcsize(fmt)
+        vals = struct.unpack_from(fmt, buf, pos)
+        pos += size
+        return vals if len(vals) > 1 else vals[0]
+
+    if rd("<I") != 0x67676D6C:
+        raise ValueError(f"{path}: bad magic")
+    names = ["n_vocab", "n_audio_ctx", "n_audio_state", "n_audio_head",
+             "n_audio_layer", "n_text_ctx", "n_text_state", "n_text_head",
+             "n_text_layer", "n_mels", "ftype"]
+    h = dict(zip(names, rd("<11i")))
+    cfg = WhisperConfig(**{k: v for k, v in h.items() if k != "ftype"})
+
+    n_mel, n_fft = rd("<2i")
+    filters = np.frombuffer(buf, np.float32, n_mel * n_fft,
+                            pos).reshape(n_mel, n_fft).copy()
+    pos += 4 * n_mel * n_fft
+
+    n_vocab_file = rd("<i")
+    vocab: list[bytes] = []
+    for _ in range(n_vocab_file):
+        ln = rd("<I")
+        vocab.append(bytes(buf[pos:pos + ln]))
+        pos += ln
+    while len(vocab) < cfg.n_vocab:               # whisper.cpp:1488-1510
+        vocab.append(f"[_extra_token_{len(vocab)}]".encode())
+
+    tensors = {}
+    while pos < len(buf):
+        n_dims, name_len, ttype = rd("<3i")
+        ne = list(rd(f"<{n_dims}i")) if n_dims > 1 else [rd("<i")]
+        name = bytes(buf[pos:pos + name_len]).decode()
+        pos += name_len
+        t = GGMLType(ttype)
+        n_el = int(np.prod(ne))
+        nbytes = n_el // FORMATS[t].block_size * FORMATS[t].type_size
+        tensors[name] = (t, tuple(ne), buf[pos:pos + nbytes])
+        pos += nbytes
+
+    params = _params_from_tensors(cfg, tensors, device=dev)
+    return cfg, params, filters, vocab
+
+
+def _dev(tensors, name, *, device=None) -> QTensor:
+    t, ne, raw = tensors[name]
+    return to_device_format(raw, t, ne, device=device)
+
+
+def _vec(tensors, name, *, device=None) -> torch.Tensor:
+    t, ne, raw = tensors[name]
+    return file_vector(raw, t, ne, device=device)
+
+
+def _params_from_tensors(cfg: WhisperConfig, tensors, *, device=None):
+    """whisper.cpp's tensor names (whisper.cpp:1530-1644) -> the params
+    tree."""
+    d = lambda name: _dev(tensors, name, device=device)
+    v = lambda name: _vec(tensors, name, device=device)
+    p = {
+        "e_pe": v("encoder.positional_embedding"),
+        "e_conv1_w": v("encoder.conv1.weight"),
+        "e_conv1_b": v("encoder.conv1.bias").reshape(1, -1, 1),
+        "e_conv2_w": v("encoder.conv2.weight"),
+        "e_conv2_b": v("encoder.conv2.bias").reshape(1, -1, 1),
+        "e_ln_g": v("encoder.ln_post.weight"),
+        "e_ln_b": v("encoder.ln_post.bias"),
+        "d_te": d("decoder.token_embedding.weight"),
+        "d_pe": v("decoder.positional_embedding"),
+        "d_ln_g": v("decoder.ln.weight"),
+        "d_ln_b": v("decoder.ln.bias"),
+        "enc_layers": [], "dec_layers": [],
+    }
+    for i in range(cfg.n_audio_layer):
+        pre = f"encoder.blocks.{i}"
+        p["enc_layers"].append({
+            "ln0_g": v(f"{pre}.attn_ln.weight"),
+            "ln0_b": v(f"{pre}.attn_ln.bias"),
+            "q_w": d(f"{pre}.attn.query.weight"),
+            "q_b": v(f"{pre}.attn.query.bias"),
+            "k_w": d(f"{pre}.attn.key.weight"),
+            "v_w": d(f"{pre}.attn.value.weight"),
+            "v_b": v(f"{pre}.attn.value.bias"),
+            "o_w": d(f"{pre}.attn.out.weight"),
+            "o_b": v(f"{pre}.attn.out.bias"),
+            "ln1_g": v(f"{pre}.mlp_ln.weight"),
+            "ln1_b": v(f"{pre}.mlp_ln.bias"),
+            "mlp0_w": d(f"{pre}.mlp.0.weight"),
+            "mlp0_b": v(f"{pre}.mlp.0.bias"),
+            "mlp1_w": d(f"{pre}.mlp.2.weight"),
+            "mlp1_b": v(f"{pre}.mlp.2.bias"),
+        })
+    for i in range(cfg.n_text_layer):
+        pre = f"decoder.blocks.{i}"
+        p["dec_layers"].append({
+            "ln0_g": v(f"{pre}.attn_ln.weight"),
+            "ln0_b": v(f"{pre}.attn_ln.bias"),
+            "q_w": d(f"{pre}.attn.query.weight"),
+            "q_b": v(f"{pre}.attn.query.bias"),
+            "k_w": d(f"{pre}.attn.key.weight"),
+            "v_w": d(f"{pre}.attn.value.weight"),
+            "v_b": v(f"{pre}.attn.value.bias"),
+            "o_w": d(f"{pre}.attn.out.weight"),
+            "o_b": v(f"{pre}.attn.out.bias"),
+            "xln_g": v(f"{pre}.cross_attn_ln.weight"),
+            "xln_b": v(f"{pre}.cross_attn_ln.bias"),
+            "xq_w": d(f"{pre}.cross_attn.query.weight"),
+            "xq_b": v(f"{pre}.cross_attn.query.bias"),
+            "xk_w": d(f"{pre}.cross_attn.key.weight"),
+            "xv_w": d(f"{pre}.cross_attn.value.weight"),
+            "xv_b": v(f"{pre}.cross_attn.value.bias"),
+            "xo_w": d(f"{pre}.cross_attn.out.weight"),
+            "xo_b": v(f"{pre}.cross_attn.out.bias"),
+            "ln1_g": v(f"{pre}.mlp_ln.weight"),
+            "ln1_b": v(f"{pre}.mlp_ln.bias"),
+            "mlp0_w": d(f"{pre}.mlp.0.weight"),
+            "mlp0_b": v(f"{pre}.mlp.0.bias"),
+            "mlp1_w": d(f"{pre}.mlp.2.weight"),
+            "mlp1_b": v(f"{pre}.mlp.2.bias"),
+        })
+    return p
+
+
+def from_hf_state_dict(cfg: WhisperConfig, sd: dict,
+                       wtype: GGMLType = GGMLType.F32, *, device=None):
+    """transformers WhisperModel state dict (numpy arrays or CPU torch
+    tensors, without the "model." prefix) -> params. HF Linear weights
+    (out, in) -> (K = in, N = out)."""
+    dev = resolve_device(device)
+    q2d = lambda name: hf_weight(sd[name].T, wtype, device=dev)
+    arr = lambda name: hf_vector(sd[name], device=dev)
+    p = {
+        "e_pe": arr("encoder.embed_positions.weight"),
+        "e_conv1_w": arr("encoder.conv1.weight"),
+        "e_conv1_b": arr("encoder.conv1.bias").reshape(1, -1, 1),
+        "e_conv2_w": arr("encoder.conv2.weight"),
+        "e_conv2_b": arr("encoder.conv2.bias").reshape(1, -1, 1),
+        "e_ln_g": arr("encoder.layer_norm.weight"),
+        "e_ln_b": arr("encoder.layer_norm.bias"),
+        "d_te": q2d("decoder.embed_tokens.weight"),   # (V, E) -> k E, n V
+        "d_pe": arr("decoder.embed_positions.weight"),
+        "d_ln_g": arr("decoder.layer_norm.weight"),
+        "d_ln_b": arr("decoder.layer_norm.bias"),
+        "enc_layers": [], "dec_layers": [],
+    }
+    attn = lambda pre, a: {
+        "q_w": q2d(f"{pre}.{a}.q_proj.weight"),
+        "q_b": arr(f"{pre}.{a}.q_proj.bias"),
+        "k_w": q2d(f"{pre}.{a}.k_proj.weight"),
+        "v_w": q2d(f"{pre}.{a}.v_proj.weight"),
+        "v_b": arr(f"{pre}.{a}.v_proj.bias"),
+        "o_w": q2d(f"{pre}.{a}.out_proj.weight"),
+        "o_b": arr(f"{pre}.{a}.out_proj.bias")}
+    for i in range(cfg.n_audio_layer):
+        pre = f"encoder.layers.{i}"
+        p["enc_layers"].append({
+            "ln0_g": arr(f"{pre}.self_attn_layer_norm.weight"),
+            "ln0_b": arr(f"{pre}.self_attn_layer_norm.bias"),
+            **attn(pre, "self_attn"),
+            "ln1_g": arr(f"{pre}.final_layer_norm.weight"),
+            "ln1_b": arr(f"{pre}.final_layer_norm.bias"),
+            "mlp0_w": q2d(f"{pre}.fc1.weight"), "mlp0_b": arr(f"{pre}.fc1.bias"),
+            "mlp1_w": q2d(f"{pre}.fc2.weight"), "mlp1_b": arr(f"{pre}.fc2.bias"),
+        })
+    for i in range(cfg.n_text_layer):
+        pre = f"decoder.layers.{i}"
+        p["dec_layers"].append({
+            "ln0_g": arr(f"{pre}.self_attn_layer_norm.weight"),
+            "ln0_b": arr(f"{pre}.self_attn_layer_norm.bias"),
+            **attn(pre, "self_attn"),
+            "xln_g": arr(f"{pre}.encoder_attn_layer_norm.weight"),
+            "xln_b": arr(f"{pre}.encoder_attn_layer_norm.bias"),
+            **{"x" + k: w for k, w in attn(pre, "encoder_attn").items()},
+            "ln1_g": arr(f"{pre}.final_layer_norm.weight"),
+            "ln1_b": arr(f"{pre}.final_layer_norm.bias"),
+            "mlp0_w": q2d(f"{pre}.fc1.weight"), "mlp0_b": arr(f"{pre}.fc1.bias"),
+            "mlp1_w": q2d(f"{pre}.fc2.weight"), "mlp1_b": arr(f"{pre}.fc2.bias"),
+        })
+    return p
 
 
 def synthetic_params_device(cfg: WhisperConfig, wtype: GGMLType | None = None,

@@ -231,6 +231,92 @@ LAID_OUT = (GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1,
              GGMLType.IQ4_XS)
 
 
+def _raw_blocks(raw: np.ndarray, t: GGMLType, n: int, k: int,
+                dev: torch.device) -> torch.Tensor:
+    """The encoded blocks of an (N rows of K) weight on dev as an (N,
+    K / block_size, type_size) uint8 tensor: one host copy (raw may be a
+    read-only view into a mapped file), one upload."""
+    info = FORMATS[t]
+    host = np.array(np.asarray(raw).view(np.uint8).reshape(-1))
+    return torch.from_numpy(host).to(dev).reshape(
+        n, k // info.block_size, info.type_size)
+
+
+def _f16(bt: torch.Tensor, off: int) -> torch.Tensor:
+    """The f16 field at byte `off` of every block, as f32 (N, blocks)."""
+    return bt[..., off:off + 2].contiguous().view(torch.float16)[..., 0] \
+        .float()
+
+
+def _kn(x: torch.Tensor) -> torch.Tensor:
+    """Per-row values (N, ...) -> the device layout's (rows, N)."""
+    return x.reshape(x.shape[0], -1).t().contiguous()
+
+
+def _basic_blocks(bt, t, n, k) -> QTensor:
+    """Q4_0 / Q4_1 (nib4: a block's 16 bytes are already the plane split,
+    element j low and j + 16 high), Q5_0 / Q5_1 (int8, q - 16 or raw with
+    the bias m) and Q8_0 / Q8_1 (int8); per-32 f32 scale d."""
+    affine = t in (GGMLType.Q4_1, GGMLType.Q5_1)
+    off = 4 if affine or t == GGMLType.Q8_1 else 2
+    d = _kn(_f16(bt, 0))
+    bias = _kn(_f16(bt, 2)) if affine else None
+    if t in (GGMLType.Q4_0, GGMLType.Q4_1):
+        return QTensor("nib4", _kn(bt[..., off:off + 16]), d, bias, k, n, t,
+                       zero=0 if affine else 8)
+    if t in (GGMLType.Q8_0, GGMLType.Q8_1):
+        return QTensor("int8", _kn(bt[..., off:off + 32].view(torch.int8)), d,
+                       None, k, n, t)
+    # Q5: bit j of the u32 qh is bit 4 of element j
+    qh = bt[..., off:off + 4].contiguous().view(torch.int32)
+    qs = bt[..., off + 4:off + 20]
+    j = torch.arange(16, dtype=torch.int32, device=bt.device)
+    hi = lambda s: (((qh >> (j + s)) & 1) << 4).to(torch.uint8)
+    q5 = torch.cat([(qs & 0x0F) | hi(0), (qs >> 4) | hi(16)], dim=-1)
+    q = q5.to(torch.int8) - (0 if affine else 16)
+    return QTensor("int8", _kn(q), d, bias, k, n, t)
+
+
+def _q4_k_blocks(bt, t, n, k) -> QTensor:
+    """Q4_K: per-32 scale d * sc and bias -dmin * m (rows (K/32, N));
+    levels [0, 15] with zero 0. A 64-element chunk keeps its first 32 in
+    the low nibbles of its 32 bytes and the next 32 in the high ones."""
+    sc = bt[..., 4:16]
+    d6 = torch.cat([sc[..., 0:4] & 63,
+                    (sc[..., 8:12] & 0xF) | ((sc[..., 0:4] >> 6) << 4)], -1)
+    m6 = torch.cat([sc[..., 4:8] & 63,
+                    (sc[..., 8:12] >> 4) | ((sc[..., 4:8] >> 6) << 4)], -1)
+    scale = _f16(bt, 0)[..., None] * d6.float()
+    mn = _f16(bt, 2)[..., None] * m6.float()
+    qs = bt[..., 16:144].reshape(n, -1, 4, 2, 16)
+    q0, q1 = qs[..., 0, :], qs[..., 1, :]
+    packed = torch.stack([(q0 & 0xF) | ((q1 & 0xF) << 4),
+                          (q0 >> 4) | (q1 & 0xF0)], dim=-2)
+    return QTensor("nib4", _kn(packed), _kn(scale), _kn(-mn), k, n, t, zero=0)
+
+
+def _q6_k_blocks(bt, t, n, k) -> QTensor:
+    """Q6_K: per-16 scale d * sc, no bias; levels [-32, 31]. Each
+    128-element half keeps the low nibbles of its four 32-element groups in
+    64 bytes (groups 0, 1 low, 2, 3 high) and their top two bits in 32."""
+    ql = bt[..., 0:128].reshape(n, -1, 2, 2, 32)
+    qh = bt[..., 128:192].reshape(n, -1, 2, 32)
+    lv = torch.stack([((ql[:, :, :, g % 2] >> (4 * (g // 2))) & 0xF)
+                      | (((qh >> (2 * g)) & 3) << 4) for g in range(4)], 3)
+    scale = _f16(bt, 208)[..., None] * bt[..., 192:208].view(torch.int8) \
+        .float()
+    return QTensor("int8", _kn(lv.to(torch.int8) - 32), _kn(scale), None, k,
+                   n, t)
+
+
+# the block formats laid out by torch ops on the target device (byte
+# slices and shifts, no per-element gathers on the host)
+_BLOCKS_ON_DEVICE = {GGMLType.Q4_0: _basic_blocks, GGMLType.Q4_1: _basic_blocks,
+                     GGMLType.Q5_0: _basic_blocks, GGMLType.Q5_1: _basic_blocks,
+                     GGMLType.Q8_0: _basic_blocks, GGMLType.Q8_1: _basic_blocks,
+                     GGMLType.Q4_K: _q4_k_blocks, GGMLType.Q6_K: _q6_k_blocks}
+
+
 def to_device_format(raw: np.ndarray, t: GGMLType, shape_ne: tuple[int, ...],
                      *, device=None) -> QTensor:
     """Decode a ggml-encoded 2-D weight into the device layout (counterpart
@@ -259,6 +345,8 @@ def to_device_format(raw: np.ndarray, t: GGMLType, shape_ne: tuple[int, ...],
         raise NotImplementedError(f"no device layout for {t.name} yet")
     if k % FORMATS[t].block_size:
         raise ValueError(f"{t.name}: K={k} is not a whole number of blocks")
+    if t in _BLOCKS_ON_DEVICE:
+        return _BLOCKS_ON_DEVICE[t](_raw_blocks(raw, t, n, k, dev), t, n, k)
     b = codecs.blocks_view(raw, t).reshape(n, k // FORMATS[t].block_size)
     if t.name.startswith("IQ"):
         return _iq_layout(b, t, n, k, put)
@@ -285,17 +373,6 @@ def to_device_format(raw: np.ndarray, t: GGMLType, shape_ne: tuple[int, ...],
         return QTensor("nib4", put(_nib4_from_u8(q.reshape(n, k))),
                        put(np.ascontiguousarray(scale.reshape(n, -1).T)), None,
                        k, n, t, zero=4)
-    if t == GGMLType.Q4_K:
-        # per-32 scale d*sc and bias -dmin*m (rows (K/32, N)); levels
-        # [0, 15] with zero 0
-        d6, m6 = codecs._unpack_scale_min_k4(b["scales"])
-        scale = b["d"].astype(f32)[..., None] * d6.astype(f32)
-        mn = b["dmin"].astype(f32)[..., None] * m6.astype(f32)
-        q = codecs.q4k_levels(b)
-        return QTensor("nib4", put(_nib4_from_u8(q.reshape(n, k))),
-                       put(np.ascontiguousarray(scale.reshape(n, -1).T)),
-                       put(np.ascontiguousarray(-mn.reshape(n, -1).T)), k, n,
-                       t, zero=0)
     if t == GGMLType.Q5_K:
         # per-32 scale d*sc and bias -dmin*m; raw levels [0, 31]
         d6, m6 = codecs._unpack_scale_min_k4(b["scales"])
@@ -304,24 +381,6 @@ def to_device_format(raw: np.ndarray, t: GGMLType, shape_ne: tuple[int, ...],
         return QTensor("int8", int8(codecs.q5k_levels(b)),
                        per32(scale.reshape(n, -1)), per32(-mn.reshape(n, -1)),
                        k, n, t)
-    if t == GGMLType.Q6_K:
-        # per-16 scale d*sc, no bias; levels [-32, 31]
-        scale = b["d"].astype(f32)[..., None] * b["scales"].astype(f32)
-        return QTensor("int8", int8(codecs.q6k_levels(b)),
-                       per32(scale.reshape(n, -1)), None, k, n, t)
-    d = per32(b["d"])                                 # (K/32, N)
-    bias = per32(b["m"]) if t in (GGMLType.Q4_1, GGMLType.Q5_1) else None
-    if t in (GGMLType.Q4_0, GGMLType.Q4_1):
-        qs = b["qs"]                                  # (N, K/32, 16)
-        vals = np.concatenate([qs & 0x0F, qs >> 4], axis=2).reshape(n, k)
-        return QTensor("nib4", put(_nib4_from_u8(vals)), d, bias, k, n, t,
-                       zero=8 if t == GGMLType.Q4_0 else 0)
-    if t in (GGMLType.Q5_0, GGMLType.Q5_1):
-        # Q5_0 q5 - 16 in [-16, 15]; Q5_1 raw [0, 31] with the bias m
-        q5 = codecs._unpack_q5(b["qs"].reshape(-1, 16), b["qh"].reshape(-1))
-        q5 = q5.astype(np.int16) - (16 if t == GGMLType.Q5_0 else 0)
-        return QTensor("int8", int8(q5), d, bias, k, n, t)
-    return QTensor("int8", int8(b["qs"]), d, None, k, n, t)   # Q8_0, Q8_1
 
 
 def quantize_for_device(w: np.ndarray, t: GGMLType, *, device=None) -> QTensor:

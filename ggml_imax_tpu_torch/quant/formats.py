@@ -1,6 +1,6 @@
 """Block-quantization format metadata (the port's own copy of
-ggml_imax_tpu/quant/formats.py: the float formats, the basic and K-quant
-block formats and the IQ codebook formats).
+ggml_imax_tpu/quant/formats.py: the float and integer element types, the
+basic and K-quant block formats and the IQ codebook formats).
 
 `GGMLType` keeps ggml's integer values so a type read from the JAX package
 or a GGUF file maps by value.
@@ -58,6 +58,11 @@ FORMATS: dict[GGMLType, FormatInfo] = {
     GGMLType.F32: FormatInfo("f32", 1, 4, False),
     GGMLType.F16: FormatInfo("f16", 1, 2, False),
     GGMLType.BF16: FormatInfo("bf16", 1, 2, False),
+    GGMLType.F64: FormatInfo("f64", 1, 8, False),
+    GGMLType.I8: FormatInfo("i8", 1, 1, False),
+    GGMLType.I16: FormatInfo("i16", 1, 2, False),
+    GGMLType.I32: FormatInfo("i32", 1, 4, False),
+    GGMLType.I64: FormatInfo("i64", 1, 8, False),
     GGMLType.Q4_0: FormatInfo("q4_0", QK, 2 + QK // 2, True),
     GGMLType.Q4_1: FormatInfo("q4_1", QK, 4 + QK // 2, True),
     GGMLType.Q5_0: FormatInfo("q5_0", QK, 2 + 4 + QK // 2, True),
@@ -98,3 +103,10 @@ FORMATS: dict[GGMLType, FormatInfo] = {
     GGMLType.IQ4_XS: FormatInfo("iq4_xs", QK_K,
                                 2 + 2 + QK_K // 64 + QK_K // 2, True),
 }
+
+
+def row_size(ggml_type: GGMLType, n: int) -> int:
+    """Byte size of a row of n elements (n must be a multiple of block_size)."""
+    info = FORMATS[ggml_type]
+    assert n % info.block_size == 0, (ggml_type, n)
+    return n // info.block_size * info.type_size

@@ -2476,3 +2476,174 @@ def test_engine_residency_on_card(gen, residency):
     route = "decode_attention_update" if fused else "decode_attention"
     other = "decode_attention" if fused else "decode_attention_update"
     assert _build.LAUNCHES[route] == 8 * L and _build.LAUNCHES[other] == 0
+
+
+# ---- the loaders: files written by the port's writers, loaded on the card
+
+def _small_files(tmp_path):
+    """A small GPT-J Q4_0 .bin (SMALL_GPTJ) and a small LLaMA GGUF in the
+    Q4_K_M mix (2 layers, the second mixed: Q6_K attn_v and ffn_down, Q6_K
+    output), weights N(0, 0.08) quantized by the port's codecs, written by
+    the port's writers. Returns (the .bin's path, the GGUF's path)."""
+    from ggml_imax_tpu_torch.io.gguf import GGUFWriter
+    from ggml_imax_tpu_torch.io.legacy_bin import write_legacy_bin
+    from ggml_imax_tpu_torch.quant import codecs
+    from ggml_imax_tpu_torch.tokenizer.bpe import bytes_to_unicode
+    rng = np.random.default_rng(7)
+
+    def enc(t, ne):
+        x = (rng.standard_normal((int(np.prod(ne[1:])), ne[0])) * 0.08) \
+            .astype(np.float32)
+        if len(ne) == 1:
+            x = x + 1.0
+        return t, tuple(ne), codecs.quantize(x, t)
+
+    T = GGMLType
+    c = SMALL_GPTJ
+    E, V = c["n_embd"], c["n_vocab"]
+    tensors = {"transformer.wte.weight": enc(T.Q4_0, (E, V)),
+               "transformer.ln_f.weight": enc(T.F32, (E,)),
+               "transformer.ln_f.bias": enc(T.F32, (E,)),
+               "lm_head.weight": enc(T.Q4_0, (E, V)),
+               "lm_head.bias": enc(T.F32, (V,))}
+    for i in range(c["n_layer"]):
+        p = f"transformer.h.{i}"
+        for n, ne in (("ln_1.weight", (E,)), ("ln_1.bias", (E,)),
+                      ("attn.q_proj.weight", (E, E)),
+                      ("attn.k_proj.weight", (E, E)),
+                      ("attn.v_proj.weight", (E, E)),
+                      ("attn.out_proj.weight", (E, E)),
+                      ("mlp.fc_in.weight", (E, 4 * E)),
+                      ("mlp.fc_in.bias", (4 * E,)),
+                      ("mlp.fc_out.weight", (4 * E, E)),
+                      ("mlp.fc_out.bias", (E,))):
+            tensors[f"{p}.{n}"] = enc(T.Q4_0 if len(ne) == 2 else T.F32, ne)
+    vocab = [bytes([b]) for b in range(0x20, 0x7F)] + \
+        [f"w{i}".encode() for i in range(V - 95)]
+    bin_path = tmp_path / "small-gptj.bin"
+    write_legacy_bin(bin_path, dict(c, ftype=2002), gptj.HPARAM_NAMES, vocab,
+                     tensors)
+
+    b2u = bytes_to_unicode()
+    tokens, merges = [b2u[b] for b in range(256)], []
+    for word in ("the", "river", "and", "quick"):
+        piece = word[0]
+        for ch in word[1:]:
+            merges.append(f"{piece} {ch}")
+            piece += ch
+            tokens.append(piece)
+    tokens += [f"<unused{i}>" for i in range(512 - len(tokens))]
+    E, F, kv = 256, 512, 128
+    w = GGUFWriter(tmp_path / "small-llama.gguf")
+    w.add_kv("general.architecture", "llama")
+    for k, v in (("context_length", 256), ("embedding_length", E),
+                 ("block_count", 2), ("feed_forward_length", F),
+                 ("attention.head_count", 2), ("attention.head_count_kv", 1)):
+        w.add_kv(f"llama.{k}", np.uint32(v))
+    w.add_kv("tokenizer.ggml.tokens", tokens)
+    w.add_kv("tokenizer.ggml.merges", merges)
+    for name, ne, t in (("token_embd", (E, 512), T.Q4_K),
+                        ("output_norm", (E,), T.F32),
+                        ("output", (E, 512), T.Q6_K)):
+        w.add_tensor(f"{name}.weight", enc(t, ne)[2], t, shape=ne)
+    for i in range(2):
+        more = T.Q6_K if i else T.Q4_K
+        for name, ne, t in (("attn_norm", (E,), T.F32),
+                            ("attn_q", (E, E), T.Q4_K),
+                            ("attn_k", (E, kv), T.Q4_K),
+                            ("attn_v", (E, kv), more),
+                            ("attn_output", (E, E), T.Q4_K),
+                            ("ffn_norm", (E,), T.F32),
+                            ("ffn_gate", (E, F), T.Q4_K),
+                            ("ffn_up", (E, F), T.Q4_K),
+                            ("ffn_down", (F, E), more)):
+            w.add_tensor(f"blk.{i}.{name}.weight", enc(t, ne)[2], t, shape=ne)
+    w.write()
+    return bin_path, tmp_path / "small-llama.gguf"
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    if isinstance(tree, QTensor):
+        return [t for t in (tree.q, tree.scale, tree.bias, tree.lut,
+                            tree.signs) if t is not None]
+    return [] if tree is None else [tree]
+
+
+def test_loaders_on_card_match_the_cpu_load(gen, tmp_path):
+    """gptj.load_legacy and llama.load_gguf with device="cuda": every
+    tensor on the card, bit-equal to the same file loaded on the CPU; the
+    configs and tokenizers equal; no kernel launched."""
+    from ggml_imax_tpu_torch.models import llama
+    bin_path, gguf_path = _small_files(tmp_path)
+    _build.reset_launches()
+    for load, path in ((gptj.load_legacy, bin_path),
+                       (llama.load_gguf, gguf_path)):
+        cfg_c, card, tok_c = load(path, device="cuda")
+        cfg_h, host, tok_h = load(path, device="cpu")
+        assert cfg_c == cfg_h
+        assert tok_c.id_to_token == tok_h.id_to_token
+        a, b = _leaves(card), _leaves(host)
+        assert len(a) == len(b) > 20
+        for x, y in zip(a, b):
+            assert x.is_cuda and not y.is_cuda and x.dtype == y.dtype
+            assert torch.equal(x.cpu(), y)
+    assert not any(_build.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("model", ["gptj", "llama"])
+def test_loaded_engine_greedy_on_card_matches_cpu(gen, tmp_path, model):
+    """The loaded small model through Engine on the card (GPT-J:
+    residency="q4-fused"; the LLaMA Q4_K_M mix: fuse_gate_up +
+    params_repack, as chip_smoke phase 11b) takes 12 greedy tokens with
+    the kernels; the same file loaded on the CPU, teacher-forced on those
+    tokens, gives logits within GPT-J's 5e-2 (check_small_models) or 3.5%
+    of the largest |logit| (the small LLaMA's ROUTE_TOL) of the card's
+    forward fed the same, and its picks equal the card's wherever its top-2
+    margin exceeds twice that limit."""
+    from ggml_imax_tpu_torch.models import llama
+    from ggml_imax_tpu_torch.runtime.engine import Engine
+    bin_path, gguf_path = _small_files(tmp_path)
+    mod = gptj if model == "gptj" else llama
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        if model == "gptj":
+            cfg, raw, tok = gptj.load_legacy(bin_path, device=dev)
+            params = qmm.params_repack(gptj.prepare_fused(raw, cfg))
+        else:
+            cfg, raw, tok = llama.load_gguf(gguf_path, device=dev)
+            params = qmm.params_repack(llama.fuse_gate_up(raw))
+        runs[dev] = (cfg, params, raw)
+    prompt = tok.encode("the river and the quick w1 w2 w3 w9")
+    cfg, params, raw = runs["cuda"]
+    eng = Engine(gptj, cfg, raw, residency="q4-fused") if model == "gptj" \
+        else Engine(llama, cfg, params)
+    _build.reset_launches()
+    toks = eng.generate(prompt, 12, temp=0)
+    assert _build.LAUNCHES["w4a8_gemv"] > 0
+    assert _build.LAUNCHES["w4a16_gemm"] > 0
+    logits = {}
+    for dev, (cfg, params, _) in runs.items():
+        cache = mod.init_cache(cfg, n_ctx=128, device=dev)
+        n = len(prompt)
+        lg, cache = mod.forward(cfg, params, torch.tensor([prompt], device=dev),
+                                torch.arange(n, device=dev)[None], cache, 0)
+        out = [lg[0, -1].float().cpu()]
+        for i, t in enumerate(toks[:-1]):
+            lg, cache = mod.forward(cfg, params, torch.tensor([[t]], device=dev),
+                                    torch.tensor([[n + i]], device=dev), cache,
+                                    n + i)
+            out.append(lg[0, -1].float().cpu())
+        logits[dev] = out
+    scale = max(float(x.abs().max()) for x in logits["cpu"])
+    limit = 5e-2 if model == "gptj" else 3.5e-2 * scale
+    for c, h, t in zip(logits["cuda"], logits["cpu"], toks):
+        assert bool(torch.isfinite(c).all())
+        assert float((c - h).abs().max()) <= limit
+        top2 = torch.topk(h, 2).values
+        if float(top2[0] - top2[1]) > 2 * limit:
+            assert int(h.argmax()) == t
+    _build.reset_launches()

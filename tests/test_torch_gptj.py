@@ -7,7 +7,7 @@ q8_0 KV. Logits within atol 5e-2 (logits are ~1 in magnitude; the prefill
 attention is bf16 flash in the port and f32 XLA attention in the
 reference), argmax equal wherever the reference's top-2 margin exceeds 0.1.
 Also: the Engine's greedy loop, the device default, and that the port
-imports nothing of JAX or the JAX package.
+imports nothing of JAX or the JAX package (nor `regex` or `transformers`).
 """
 import importlib
 import os
@@ -146,7 +146,7 @@ def test_port_imports_no_jax():
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'ggml_imax_tpu')]\n"
+            "('jax', 'jaxlib', 'ggml_imax_tpu', 'regex', 'transformers')]\n"
             "assert not bad, bad\nprint(len(sys.modules))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -171,4 +171,7 @@ def test_port_imports_no_jax():
             "ggml_imax_tpu_torch.audio.mel",
             "ggml_imax_tpu_torch.ops.conv",
             "ggml_imax_tpu_torch.models.whisper",
-            "ggml_imax_tpu_torch.runtime.whisper_pipeline"} <= set(mods)
+            "ggml_imax_tpu_torch.runtime.whisper_pipeline",
+            "ggml_imax_tpu_torch.io.gguf",
+            "ggml_imax_tpu_torch.io.legacy_bin",
+            "ggml_imax_tpu_torch.tokenizer.bpe"} <= set(mods)
