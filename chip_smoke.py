@@ -8,7 +8,9 @@ Q4_K, in the Q4_K_M mix (one stream and serving) and in the IQ4_XS mix
 (with its bf16 residency), and Whisper small and medium in Q5_0 (each
 through the transcription pipeline, eager and as CUDA-graph replay, with
 DTW token timestamps); then GPT-J-6B, LLaMA-2 7B Q4_K_M, Whisper small and
-GPT-2 117M from model files through the port's loaders and tokenizers.
+GPT-2 117M from model files through the port's loaders and tokenizers; then
+the quantization tools: LLaMA-2 7B F16 -> Q4_0 and its perplexity, GPT-2
+117M's imatrix, IQ encoders and W4A8 quality rows.
 
     python3 chip_smoke.py
 
@@ -279,6 +281,32 @@ Phases (any failure exits nonzero and prints no result line):
    tok/s or RTF, peak memory. Phase 3 adds a small GPT-J .bin and LLaMA
    Q4_K_M GGUF loaded on the card and the CPU: bit-equal tensors, then
    held card vs CPU as the other small models.
+12. the quantization tools (the reference's examples/quantize.py, then
+   examples/perplexity.py), files under build/quant_tools (the free space
+   checked first), each deleted once its step is done; the host C++
+   libraries (native/codecs.cpp, native/iq_encoders.cpp) are built by g++
+   in phase 1. 12a LLaMA-2 7B: F16 weights drawn on the card from a
+   torch.Generator, a GGUF written by GGUFWriter (phase 11b's keys and
+   tokenizer), requantize_gguf to Q4_0 on the C++ codecs (file type and
+   every other key's wire type kept, 1-D tensors byte for byte, the first
+   and last layers' seven weights, token_embd and output equal to the
+   numpy quantize_q4_0 of the dequantized source); tools.perplexity over
+   4 windows of 512 tokens of LOADER_TEXT (the loaded tokenizer's ids) on
+   the F16 model (dense on the card) and on the Q4_0 model (fuse_gate_up +
+   params_repack: 193 natpair W4A16, 32 flash and 32 tile maps a window),
+   its mean NLL within PPL_ROUTE_TOL of the same windows on every plain
+   version, two planted W4A16 faults past it. 12b GPT-2 117M: an F16
+   legacy .bin (wte at WTE_SCALE: peaked logits), the imatrix
+   (ImatrixCollector over tools.perplexity, 4 windows of 512) held to a
+   recorder of the first and last layers' activations and refused inside
+   a CUDA graph capture; requantize_legacy_bin to Q4_0 of those two
+   layers with their imatrix rows (equal to quantize_rows, and a lower
+   importance-weighted error than plain Q4_0); the IQ encoders on the
+   golden fixture and layer 0's fc_w in IQ2_XS through qmatmul; the W4A8
+   quality rows (tools/quality_tpu_row.py's method): Q4_0, Q4_K and Q5_0,
+   a teacher-forced T=1 window of 256 through the W4A8 / W8A8 kernels
+   (48 launches a step) against the plain route with the "w4a8" sim, mean
+   KL under KL_GATE, the Q4_K row with the W4A8 bias dropped over it.
 
     python3 chip_smoke.py --serving-kernels [ROOT]
     python3 chip_smoke.py --gpt2-kernels [ROOT]
@@ -289,9 +317,9 @@ unled, with its time at each K split the plan may take), on the port of
 the checkout at ROOT (default: this one): the same script times another
 commit's kernels.
 
-Each engine phase (5b, 8b, 8c, 9b, 9c and 10 too), and the timed training
-steps, sets the launch counters to 0 just before its run and reads them
-just after; a replayed graph adds the launches its capture recorded
+Each engine phase (5b, 8b, 8c, 9b, 9c, 10 and 12 too), and the timed
+training steps, sets the launch counters to 0 just before its run and
+reads them just after; a replayed graph adds the launches its capture recorded
 (_build.CapturedLaunches). Each phase prints its seconds. Every flash forward
 launches the tile map of its mask (flash_backward_tiles) before its kernel,
 so each phase counts one map for each flash call. The line before the
@@ -339,9 +367,10 @@ ROUTE_TOL = 3.5e-2
 # loss): 2 warm-up AdamW steps through optimize.opt, then `steps` timed ones
 # through opt_resume
 GPT2_117M = dict(n_vocab=50257, n_ctx=1024, n_embd=768, n_head=12, n_layer=12)
-# Phases 8, 8b and 8c quantize their weights on the host with the numpy
-# codecs (~200 s of the script at 12 layers): they run GPT-2 117M's widths
-# at half its depth, so the whole script stays inside its time limit
+# Phases 8, 8b and 8c quantize their weights on the host (8 and 8b through
+# the C++ codecs since they landed, 8c's IQ4 kinds in numpy): they run
+# GPT-2 117M's widths at half its depth, so the whole script stays inside
+# its time limit
 GPT2_117M_HOST = dict(GPT2_117M, n_layer=6)
 TRAIN = dict(batch=8, seq=512, warmup=2, steps=10, alpha=1e-4)
 # A training step's loss and gradients with the kernels against the same
@@ -5122,6 +5151,29 @@ def loaders_gptj(failures):
                 upload_s=floors[1], load_s=load_s, prepare_s=prep_s), counts
 
 
+def llama_gguf_kv(w, cfg, tokens, merges, file_type):
+    """A LLaMA GGUF's metadata as llama.cpp writes it: the architecture's
+    keys (u32, the epsilon and rope base f32), the file type, and the
+    byte-level tokenizer's tokens and merges."""
+    w.add_kv("general.architecture", "llama")
+    w.add_kv("general.name", "LLaMA v2 (random weights)")
+    w.add_kv("general.file_type", np.uint32(file_type))
+    for k, v in (("context_length", cfg.n_ctx),
+                 ("embedding_length", cfg.n_embd),
+                 ("block_count", cfg.n_layer),
+                 ("feed_forward_length", cfg.n_ff),
+                 ("rope.dimension_count", cfg.head_dim),
+                 ("attention.head_count", cfg.n_head),
+                 ("attention.head_count_kv", cfg.n_head_kv)):
+        w.add_kv(f"llama.{k}", np.uint32(v))
+    w.add_kv("llama.attention.layer_norm_rms_epsilon",
+             np.float32(cfg.rms_eps))
+    w.add_kv("llama.rope.freq_base", np.float32(cfg.rope_base))
+    w.add_kv("tokenizer.ggml.model", "gpt2")
+    w.add_kv("tokenizer.ggml.tokens", tokens)
+    w.add_kv("tokenizer.ggml.merges", merges)
+
+
 def loaders_llama(failures):
     """11b. LLaMA-2 7B Q4_K_M GGUF at LLAMA2_7B's widths (n_ctx 4096, as the
     model's): llama.cpp's keys and names, Q4_K_M's mix (q4_k_m), the
@@ -5146,23 +5198,7 @@ def loaders_llama(failures):
 
     def write():
         w = GGUFWriter(path)
-        w.add_kv("general.architecture", "llama")
-        w.add_kv("general.name", "LLaMA v2 (random weights)")
-        w.add_kv("general.file_type", np.uint32(15))      # MOSTLY_Q4_K_M
-        for k, v in (("context_length", cfg.n_ctx),
-                     ("embedding_length", cfg.n_embd),
-                     ("block_count", cfg.n_layer),
-                     ("feed_forward_length", cfg.n_ff),
-                     ("rope.dimension_count", cfg.head_dim),
-                     ("attention.head_count", cfg.n_head),
-                     ("attention.head_count_kv", cfg.n_head_kv)):
-            w.add_kv(f"llama.{k}", np.uint32(v))
-        w.add_kv("llama.attention.layer_norm_rms_epsilon",
-                 np.float32(cfg.rms_eps))
-        w.add_kv("llama.rope.freq_base", np.float32(cfg.rope_base))
-        w.add_kv("tokenizer.ggml.model", "gpt2")
-        w.add_kv("tokenizer.ggml.tokens", tokens)
-        w.add_kv("tokenizer.ggml.merges", merges)
+        llama_gguf_kv(w, cfg, tokens, merges, 15)          # MOSTLY_Q4_K_M
         for name, (t, ne, raw) in tensors.items():
             w.add_tensor(name, raw, t, shape=ne)
         w.write()
@@ -5438,6 +5474,637 @@ def check_small_loaders(failures):
         relative=True)
 
 
+# ---- phase 12: the quantization tools at full width (tools.quantize,
+# quant.imatrix, quant.iq_encode, tools.perplexity), as a user of the
+# reference runs examples/quantize.py and then examples/perplexity.py
+PPL_CTX, PPL_WINDOWS = 512, 4
+# 12a: the Q4_0 model's mean NLL over the windows with the kernels against
+# the same windows with every plain version on the card, relative. The two
+# sum each product in another order (bf16 roundings of the activations
+# downstream flip); the planted faults must move it past the limit. Readings
+# of this script on an H100: PERF.md.
+PPL_ROUTE_TOL = 1e-3
+# 12b: the reference's kernel-path quality gate (tools/quality_tpu_row.py,
+# docs/QUALITY_117M.md): the mean over a window's positions of KL(W4A8 sim
+# || kernels)
+KL_GATE = 5e-3
+QUALITY_CTX = 256
+# 12b's F16 GPT-2 117M: its (tied) wte drawn at this scale gives peaked
+# logits (the largest |logit| about 10), so that KL sees a fault
+WTE_SCALE = 0.1
+
+
+def quant_dir() -> Path:
+    """The phase's files go under the checkout's git-ignored build/."""
+    d = Path(__file__).resolve().parent / "build" / "quant_tools"
+    d.mkdir(parents=True, exist_ok=True)
+    return d
+
+
+def drawn_on_card(spec, gen, scale=0.02, scales=None):
+    """spec rows (name, params path, type, ne) -> name -> (type, ne, the
+    bytes on the host): each tensor drawn on the card from gen, N * scale
+    (scales: params key -> its own scale; + 1 for a norm's gain), cast to
+    its F16 or F32 type there, then copied to the host."""
+    from ggml_imax_tpu_torch.quant.formats import GGMLType as T
+    out = {}
+    for name, path, t, ne in spec:
+        x = torch.randn(tuple(reversed(ne)), generator=gen, device="cuda") \
+            * (scales or {}).get(path[-1], scale)
+        if str(path[-1]).endswith(("_g", "norm")):
+            x += 1.0
+        x = x.half() if t == T.F16 else x.float()
+        out[name] = (t, tuple(ne), x.cpu().numpy().view(np.uint8).reshape(-1))
+    return out
+
+
+def encoded_bytes(spec, t_to):
+    """The bytes of spec's tensors once its 2-D ones are in t_to."""
+    from ggml_imax_tpu_torch.quant.formats import FORMATS
+    n = 0
+    for _, _, t, ne in spec:
+        f = FORMATS[t_to if len(ne) == 2 else t]
+        n += math.prod(ne) // f.block_size * f.type_size
+    return n
+
+
+def text_tokens(tok, n):
+    """The first n ids of LOADER_TEXT through tok, the text repeated as
+    needed."""
+    ids = []
+    while len(ids) < n:
+        ids += tok.encode(LOADER_TEXT + " ")
+    return np.asarray(ids[:n], np.int64)
+
+
+def same_value(a, b) -> bool:
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return np.array_equal(np.asarray(a), np.asarray(b))
+    return a == b
+
+
+def check_requantized_gguf(label, src, dst, t_to, sampled, failures):
+    """dst, requantize_gguf(src) to t_to: the file type updated and every
+    other key as in src with its wire type; every 1-D tensor src's bytes;
+    every 2-D weight in t_to, and the sampled ones equal to the numpy codec
+    (the plain version, _QUANTIZERS) of src's tensor dequantized, bit for
+    bit."""
+    from ggml_imax_tpu_torch.io.gguf import GGUFReader
+    from ggml_imax_tpu_torch.quant import codecs
+    t0 = time.time()
+    with GGUFReader(src) as a, GGUFReader(dst) as b:
+        kv_ok = set(a.metadata) == set(b.metadata) and \
+            b.metadata["general.file_type"] == int(t_to) and \
+            a.metadata_types == b.metadata_types and all(
+                same_value(v, b.metadata[k]) for k, v in a.metadata.items()
+                if k != "general.file_type")
+        one_d = [n for n, i in a.tensors.items() if len(i.shape) == 1]
+        one_d_bad = [n for n in one_d if not np.array_equal(
+            a.tensor_data(n), b.tensor_data(n))]
+        types_bad = [n for n, i in b.tensors.items() if len(i.shape) == 2
+                     and i.ggml_type != t_to]
+        sample_bad = []
+        for name in sampled:
+            ia = a.tensors[name]
+            x = codecs.dequantize(a.tensor_data(name), ia.ggml_type,
+                                  shape=(ia.n_elements // ia.shape[0],
+                                         ia.shape[0]))
+            if not np.array_equal(codecs._QUANTIZERS[t_to](x).reshape(-1),
+                                  b.tensor_data(name)):
+                sample_bad.append(name)
+    log(f"  {label}: general.file_type {int(t_to)}, every other key and "
+        f"wire type kept: {kv_ok}; {len(one_d)} 1-D tensors byte for byte, "
+        f"{len(one_d_bad)} differ; 2-D weights not {t_to.name}: "
+        f"{types_bad[:4]}; {len(sampled)} sampled weights equal to the "
+        f"numpy quantize_{t_to.name.lower()} of the dequantized source, "
+        f"{len(sample_bad)} differ {sample_bad[:4]} ({time.time() - t0:.1f} "
+        "s)")
+    if not kv_ok or one_d_bad or types_bad or sample_bad:
+        failures.append(f"{label}: keys {kv_ok}, 1-D {one_d_bad[:4]}, types "
+                        f"{types_bad[:4]}, sampled {sample_bad[:4]}")
+
+
+def natpair_faults():
+    """12a's controls: the natpair W4A16 kernel fed each byte's two nibbles
+    swapped (the two rows of a pair exchanged), and fed the Q4_0 zero point
+    as a bias (levels q in [0, 15] where the layout holds q - 8)."""
+    from dataclasses import replace
+
+    from ggml_imax_tpu_torch.ops import qmm
+    real = qmm.w4a16_gemm
+
+    def swapped_nibbles(x2, qt):
+        q = ((qt.q & 0x0F) << 4) | (qt.q >> 4)
+        return real(x2, replace(qt, q=q.contiguous()))
+
+    def unsigned_levels(x2, qt):
+        return real(x2, replace(qt, bias=(8.0 * qt.scale.float())
+                                .to(qt.scale.dtype).contiguous()))
+    return {"the nibbles of each byte swapped": [(qmm, "w4a16_gemm",
+                                                  swapped_nibbles)],
+            "the zero point dropped": [(qmm, "w4a16_gemm", unsigned_levels)]}
+
+
+def timed_ppl(label, model, cfg, params, toks, patches=(), **kw):
+    """tools.perplexity over toks with the launch counts set to 0 just
+    before and read just after. -> (result, counts, seconds)."""
+    from ggml_imax_tpu_torch import _build
+    from ggml_imax_tpu_torch.tools.perplexity import perplexity
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with patched(patches):
+        r = perplexity(model, cfg, params, toks, n_ctx=PPL_CTX, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    log(f"  {label}: PPL {r['ppl']:.6f}, mean NLL {r['nll']:.8f} over "
+        f"{r['n_tokens']} tokens ({len(toks) // PPL_CTX} windows of "
+        f"{PPL_CTX}), {secs:.2f} s; launches "
+        f"{ {k: n for k, n in counts.items() if n} }")
+    return r, counts, secs
+
+
+def quant_llama(failures):
+    """12a. LLaMA-2 7B at LLAMA2_7B's widths: F16 weights drawn on the card
+    (a torch.Generator, seed 25), written as a GGUF by the port's
+    GGUFWriter with phase 11b's tokenizer; requantize_gguf to Q4_0 (the C++
+    codecs), the file checked against the source; perplexity over
+    PPL_WINDOWS windows of PPL_CTX tokens of LOADER_TEXT (the loaded
+    tokenizer's ids) on the F16 model (dense f32 on the card, the plain
+    products; flash attention) and on the Q4_0 model prepared as phase 11b
+    prepares its model (fuse_gate_up, params_repack: every product natpair
+    W4A16), against the same windows on the plain versions, and with the
+    planted faults. Returns (summary, launch counts by run)."""
+    from ggml_imax_tpu_torch.io.gguf import GGUFWriter
+    from ggml_imax_tpu_torch.models import llama
+    from ggml_imax_tpu_torch.ops.qmm import params_repack
+    from ggml_imax_tpu_torch.quant.formats import GGMLType as T
+    from ggml_imax_tpu_torch.tools.quantize import requantize_gguf
+    cfg = llama.LlamaConfig(**dict(LLAMA2_7B, n_ctx=4096,
+                                   rms_eps=float(np.float32(1e-5))))
+    L, W = cfg.n_layer, PPL_WINDOWS
+    spec = llama_spec(cfg, lambda key, layer: T.F16)
+    tokens, merges = byte_level_vocab(cfg.n_vocab)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(25)
+    t0 = time.time()
+    tensors = drawn_on_card(spec, gen)
+    draw_s = time.time() - t0
+    log(f"  12a: {len(tensors)} F16/F32 tensors drawn on the card and copied "
+        f"to the host in {draw_s:.2f} s")
+    f16, q4 = quant_dir() / "llama-2-7b-f16.gguf", \
+        quant_dir() / "llama-2-7b-q4_0.gguf"
+
+    def write():
+        w = GGUFWriter(f16)
+        llama_gguf_kv(w, cfg, tokens, merges, 1)              # MOSTLY_F16
+        for name, (t, ne, raw) in tensors.items():
+            w.add_tensor(name, raw, t, shape=ne)
+        w.write()
+    out = {"draw_s": draw_s}
+    try:
+        out["f16_bytes"], out["write_s"] = write_timed(
+            "12a F16 GGUF", f16, write, encoded_bytes(spec, T.F16))
+        del tensors
+        out["q4_0_bytes"], out["requantize_s"] = write_timed(
+            "12a requantize_gguf F16 -> Q4_0 (the C++ codecs)", q4,
+            lambda: requantize_gguf(f16, q4, T.Q4_0),
+            encoded_bytes(spec, T.Q4_0))
+        sampled = ["token_embd.weight", "output.weight"] + [
+            f"blk.{i}.{n}.weight" for i in (0, L - 1)
+            for n in ("attn_q", "attn_k", "attn_v", "attn_output",
+                      "ffn_gate", "ffn_up", "ffn_down")]
+        check_requantized_gguf("12a Q4_0 file", f16, q4, T.Q4_0, sampled,
+                               failures)
+        (lcfg, params, tok), out["load_f16_s"] = timed_load(
+            "12a llama.load_gguf F16 (dense f32)",
+            lambda: llama.load_gguf(f16))
+    finally:
+        f16.unlink(missing_ok=True)
+    if lcfg != cfg or tok is None:
+        failures.append(f"12a: config {lcfg}, tokenizer {tok}")
+        q4.unlink(missing_ok=True)
+        return None, None
+    toks = text_tokens(tok, W * PPL_CTX)
+    flash = {"flash_attention": W * L, "flash_backward_tiles": W * L}
+    launches = {}
+    r16, launches["quant_llama_f16"], out["ppl_f16_s"] = timed_ppl(
+        "12a F16 (plain products, flash)", llama, lcfg, params, toks)
+    check_counts(launches["quant_llama_f16"], flash, failures)
+    del params
+    torch.cuda.empty_cache()
+    try:
+        (_, qparams, _), out["load_q4_0_s"] = timed_load(
+            "12a llama.load_gguf Q4_0", lambda: llama.load_gguf(q4))
+    finally:
+        q4.unlink(missing_ok=True)
+    t0 = time.time()
+    prepared = params_repack(llama.fuse_gate_up(qparams))
+    del qparams
+    torch.cuda.synchronize()
+    out["prepare_s"] = time.time() - t0
+    rk, launches["quant_llama_q4_0"], out["ppl_q4_0_s"] = timed_ppl(
+        "12a Q4_0 (kernels)", llama, lcfg, prepared, toks)
+    check_counts(launches["quant_llama_q4_0"],
+                 dict(flash, w4a16_gemm=W * (6 * L + 1)), failures)
+    rp, _, _ = timed_ppl("12a Q4_0 (every plain version on the card)",
+                         llama, lcfg, prepared, toks, plain_on_card())
+    route = abs(rk["nll"] - rp["nll"]) / rp["nll"]
+    log(f"  12a Q4_0 kernels vs plain: mean NLL {rk['nll']:.8f} vs "
+        f"{rp['nll']:.8f}, rel {route:.3e} (limit {PPL_ROUTE_TOL:.0e}) "
+        f"{'ok' if route <= PPL_ROUTE_TOL else 'FAIL'}")
+    if route > PPL_ROUTE_TOL:
+        failures.append(f"12a: Q4_0 kernel NLL {rk['nll']} vs plain "
+                        f"{rp['nll']}: rel {route:.3e}")
+    faults = {}
+    for name, patches in natpair_faults().items():
+        rf, _, _ = timed_ppl(f"12a control: {name}", llama, lcfg, prepared,
+                             toks, patches)
+        faults[name] = abs(rf["nll"] - rp["nll"]) / rp["nll"]
+        log(f"  12a control ({name}): rel {faults[name]:.3e} -> "
+            + ("caught" if faults[name] > PPL_ROUTE_TOL else "MISSED"))
+        if faults[name] <= PPL_ROUTE_TOL:
+            failures.append(f"12a: the planted fault ({name}) moved the NLL "
+                            f"by {faults[name]:.3e} only")
+    del prepared
+    torch.cuda.empty_cache()
+    log(f"  12a PPL F16 {r16['ppl']:.6f}, Q4_0 {rk['ppl']:.6f} (delta "
+        f"{rk['ppl'] - r16['ppl']:+.6f}), Q4_0 plain {rp['ppl']:.6f}; "
+        "seeded random weights: not a quality measure")
+    return dict(out, ppl_f16=r16["ppl"], ppl_q4_0=rk["ppl"],
+                ppl_q4_0_plain=rp["ppl"], nll_f16=r16["nll"],
+                nll_q4_0=rk["nll"], nll_q4_0_plain=rp["nll"],
+                route_rel=route, faults_rel=faults,
+                n_tokens=rk["n_tokens"]), launches
+
+
+GPT2_FILE_W = {"attn_w": "attn/c_attn/w", "proj_w": "attn/c_proj/w",
+               "fc_w": "mlp/c_fc/w", "out_w": "mlp/c_proj/w"}
+
+
+def file_name(param_name):
+    """name_params' "layers[i].attn_w" -> the file's "model/h{i}/attn/c_attn/w"
+    (requantize keys its importance rows by file names)."""
+    i, key = param_name[len("layers["):].split("].")
+    return f"model/h{i}/{GPT2_FILE_W[key]}"
+
+
+def imatrix_gpt2(cfg, params, toks, failures):
+    """12b's collection: ImatrixCollector over tools.perplexity on the
+    named F16 params, with gpt2.qmatmul wrapped by a recorder of the first
+    and last layers' activations (f64 sums) to hold the rows to; then a
+    CUDA graph capture with the collector active, which must raise.
+    -> (the collector's rows by name, launch counts)."""
+    from ggml_imax_tpu_torch.models import gpt2
+    from ggml_imax_tpu_torch.ops.qmatmul import qmatmul
+    from ggml_imax_tpu_torch.quant.imatrix import ImatrixCollector, name_params
+    named = name_params(params)
+    L = cfg.n_layer
+    watch = {f"layers[{i}].{k}" for i in (0, L - 1) for k in GPT2_FILE_W}
+    sums, rows = {}, {}
+    real = gpt2.qmatmul
+
+    def recorded(x, w, **kw):
+        if w.name in watch:
+            xs = x.detach().reshape(-1, w.k).double()
+            sums[w.name] = sums.get(w.name, 0) + xs.square().sum(0)
+            rows[w.name] = rows.get(w.name, 0) + xs.shape[0]
+        return real(x, w, **kw)
+    with ImatrixCollector() as col:
+        r, counts, secs = timed_ppl("12b imatrix: perplexity (F16, plain "
+                                    "products, flash)", gpt2, cfg, named,
+                                    toks, [(gpt2, "qmatmul", recorded)])
+    mats = col.matrices()
+    worst, bad = 0.0, []
+    for name in sorted(watch):
+        qt = named["layers"][int(name[7:name.index("]")])][name.split(".")[1]]
+        want = (sums[name] / rows[name]).cpu().numpy()
+        got = col.matrix(qt)
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        worst = max(worst, err)
+        if err > 1e-5 or col.count(qt) != len(toks) or rows[name] != len(toks):
+            bad.append((name, err, col.count(qt)))
+    log(f"  12b imatrix: {len(mats)} rows ({sorted(mats)[:2]} ...), each "
+        f"layer-0/{L - 1} row against the recorder's mean x^2: worst rel "
+        f"{worst:.2e} (limit 1e-5), counts {len(toks)} each: "
+        + ("ok" if not bad else f"FAIL {bad[:3]}"))
+    if bad or len(mats) < 4 * L:
+        failures.append(f"12b imatrix: {len(mats)} rows, bad {bad[:4]}")
+    w = named["layers"][0]["fc_w"]
+    x = torch.randn(1, w.k, device="cuda")
+    refused = None
+    with ImatrixCollector():
+        try:
+            with torch.cuda.graph(torch.cuda.CUDAGraph()):
+                qmatmul(x, w)
+        except RuntimeError as e:
+            refused = str(e)
+    torch.cuda.synchronize()
+    log(f"  12b imatrix: a CUDA graph capture with the collector active "
+        f"raises: {refused is not None} ({(refused or '')[:90]})")
+    if refused is None:
+        failures.append("12b: a capture with the collector active ran")
+    return mats, counts, r, secs
+
+
+def imatrix_requantize(f16, cfg, mats, failures):
+    """12b's imatrix-weighted Q4_0 of the first and last layers' weights
+    (requantize_legacy_bin with include and imatrix keyed by file names):
+    those tensors equal quantize_rows of the dequantized source with their
+    row, every other tensor is the source's bytes, and each has a lower
+    importance-weighted error than plain Q4_0 of the same tensor."""
+    from ggml_imax_tpu_torch.io.legacy_bin import read_legacy_bin
+    from ggml_imax_tpu_torch.models import gpt2
+    from ggml_imax_tpu_torch.quant import codecs
+    from ggml_imax_tpu_torch.quant.formats import GGMLType as T
+    from ggml_imax_tpu_torch.quant.imatrix import quantize_rows
+    from ggml_imax_tpu_torch.tools.quantize import requantize_legacy_bin
+    L = cfg.n_layer
+    imx = {file_name(k): v for k, v in mats.items() if k.startswith("layers")}
+    include = (f"model/h0/*/w", f"model/h{L - 1}/*/w")
+    dst = quant_dir() / "gpt-2-117m-q4_0-imatrix.bin"
+    _, secs = write_timed("12b requantize_legacy_bin F16 -> Q4_0, imatrix, "
+                          f"layers 0 and {L - 1}", dst,
+                          lambda: requantize_legacy_bin(
+                              f16, dst, T.Q4_0, gpt2.HPARAM_NAMES,
+                              include=include, imatrix=imx),
+                          f16.stat().st_size)
+    try:
+        a = read_legacy_bin(f16, gpt2.HPARAM_NAMES)
+        b = read_legacy_bin(dst, gpt2.HPARAM_NAMES)
+    finally:
+        dst.unlink()
+    t0 = time.time()
+    moved = sorted(n for n in b.tensors if b.tensors[n].ggml_type == T.Q4_0)
+    kept_bad = [n for n in a.tensors if n not in moved and not np.array_equal(
+        a.tensors[n].data, b.tensors[n].data)]
+    bad, gains = [], {}
+    for n in moved:
+        ta = a.tensors[n]
+        x = codecs.dequantize(ta.data, ta.ggml_type,
+                              shape=(math.prod(ta.shape) // ta.shape[0],
+                                     ta.shape[0]))
+        if not np.array_equal(quantize_rows(x, T.Q4_0, imatrix=imx[n]),
+                              b.tensors[n].data):
+            bad.append(n)
+        werr = lambda raw: float((imx[n][None] * (codecs.dequantize(
+            raw, T.Q4_0, shape=x.shape) - x) ** 2).sum())
+        gains[n] = werr(b.tensors[n].data) / werr(codecs.quantize(x, T.Q4_0))
+    worse = [n for n, g in gains.items() if g >= 1]
+    log(f"  12b: {len(moved)} tensors quantized ({moved[:2]} ...), equal to "
+        f"quantize_rows(source, Q4_0, imatrix=row): {len(bad)} differ; "
+        f"{len(a.tensors) - len(moved)} kept byte for byte, {len(kept_bad)} "
+        f"differ; importance-weighted error / plain Q4_0's: "
+        + ", ".join(f"{n.split('/', 1)[1]} {g:.3f}" for n, g in gains.items())
+        + f" ({time.time() - t0:.1f} s)")
+    if len(moved) != 8 or bad or kept_bad or worse:
+        failures.append(f"12b imatrix Q4_0: moved {len(moved)}, bad {bad}, "
+                        f"kept {kept_bad[:4]}, not better {worse}")
+    return {"imatrix_requantize_s": secs, "weighted_err_ratio": gains}
+
+
+def iq_on_host(f16, mats, failures):
+    """12b's IQ encoders on this machine's g++ build: the eleven cases of
+    tests/fixtures/golden_iq_encode.npz equal the compiled reference's
+    bytes; then layer 0's fc_w at full width (3072 rows of 768) in IQ2_XS
+    with its imatrix row, laid out on the card, where qmatmul (the plain
+    route: codebook layouts take no kernel) equals x @ the codec's
+    dequantization of the same bytes."""
+    from ggml_imax_tpu_torch.io.legacy_bin import read_legacy_bin
+    from ggml_imax_tpu_torch.models import gpt2
+    from ggml_imax_tpu_torch.ops.qmatmul import qmatmul
+    from ggml_imax_tpu_torch.quant import codecs
+    from ggml_imax_tpu_torch.quant.device import to_device_format
+    from ggml_imax_tpu_torch.quant.formats import GGMLType as T
+    from ggml_imax_tpu_torch.quant.imatrix import quantize_rows
+    from ggml_imax_tpu_torch.quant.iq_encode import quantize_iq
+    t0 = time.time()
+    z = np.load(Path(__file__).resolve().parent / "tests" / "fixtures"
+                / "golden_iq_encode.npz")
+    cases = [(k, q) for k in ("IQ2_XXS", "IQ2_XS", "IQ2_S", "IQ3_XXS",
+                              "IQ3_S", "IQ1_S", "IQ1_M") for q in (True,)] \
+        + [(k, False) for k in ("IQ2_S", "IQ3_XXS", "IQ3_S", "IQ1_M")]
+    bad = [(k, q) for k, q in cases if not np.array_equal(
+        quantize_iq(z["x"], T[k], z["qw"] if q else None).reshape(-1),
+        z[f"{k.lower()}_bytes" + ("" if q else "_noqw")])]
+    golden_s = time.time() - t0
+    log(f"  12b IQ encoders: {len(cases)} golden cases, {len(bad)} differ "
+        f"{bad} ({golden_s:.1f} s, each grid set's first use included)")
+    if bad:
+        failures.append(f"12b IQ golden cases differ: {bad}")
+    t = read_legacy_bin(f16, gpt2.HPARAM_NAMES).tensors["model/h0/mlp/c_fc/w"]
+    x = codecs.dequantize(t.data, t.ggml_type, shape=(t.shape[1], t.shape[0]))
+    t0 = time.time()
+    raw = quantize_rows(x, T.IQ2_XS, imatrix=mats["layers[0].fc_w"])
+    enc_s = time.time() - t0
+    qt = to_device_format(raw, T.IQ2_XS, t.shape, device="cuda")
+    xin = torch.randn(4, qt.k, device="cuda")
+    got = qmatmul(xin, qt, compute_dtype=torch.float32,
+                  out_dtype=torch.float32)
+    w = torch.from_numpy(codecs.dequantize(raw, T.IQ2_XS,
+                                           shape=x.shape)).cuda()
+    err = rel_err(got, xin @ w.T)
+    log(f"  12b IQ2_XS fc_w (3072 x 768, imatrix row): encoded in "
+        f"{enc_s:.1f} s ({raw.nbytes} bytes); qmatmul on the card vs x @ "
+        f"the codec's dequantization: rel {err:.2e} (limit 1e-5) "
+        + ("ok" if err <= 1e-5 else "FAIL"))
+    if err > 1e-5:
+        failures.append(f"12b IQ2_XS qmatmul rel {err:.3e}")
+    return {"iq_golden_s": golden_s, "iq2_xs_encode_s": enc_s,
+            "iq2_xs_rel": err}
+
+
+def log_probs(z):
+    z = z.float()
+    z = z - z.amax(dim=-1, keepdim=True)
+    return z - torch.log(torch.exp(z).sum(dim=-1, keepdim=True))
+
+
+def window_ppl(logits, toks) -> float:
+    """Teacher-forced PPL over the window: positions 0..T-2 predict 1..T-1."""
+    lp = log_probs(logits[:-1]).gather(1, toks[1:, None])
+    return float(torch.exp(-lp.mean()))
+
+
+def mean_kl(p_logits, q_logits) -> float:
+    """Mean over positions of KL(p || q)."""
+    lp, lq = log_probs(p_logits), log_probs(q_logits)
+    return float((lp.exp() * (lp - lq)).sum(-1).mean())
+
+
+def decode_window(cfg, params, toks, patches=()):
+    """A teacher-forced T=1 decode over the window through gpt2.forward
+    (bf16 KV cache, bf16 compute): every quantized product is an m = 1
+    GEMV. -> (logits (T, V) f32, launch counts)."""
+    from ggml_imax_tpu_torch import _build
+    from ggml_imax_tpu_torch.models import gpt2
+    cache = gpt2.init_cache(cfg, 1, len(toks))
+    out = []
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with torch.no_grad(), patched(patches):
+        for i in range(len(toks)):
+            lg, _ = gpt2.forward(cfg, params, toks[i].view(1, 1),
+                                 torch.full((1, 1), i, device="cuda"),
+                                 cache, i)
+            out.append(lg[0, 0])
+    torch.cuda.synchronize()
+    return torch.stack(out), dict(_build.LAUNCHES)
+
+
+QUALITY_ROWS = (("Q4_0", "w4a8_gemv", "natpair W4A8"),
+                ("Q4_K", "w4a8_gemv", "natpair W4A8 + affine bias"),
+                ("Q5_0", "nat8_w8a8", "nat8 W8A8"))
+
+
+def quality_rows(f16, cfg, toks, failures):
+    """12b's W4A8 quality rows (the method of tools/quality_tpu_row.py):
+    each format requantized from the F16 file without an imatrix (the C++
+    codecs, whole model), loaded; the window as one T = QUALITY_CTX forward
+    on the plain route (the loaded layout and every plain version, f32
+    compute and KV) with set_activation_sim("w4a8"), and as a teacher-forced
+    T=1 decode through the kernels after params_repack with bf16 scales;
+    PPL of each, the mean KL(sim || kernels) against KL_GATE; the Q4_K row
+    again with the W4A8 kernel's bias term dropped, which must fail it."""
+    from ggml_imax_tpu_torch.models import gpt2
+    from ggml_imax_tpu_torch.ops import qmatmul as qmm_mod
+    from ggml_imax_tpu_torch.ops.qmm import params_repack
+    from ggml_imax_tpu_torch.quant.formats import GGMLType as T
+    from ggml_imax_tpu_torch.tools.quantize import requantize_legacy_bin
+    T_ = len(toks)
+    rows, launches = {}, {}
+    for fmt, kernel, family in QUALITY_ROWS:
+        path = quant_dir() / f"gpt-2-117m-{fmt.lower()}.bin"
+        _, req_s = write_timed(f"12b requantize_legacy_bin F16 -> {fmt}",
+                               path, lambda: requantize_legacy_bin(
+                                   f16, path, T[fmt], gpt2.HPARAM_NAMES),
+                               f16.stat().st_size)
+        try:
+            _, params, _ = gpt2.load_legacy(path)
+        finally:
+            path.unlink()
+        qmm_mod.set_activation_sim("w4a8")
+        try:
+            with torch.no_grad(), patched(plain_on_card()):
+                sim, _ = gpt2.forward(
+                    cfg, params, toks[None],
+                    torch.arange(T_, device="cuda")[None],
+                    gpt2.init_cache(cfg, 1, T_, torch.float32), 0,
+                    compute_dtype=torch.float32)
+        finally:
+            qmm_mod.set_activation_sim(None)
+        sim = sim[0]
+        prepared = params_repack(params, scale_dtype=torch.bfloat16)
+        del params
+        t0 = time.time()
+        ker, counts = decode_window(cfg, prepared, toks)
+        secs = time.time() - t0
+        check_counts(counts, {kernel: T_ * 4 * cfg.n_layer}, failures)
+        kl = mean_kl(sim, ker)
+        row = {"ppl_kernels": window_ppl(ker, toks),
+               "ppl_sim": window_ppl(sim, toks), "kl": kl,
+               "max_abs_logit": float(sim.abs().max()),
+               "requantize_s": req_s, "decode_s": secs}
+        ok = kl < KL_GATE
+        log(f"  12b {fmt} ({family}): PPL kernels {row['ppl_kernels']:.4f}, "
+            f"PPL W4A8 sim {row['ppl_sim']:.4f}, mean KL(sim || kernels) "
+            f"{kl:.3e} (gate {KL_GATE:.0e}) {'PASS' if ok else 'FAIL'}; "
+            f"largest |logit| {row['max_abs_logit']:.2f}; {T_} decode steps "
+            f"in {secs:.2f} s, launches "
+            f"{ {k: n for k, n in counts.items() if n} }")
+        if not ok:
+            failures.append(f"12b {fmt}: KL {kl:.3e} >= {KL_GATE}")
+        if fmt == "Q4_K":
+            bad, _ = decode_window(cfg, prepared, toks, dropped_bias())
+            row["fault_kl"] = mean_kl(sim, bad)
+            caught = row["fault_kl"] >= KL_GATE
+            log(f"  12b {fmt} control (the W4A8 bias term dropped): KL "
+                f"{row['fault_kl']:.3e} -> "
+                + ("fails the gate (caught)" if caught else "MISSED"))
+            if not caught:
+                failures.append(f"12b: the dropped bias passed the gate "
+                                f"(KL {row['fault_kl']:.3e})")
+        rows[fmt], launches[f"quality_{fmt.lower()}"] = row, counts
+        del prepared
+        torch.cuda.empty_cache()
+    return rows, launches
+
+
+def quant_gpt2(failures):
+    """12b. GPT-2 117M at GPT2_117M's widths (the reference's quality-row
+    geometry): an F16 legacy .bin drawn on the card (wte at WTE_SCALE) and
+    written by write_legacy_bin, gpt2.load_legacy (dense on the card); the
+    imatrix over PPL_WINDOWS windows (imatrix_gpt2), the imatrix-weighted
+    Q4_0 of two layers (imatrix_requantize), the IQ encoders
+    (iq_on_host) and the W4A8 quality rows (quality_rows). Returns
+    (summary, launch counts by run)."""
+    from ggml_imax_tpu_torch.io.legacy_bin import write_legacy_bin
+    from ggml_imax_tpu_torch.models import gpt2
+    from ggml_imax_tpu_torch.quant.formats import GGMLType as T
+    cfg = gpt2.GPT2Config(**GPT2_117M)
+    spec = [(n, p, T.F16 if len(ne) == 2 else T.F32, ne)
+            for n, p, _, ne in gpt2_spec(cfg)]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(26)
+    tensors = drawn_on_card(spec, gen, scales={"wte": WTE_SCALE})
+    hp = dict(n_vocab=cfg.n_vocab, n_ctx=cfg.n_ctx, n_embd=cfg.n_embd,
+              n_head=cfg.n_head, n_layer=cfg.n_layer, ftype=1)
+    f16 = quant_dir() / "gpt-2-117m-f16.bin"
+    out, launches = {}, {}
+    try:
+        out["f16_bytes"], out["write_s"] = write_timed(
+            "12b F16 .bin", f16, lambda: write_legacy_bin(
+                f16, hp, gpt2.HPARAM_NAMES, greedy_vocab(cfg.n_vocab),
+                tensors), encoded_bytes(spec, T.F16))
+        del tensors
+        (lcfg, params, tok), out["load_s"] = timed_load(
+            "12b gpt2.load_legacy F16", lambda: gpt2.load_legacy(f16))
+        if lcfg != cfg:
+            failures.append(f"12b: config {lcfg} != {cfg}")
+            return None, None
+        toks = text_tokens(tok, PPL_WINDOWS * PPL_CTX)
+        mats, launches["quant_gpt2_imatrix"], r, out["imatrix_s"] = \
+            imatrix_gpt2(cfg, params, toks, failures)
+        check_counts(launches["quant_gpt2_imatrix"],
+                     {"flash_attention": PPL_WINDOWS * cfg.n_layer,
+                      "flash_backward_tiles": PPL_WINDOWS * cfg.n_layer},
+                     failures)
+        out["ppl_f16"] = r["ppl"]
+        del params
+        torch.cuda.empty_cache()
+        if failures:
+            return None, None
+        out.update(imatrix_requantize(f16, cfg, mats, failures))
+        out.update(iq_on_host(f16, mats, failures))
+        if failures:
+            return None, None
+        out["quality"], by_row = quality_rows(
+            f16, cfg, torch.from_numpy(toks[:QUALITY_CTX]).cuda(), failures)
+        launches.update(by_row)
+    finally:
+        f16.unlink(missing_ok=True)
+    log("  12b: the PPLs above come from seeded random weights: a check of "
+        "the method, not a quality measure")
+    return out, launches
+
+
+def quant_tools_phase(failures):
+    """Phase 12: 12a and 12b, each file written, used and deleted in turn.
+    Returns (summary, launch counts by run)."""
+    summary, launches = {}, {}
+    for key, run in (("llama_7b_q4_0", quant_llama),
+                     ("gpt2_117m", quant_gpt2)):
+        t0 = time.time()
+        out, counts = run(failures)
+        log(f"  -- {key}: {time.time() - t0:.1f} s")
+        if failures:
+            break
+        summary[key] = out
+        launches.update(counts)
+    return summary, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5456,7 +6123,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(repo))
-    from ggml_imax_tpu_torch import _build
+    from ggml_imax_tpu_torch import _build, native
 
     # ---- 1. setup
     t_start = time.time()
@@ -5470,6 +6137,12 @@ def main() -> int:
     t0 = time.time()
     _build.lib()
     log(f"# kernels built in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    native.lib()
+    native.iq_lib()
+    log(f"# host C++ libraries (native/codecs.cpp, native/iq_encoders.cpp) "
+        f"built and loaded in {time.time() - t0:.1f} s: g++ "
+        f"{ {k: round(v, 2) for k, v in native.BUILD_SECONDS.items()} } s")
     for line in _build.BUILD_LOG.splitlines():
         if any(w in line for w in ("==", "registers", "spill", "Compiling entry")):
             log("#   " + line.strip())
@@ -5726,8 +6399,20 @@ def main() -> int:
         raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
     launches.update(by_run)
     log(f"# phase 11: {time.time() - t0:.1f} s")
-    log("# phases run: 1, 2, 3, 4, 5, 5b, 6, 7, 8, 8b, 8c, 9, 9b, 9c, 10, 11")
-    log(f"# phases 1-11: {time.time() - t_start:.1f} s")
+
+    # ---- 12. the quantization tools
+    log("# phase 12: LLaMA-2 7B F16 GGUF -> Q4_0 and perplexity; GPT-2 117M "
+        "imatrix, imatrix-weighted Q4_0, the IQ encoders and the W4A8 "
+        "quality rows (requantize, tools.perplexity, quant.imatrix)")
+    t0 = time.time()
+    engines["quant_tools"], by_run = quant_tools_phase(failures)
+    if failures:
+        raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
+    launches.update(by_run)
+    log(f"# phase 12: {time.time() - t0:.1f} s")
+    log("# phases run: 1, 2, 3, 4, 5, 5b, 6, 7, 8, 8b, 8c, 9, 9b, 9c, 10, 11, "
+        "12")
+    log(f"# phases 1-12: {time.time() - t_start:.1f} s")
 
     kernels = []
     for k in KERNELS:

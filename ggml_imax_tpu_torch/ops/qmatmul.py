@@ -15,6 +15,13 @@ The kernel routes are differentiable in x (the counterpart of the
 reference's `_qmm_fused` VJP): dx = bf16(dy) @ dequantize(W, bf16)^T with
 f32 sums. Quantized weights are frozen and get no gradient. The plain route
 is ordinary torch ops.
+
+Two hooks run at the top of `qmatmul`, before a route is chosen, so the
+kernel routes and the plain route alike see them: an activation observer
+(quant/imatrix.ImatrixCollector) and the "w4a8" activation sim (the
+quality rows). A captured CUDA graph replays no Python, so neither may be
+set while a stream captures: `qmatmul` raises then, and so does a captured
+step's replay (runtime/engine.CapturedStep).
 """
 from __future__ import annotations
 
@@ -37,6 +44,60 @@ def dequantize(qt: QTensor, dtype=torch.bfloat16) -> torch.Tensor:
     if qt.bias is not None:
         w = w + qt.bias.to(dtype)[:, None, :]
     return w.reshape(qt.k, qt.n)
+
+
+# called as observer(qt, x) on every qmatmul (quant/imatrix.py's
+# collector); None: off
+_activation_observer = None
+
+# "w4a8": every product with a quantized weight first takes its activation
+# through the reference's Q8_0 round trip (quantize_row_q8_0) in value
+# terms, so a whole model's output can be held against ggml's W4A8
+# integer-dot math (the quality rows); None: off
+_activation_sim = None
+
+
+def set_activation_observer(fn):
+    """Install (or remove, with None) the activation observer."""
+    global _activation_observer
+    _activation_observer = fn
+
+
+def set_activation_sim(mode):
+    """None (the default) or "w4a8"."""
+    global _activation_sim
+    if mode not in (None, "w4a8"):
+        raise ValueError(f"activation sim {mode!r}: None or 'w4a8'")
+    _activation_sim = mode
+
+
+def hooks_active() -> bool:
+    """Whether an observer or a sim is set."""
+    return _activation_observer is not None or _activation_sim is not None
+
+
+def refuse_capture(where: str):
+    """Raise if an observer or a sim is set: `where` (a CUDA graph capture or
+    replay) would run no Python and silently bypass them."""
+    if hooks_active():
+        raise RuntimeError(
+            f"{where}: an activation observer or sim is set, and a captured "
+            "CUDA graph runs no Python; collect or simulate through eager "
+            "forwards")
+
+
+def _q8_0_sim(x: torch.Tensor) -> torch.Tensor:
+    """Per-32 symmetric int8 round trip, d = amax / 127, in f32
+    (quantize_row_q8_0 in value terms; torch.round is round half to even,
+    as the JAX package's sim, where the reference's roundf rounds half away
+    from zero)."""
+    xr = x.float().reshape(*x.shape[:-1], -1, 32)
+    amax = xr.abs().amax(dim=-1, keepdim=True)
+    # a tensor divisor: CUDA divides by a Python scalar as a multiply by its
+    # reciprocal, which rounds d an ulp off the host's (and the JAX sim's)
+    d = amax / torch.full_like(amax, 127.0)
+    q = torch.where(d > 0, torch.round(xr / torch.where(d > 0, d, 1.0)), 0.0)
+    return (q * d).reshape(x.shape)
 
 
 class _KernelRoute(torch.autograd.Function):
@@ -68,6 +129,14 @@ def qmatmul(x: torch.Tensor, qt: QTensor, *, compute_dtype=torch.bfloat16,
     W4A16 / W8A16 at every m. Others dequantize to `compute_dtype` and
     multiply with f32 accumulation."""
     out_dtype = out_dtype or x.dtype
+    if hooks_active():
+        if torch.cuda.is_available() \
+                and torch.cuda.is_current_stream_capturing():
+            refuse_capture("qmatmul during a CUDA graph capture")
+        if _activation_observer is not None:
+            _activation_observer(qt, x)
+        if _activation_sim == "w4a8" and qt.kind != "dense":
+            x = _q8_0_sim(x)
     if qt.n % 128 == 0 and qt.interleaved_bk > 0 and qt.lut is None:
         route = {("nib4", 3): qmatmul_natpair, ("int8", 4): qmatmul_nat8,
                  ("nib4", 0): qmatmul_permuted, ("nib4", 1): qmatmul_permuted,

@@ -3,7 +3,10 @@ copy of ggml_imax_tpu/quant/codecs.py's numpy twins: Q4_0, Q4_1, Q5_0,
 Q5_1, Q8_0, Q8_1, Q2_K, Q3_K, Q4_K, Q5_K, Q6_K and Q8_K, the F16 and
 BF16 float formats, IQ4_NL and IQ4_XS, and the decoders of the codebook
 formats IQ2_XXS, IQ2_XS, IQ2_S, IQ3_XXS, IQ3_S, IQ1_S and IQ1_M, whose
-grids are the port's own copy of iq_grids.npz).
+grids are the port's own copy of iq_grids.npz). `quantize` and
+`dequantize` run the basic and K-quant block formats through the C++
+loops of native/codecs.cpp; the numpy versions stay in _QUANTIZERS and
+_DEQUANTIZERS as their plain versions.
 
 The encoded bytes match ggml-common.h's block layouts, so blocks round-trip
 bit for bit with GGUF files. Rounding, as in ggml's scalar C code:
@@ -327,15 +330,16 @@ def _make_qkx2_quants(x, weights, nmax: int, rmin: float, rdelta: float,
     return scale, the_min, L.astype(np.int32)
 
 
-def _make_qx_quants(x, nmax: int):
+def _make_qx_quants(x, nmax: int, qw=None):
     """Symmetric quantizer with a search over 19 trial scales (ggml's
-    make_qx_quants, rmse_type 1, weights x^2). x (nb, n) -> (scale, L in
+    make_qx_quants, rmse_type 1). The weights are x^2, or qw (nb, n) where
+    given (the imatrix quantizers). x (nb, n) -> (scale, L in
     [0, 2 nmax - 1])."""
     mx = np.take_along_axis(x, np.argmax(np.abs(x), axis=1)[:, None],
                             axis=1)[:, 0]
     dead = np.abs(mx) < f32(1e-30)
     mx_safe = np.where(dead, f32(1.0), mx)
-    w = x * x
+    w = x * x if qw is None else qw
 
     def trial(iscale):
         l = np.clip(_nearest_int(iscale[:, None] * x), -nmax, nmax - 1)
@@ -359,6 +363,70 @@ def _make_qx_quants(x, nmax: int):
     scale = np.where(dead, f32(0.0), scale).astype(f32)
     L = np.where(dead[:, None], 0, L + nmax)
     return scale, L.astype(np.int32)
+
+
+def _make_qp_quants(x, nmax: int, qw):
+    """Non-negative [0, nmax] quantizer (ggml's make_qp_quants, the
+    imatrix K-quants' super-scales): the scale with the least qw-weighted
+    squared error among nmax / max and 8 trials around it, then up to 5
+    passes over the elements in order, each moving one level when that
+    raises sum(qw x l)^2 / sum(qw l^2). x, qw (nb, n), x >= 0 -> (scale,
+    L int32)."""
+    nb, n = x.shape
+    mx = x.max(axis=1)
+    dead = mx == 0
+    mx_safe = np.where(dead, f32(1.0), mx)
+
+    iscale = (f32(nmax) / mx_safe).astype(f32)
+    L0 = _nearest_int(iscale[:, None] * x)          # the first trial: no clip
+    diff = x - _safe_inv(iscale)[:, None] * L0.astype(f32)
+    best_mse = _seqsum(qw * diff * diff)
+    best_iscale = iscale
+    for step in range(-4, 5):
+        if step == 0:
+            continue
+        isc = ((f32(0.1) * f32(step) + f32(nmax)) / mx_safe).astype(f32)
+        l = np.minimum(nmax, _nearest_int(isc[:, None] * x)).astype(f32)
+        diff = x - _safe_inv(isc)[:, None] * l
+        mse = _seqsum(qw * diff * diff)
+        better = mse < best_mse
+        best_mse = np.where(better, mse, best_mse)
+        best_iscale = np.where(better, isc, best_iscale).astype(f32)
+
+    L = np.minimum(nmax, _nearest_int(best_iscale[:, None] * x)) \
+        .astype(np.int32)
+    lf = L.astype(f32)
+    sumlx = _seqsum(qw * x * lf)
+    suml2 = _seqsum(qw * lf * lf)
+
+    stopped = dead.copy()
+    for _ in range(5):
+        changed = np.zeros(nb, dtype=bool)
+        for i in range(n):
+            wi, xi, li = qw[:, i], x[:, i], L[:, i].astype(f32)
+            slx = sumlx - wi * xi * li
+            sl2 = suml2 - wi * li * li
+            cond = (slx > 0) & (sl2 > 0)
+            with np.errstate(divide="ignore", invalid="ignore"):
+                new_l = np.minimum(nmax, _nearest_int(
+                    np.where(cond, xi * sl2 / np.where(cond, slx, 1), li)))
+            nlf = new_l.astype(f32)
+            slx2 = slx + wi * xi * nlf
+            sl22 = sl2 + wi * nlf * nlf
+            apply = (~stopped) & cond & (new_l != L[:, i]) \
+                & (slx2 * slx2 * suml2 > sumlx * sumlx * sl22)
+            L[:, i] = np.where(apply, new_l, L[:, i])
+            sumlx = np.where(apply, slx2, sumlx)
+            suml2 = np.where(apply, sl22, suml2)
+            changed |= apply
+        stopped |= ~changed
+        if stopped.all():
+            break
+
+    with np.errstate(divide="ignore", invalid="ignore"):
+        scale = (sumlx / suml2).astype(f32)
+    scale = np.where(dead, f32(0.0), scale).astype(f32)
+    return scale, np.where(dead[:, None], 0, L)
 
 
 def _make_q3_quants(x, nmax: int):
@@ -723,13 +791,18 @@ def dequantize_q5_K(raw: np.ndarray) -> np.ndarray:
     return (dl * q5k_levels(b).astype(f32) - ml).reshape(-1)
 
 
-def quantize_q6_K(x: np.ndarray) -> np.ndarray:
+def quantize_q6_K(x: np.ndarray, qw: np.ndarray | None = None) -> np.ndarray:
     """Q6_K: 16 sub-blocks of 16 with an int8 scale each under an fp16
     super-scale d; 6-bit quants q + 32 split into low nibbles and high
-    2-bit pairs, w = d sc q."""
+    2-bit pairs, w = d sc q. qw (as many entries as x) makes the
+    sub-block search imatrix-weighted: quantize_row_q6_K_impl takes the
+    importance entries as the weights themselves (no sigma2 mixing)."""
     xb = _blocks_in(x, QK_K)
     nb = len(xb)
-    scales, L = _make_qx_quants(xb.reshape(nb * 16, 16), 32)
+    scales, L = _make_qx_quants(
+        xb.reshape(nb * 16, 16), 32,
+        None if qw is None else np.ascontiguousarray(qw, f32)
+        .reshape(nb * 16, 16))
     scales = scales.reshape(nb, 16)
     L = L.reshape(nb, QK_K)                           # in [0, 63]
 
@@ -854,13 +927,15 @@ def _best_index_iq4nl(x: np.ndarray) -> np.ndarray:
     return np.where(x >= vals[15], 15, idx).astype(np.uint8)
 
 
-def _iq4_block_scale(xb: np.ndarray, ntry: int = 7) -> np.ndarray:
+def _iq4_block_scale(xb: np.ndarray, ntry: int = 7,
+                     w: np.ndarray | None = None) -> np.ndarray:
     """The per-32 scale search of quantize_row_iq4_nl_impl over blocks xb
-    (nb, 32), weights x^2: the first guess -max / -127, then 2 ntry + 1
-    trial inverse scales, each kept when it raises sumqx^2 / sumq2. Dead
-    (all-zero) blocks get 0."""
+    (nb, 32), weights x^2 or w (nb, 32) where given (the imatrix path): the
+    first guess -max / -127, then 2 ntry + 1 trial inverse scales, each
+    kept when it raises sumqx^2 / sumq2. Dead (all-zero) blocks get 0."""
     vals = KVALUES_IQ4NL.astype(f32)
-    w = xb * xb
+    if w is None:
+        w = xb * xb
     mx = _signed_absmax(xb)
     dead = mx == 0
     mx_safe = np.where(dead, f32(1.0), mx)
@@ -883,13 +958,41 @@ def _iq4_block_scale(xb: np.ndarray, ntry: int = 7) -> np.ndarray:
     return np.where(dead, f32(0.0), d)
 
 
-def quantize_iq4_nl(x: np.ndarray) -> np.ndarray:
-    """One scale per 32 (the search above), then every element re-indexed
-    against the chosen f32 scale."""
+def quantize_iq4_nl(x: np.ndarray, ntry: int = 7,
+                    qw: np.ndarray | None = None) -> np.ndarray:
+    """ntry 7, the path model files are written by (quantize_iq4_nl): one
+    scale per 32 (the search above), then every element re-indexed against
+    the chosen f32 scale. ntry <= 0: quantize_row_iq4_nl_reference, the
+    first guess alone and no re-index; as in the C code an all-zero block
+    stores d = 0 and the previous block's indices (its stale scratch), the
+    first block zeros. qw (as many entries as x) weights the search by
+    qw sqrt(sigma2 + x^2), sigma2 = 2 mean(x^2) over the block (the
+    imatrix path of quantize_row_iq4_nl_impl)."""
     xb = _blocks_in(x, QK)
-    d = _iq4_block_scale(xb)
-    L = _best_index_iq4nl(_safe_inv(d)[:, None] * xb)
-    out = np.zeros(len(xb), dtype=BLOCK_DTYPES[GGMLType.IQ4_NL])
+    nb = len(xb)
+    w = None
+    if qw is not None:
+        qwb = np.ascontiguousarray(qw, f32).reshape(nb, QK)
+        sigma2 = (f32(2.0) / f32(QK) * _seqsum(xb * xb)).astype(f32)
+        w = (qwb * np.sqrt(sigma2[:, None] + xb * xb)).astype(f32)
+    if ntry > 0:
+        d = _iq4_block_scale(xb, ntry, w)
+        L = _best_index_iq4nl(_safe_inv(d)[:, None] * xb)
+    else:
+        vals = KVALUES_IQ4NL.astype(f32)
+        w = xb * xb if w is None else w
+        mx = _signed_absmax(xb)
+        dead = mx == 0
+        d0 = (np.where(dead, f32(1.0), mx) / vals[0]).astype(f32)
+        L = _best_index_iq4nl((f32(1.0) / d0).astype(f32)[:, None] * xb)
+        q = vals[L]
+        sumqx, sumq2 = _seqsum(w * q * xb), _seqsum(w * q * q)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            d = np.where(sumq2 > 0, sumqx / sumq2, f32(0.0)).astype(f32)
+        d = np.where(dead, f32(0.0), d)
+        for i in np.nonzero(dead)[0]:
+            L[i] = L[i - 1] if i > 0 else 0
+    out = np.zeros(nb, dtype=BLOCK_DTYPES[GGMLType.IQ4_NL])
     out["d"] = _fp16(d)
     out["qs"] = L[:, :QK // 2] | (L[:, QK // 2:] << 4)
     return out.view(np.uint8)
@@ -917,14 +1020,22 @@ def iq4xs_scales(b: np.ndarray) -> np.ndarray:
     return (lo6.astype(np.int32) | (hi6.astype(np.int32) << 4)) - 32
 
 
-def quantize_iq4_xs(x: np.ndarray) -> np.ndarray:
+def quantize_iq4_xs(x: np.ndarray, qw: np.ndarray | None = None) -> np.ndarray:
     """Per-32 scales by the IQ4_NL search, a super-block scale d = -max /
     32 over the 8 of them, 6-bit sub-scales nearest_int(s / d) in [-32,
     31], then every element re-indexed against d * l6 in f32 (the
-    reference uses the f32 d there, not its fp16 rounding)."""
+    reference uses the f32 d there, not its fp16 rounding). qw (as many
+    entries as x) weights the search by qw sqrt(sigma2 + x^2), sigma2 =
+    2 mean(x^2) over the 256-super-block (the imatrix path)."""
     xb = _blocks_in(x, QK_K)
     nb = len(xb)
-    scales = _iq4_block_scale(xb.reshape(nb * 8, 32)).reshape(nb, 8)
+    w = None
+    if qw is not None:
+        qwb = np.ascontiguousarray(qw, f32).reshape(nb, QK_K)
+        sigma2 = (f32(2.0) / f32(QK_K) * _seqsum(xb * xb)).astype(f32)
+        w = (qwb * np.sqrt(sigma2[:, None] + xb * xb)).astype(f32) \
+            .reshape(nb * 8, 32)
+    scales = _iq4_block_scale(xb.reshape(nb * 8, 32), w=w).reshape(nb, 8)
     max_scale = _signed_absmax(scales)
     d = (-max_scale / f32(32.0)).astype(f32)
     l6 = np.clip(_nearest_int(_safe_inv(d)[:, None] * scales), -32, 31)
@@ -961,9 +1072,9 @@ _DEQUANTIZERS[GGMLType.IQ4_XS] = dequantize_iq4_xs
 
 
 # ---------------------------------------------------------------------------
-# The codebook formats, decode only: IQ2_XXS, IQ2_XS, IQ2_S, IQ3_XXS, IQ3_S,
+# The codebook formats' decoders: IQ2_XXS, IQ2_XS, IQ2_S, IQ3_XXS, IQ3_S,
 # IQ1_S and IQ1_M (ggml-common.h's blocks; the reference's dequantize_row_*
-# loops). The grids are the formats' constant tables, shipped as
+# loops; their encoders are quant/iq_encode.py's, not codecs.quantize's). The grids are the formats' constant tables, shipped as
 # iq_grids.npz beside this module; the signs of IQ2_XXS, IQ2_XS and IQ3_XXS
 # come from ksigns_iq2xs (7 sign bits and an odd-parity bit).
 # ---------------------------------------------------------------------------
@@ -1182,7 +1293,8 @@ def random_blocks(t: GGMLType, n_blocks: int, rng: np.random.Generator,
     """n_blocks blocks of a decode-only codebook format t with uniform
     random bytes (every grid index, sign pattern and sub-scale is valid),
     their fp16 super-scale set to d: weights for runs and tests of these
-    formats, which have no encoder here. Flat uint8."""
+    formats without their grid-search encoders (quant.iq_encode). Flat
+    uint8."""
     raw = rng.integers(0, 256, n_blocks * FORMATS[t].type_size,
                        dtype=np.uint8)
     b = blocks_view(raw, t)
@@ -1205,11 +1317,57 @@ _DEQUANTIZERS.update({GGMLType.IQ2_XXS: dequantize_iq2_xxs,
                       GGMLType.IQ1_M: dequantize_iq1_m})
 
 
+# the block formats whose loops native/codecs.cpp holds (bit-exact copies
+# of the JAX package's, as its codecs.quantize and dequantize route them);
+# the numpy versions above stay in _QUANTIZERS and _DEQUANTIZERS as the
+# plain versions
+_NATIVE_QUANT = {GGMLType.Q4_0: "q4_0", GGMLType.Q4_1: "q4_1",
+                 GGMLType.Q5_0: "q5_0", GGMLType.Q5_1: "q5_1",
+                 GGMLType.Q8_0: "q8_0", GGMLType.Q8_1: "q8_1",
+                 GGMLType.Q2_K: "q2_K", GGMLType.Q3_K: "q3_K",
+                 GGMLType.Q4_K: "q4_K", GGMLType.Q5_K: "q5_K",
+                 GGMLType.Q6_K: "q6_K", GGMLType.Q8_K: "q8_K"}
+_NATIVE_DEQUANT = dict(_NATIVE_QUANT)
+
+
+def _native_quantize(x: np.ndarray, t: GGMLType) -> np.ndarray:
+    """codecs.cpp's <t>_quantize over x's blocks (built at first use; a
+    failed build raises)."""
+    from ..native import lib
+    info = FORMATS[t]
+    xc = np.ascontiguousarray(x, dtype=f32)
+    if xc.size % info.block_size:
+        raise ValueError(f"{x.shape} is not a whole number of "
+                         f"{info.block_size}-blocks")
+    nb = xc.size // info.block_size
+    out = np.empty(nb * info.type_size, np.uint8)
+    getattr(lib(), f"{_NATIVE_QUANT[t]}_quantize")(xc.ctypes.data,
+                                                  out.ctypes.data, nb)
+    return out
+
+
+def _native_dequantize(raw: np.ndarray, t: GGMLType) -> np.ndarray:
+    """codecs.cpp's <t>_dequantize over raw's blocks -> flat f32."""
+    from ..native import lib
+    info = FORMATS[t]
+    rc = np.ascontiguousarray(raw).view(np.uint8).reshape(-1)
+    if rc.size % info.type_size:
+        raise ValueError(f"{rc.size} bytes are not a whole number of "
+                         f"{t.name} blocks")
+    nb = rc.size // info.type_size
+    out = np.empty(nb * info.block_size, f32)
+    getattr(lib(), f"{_NATIVE_DEQUANT[t]}_dequantize")(rc.ctypes.data,
+                                                      out.ctypes.data, nb)
+    return out
+
+
 def quantize(x: np.ndarray, t: GGMLType) -> np.ndarray:
     """Float array (rows along the last axis, a whole number of blocks) ->
     flat uint8 buffer of encoded blocks: F32, F16, BF16 (round to nearest
-    even) and every format of _QUANTIZERS; the decode-only codebook
-    formats raise NotImplementedError."""
+    even), the block formats of _NATIVE_QUANT through native/codecs.cpp,
+    IQ4_NL and IQ4_XS through their numpy versions; the codebook formats
+    raise NotImplementedError (their encoders are quant.iq_encode, reached
+    through quant.imatrix.quantize_rows)."""
     if t == GGMLType.F32:
         return np.ascontiguousarray(x, dtype=f32).view(np.uint8).reshape(-1)
     if t == GGMLType.F16:
@@ -1221,8 +1379,11 @@ def quantize(x: np.ndarray, t: GGMLType) -> np.ndarray:
         return rounded.view(np.uint8).reshape(-1)
     if t in DECODE_ONLY:
         raise NotImplementedError(
-            f"quantize to {t.name}: the codebook formats are decode-only here "
-            "(their grid-search encoders are ROADMAP Queue 1 item 9)")
+            f"quantize to {t.name}: codecs.quantize has no codebook encoder; "
+            "use quant.imatrix.quantize_rows, which takes the grid-search "
+            "encoders of quant.iq_encode (native/iq_encoders.cpp)")
+    if t in _NATIVE_QUANT:
+        return _native_quantize(x, t)
     if t not in _QUANTIZERS:
         raise NotImplementedError(f"quantize to {t.name}")
     return _QUANTIZERS[t](x).reshape(-1)
@@ -1239,6 +1400,8 @@ def dequantize(raw: np.ndarray, t: GGMLType,
     elif t == GGMLType.BF16:
         u16 = np.ascontiguousarray(raw).view(np.uint8).view(np.uint16)
         out = (u16.astype(np.uint32) << 16).view(f32).copy()
+    elif t in _NATIVE_DEQUANT:
+        out = _native_dequantize(raw, t)
     elif t in _DEQUANTIZERS:
         out = _DEQUANTIZERS[t](raw)
     else:

@@ -231,6 +231,10 @@ LAID_OUT = (GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1,
              GGMLType.IQ4_XS)
 
 
+_FLOAT_TYPES = {GGMLType.F32: torch.float32, GGMLType.F16: torch.float16,
+                GGMLType.BF16: torch.bfloat16}
+
+
 def _raw_blocks(raw: np.ndarray, t: GGMLType, n: int, k: int,
                 dev: torch.device) -> torch.Tensor:
     """The encoded blocks of an (N rows of K) weight on dev as an (N,
@@ -334,8 +338,14 @@ def to_device_format(raw: np.ndarray, t: GGMLType, shape_ne: tuple[int, ...],
     dev = resolve_device(device)
     k, n = shape_ne[0], int(np.prod(shape_ne[1:]))
     put = lambda a: torch.from_numpy(a).to(dev)
-    if t in (GGMLType.F32, GGMLType.F16, GGMLType.BF16, GGMLType.IQ1_S,
-             GGMLType.IQ1_M):
+    if t in _FLOAT_TYPES:
+        # the file's bytes uploaded once, widened to f32 (exact) and
+        # transposed on dev: the same bits as the codec's dequantize
+        host = np.array(np.asarray(raw).view(np.uint8).reshape(-1))
+        w = torch.from_numpy(host).to(dev).view(_FLOAT_TYPES[t])
+        return QTensor("dense", w.reshape(n, k).float().T.contiguous(), None,
+                       None, k, n, t)
+    if t in (GGMLType.IQ1_S, GGMLType.IQ1_M):
         # IQ1's per-8 deltas have no exact factored layout within twice
         # the packed bytes: dense at load, as in the JAX package
         w = codecs.dequantize(raw, t, shape=(n, k)).T

@@ -23,6 +23,7 @@ import torch
 
 from .. import _build
 from .._device import resolve_device
+from ..ops import qmatmul as _qmatmul
 from ..ops.qmm import params_repack
 from ..ops.sampling import gumbel, sample_gumbel, sample_greedy, sample_host
 from ..quant.device import QTensor, params_to_dense_bf16
@@ -67,7 +68,9 @@ class CapturedStep:
     results stand (it also loads the kernel library and runs each C entry's
     one-time host work), then captures fn into a graph in `pool`; every
     later run replays the graph and adds its launches to `_build.LAUNCHES`
-    (`_build.CapturedLaunches`). A failed capture raises. Whatever a
+    (`_build.CapturedLaunches`). A failed capture raises, and so does any
+    run on the card while an activation observer or sim is set (a replay
+    would run none of their Python: ops.qmatmul.refuse_capture). Whatever a
     captured fn reads on the card must stay where it is: the owner
     allocates its inputs, outputs and KV arena once. fn holds its owner by
     a weak reference and is held by no tensor it reads, so dropping the
@@ -85,7 +88,9 @@ class CapturedStep:
     def __call__(self):
         if self.device.type != "cuda":
             self.fn()
-        elif self.graph is not None:
+            return
+        _qmatmul.refuse_capture("a captured step")
+        if self.graph is not None:
             self.graph.replay()
             self.launches.replayed()
         else:

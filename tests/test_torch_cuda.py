@@ -2647,3 +2647,89 @@ def test_loaded_engine_greedy_on_card_matches_cpu(gen, tmp_path, model):
         if float(top2[0] - top2[1]) > 2 * limit:
             assert int(h.argmax()) == t
     _build.reset_launches()
+
+
+# ---- the qmatmul activation hooks: the imatrix observer and the W4A8 sim
+
+def _hooked_weight(route, gen):
+    return natpair(768, 3072, gen, bias=True) if route == "natpair" \
+        else nat8(768, 3072, gen, bias=True)
+
+
+@pytest.mark.parametrize("m", [1, 7, 64])
+@pytest.mark.parametrize("route", ["natpair", "nat8"])
+def test_observer_sees_kernel_routes_as_the_plain_route(gen, route, m):
+    """The collector's rows and counts after products on the card (W4A8 /
+    W8A8 at m 1, W4A16 / W8A16 above: one launch each) equal the same
+    products' on the CPU (the plain route), within f32 rounding of the
+    sums (rtol 1e-6)."""
+    from ggml_imax_tpu_torch.ops.qmatmul import qmatmul
+    from ggml_imax_tpu_torch.quant.imatrix import ImatrixCollector
+    qt = replace(_hooked_weight(route, gen), name="w")
+    x = torch.randn(3, m, qt.k, generator=gen, device="cuda")
+    rows = {}
+    for dev, w in (("cuda", qt), ("cpu", moved(qt, "cpu"))):
+        _build.reset_launches()
+        with ImatrixCollector() as col:
+            qmatmul(x.to(dev), w, out_dtype=torch.float32)
+            qmatmul(x[:1].to(dev), w, out_dtype=torch.float32)
+        rows[dev] = (col.matrix(w), col.count(w))
+        if dev == "cuda":
+            assert sum(_build.LAUNCHES.values()) == 2
+    assert rows["cuda"][1] == rows["cpu"][1] == 4 * m
+    np.testing.assert_allclose(rows["cuda"][0], rows["cpu"][0], rtol=1e-6)
+
+
+@pytest.mark.parametrize("m", [1, 7])
+@pytest.mark.parametrize("route", ["natpair", "nat8"])
+def test_w4a8_sim_on_card_equals_the_cpu(gen, route, m):
+    """_q8_0_sim bit for bit on the card and the CPU; the simulated
+    product on the card (through the kernels) against the CPU's (plain),
+    rel 1e-2 as the kernels' other card-vs-CPU checks."""
+    from ggml_imax_tpu_torch.ops import qmatmul as qmm_mod
+    qt = _hooked_weight(route, gen)
+    x = torch.randn(m, qt.k, generator=gen, device="cuda") * 3
+    assert torch.equal(qmm_mod._q8_0_sim(x).cpu(), qmm_mod._q8_0_sim(x.cpu()))
+    qmm_mod.set_activation_sim("w4a8")
+    try:
+        got = qmm_mod.qmatmul(x, qt, out_dtype=torch.float32)
+        ref = qmm_mod.qmatmul(x.cpu(), moved(qt, "cpu"),
+                              out_dtype=torch.float32)
+    finally:
+        qmm_mod.set_activation_sim(None)
+    assert rel(got.cpu(), ref) < 1e-2
+
+
+def test_capture_guard_raises_on_card(gen):
+    """An observer or a sim set during a CUDA graph capture: qmatmul raises
+    inside the capture, and a captured step (runtime/engine.CapturedStep)
+    refuses to run, warm-up or replay."""
+    from ggml_imax_tpu_torch.ops import qmatmul as qmm_mod
+    from ggml_imax_tpu_torch.quant.imatrix import ImatrixCollector
+    from ggml_imax_tpu_torch.runtime.engine import CapturedStep
+    qt = natpair(768, 3072, gen)
+    x = torch.randn(1, qt.k, generator=gen, device="cuda")
+    out = torch.empty(1, qt.n, device="cuda")
+    qmm_mod.qmatmul(x, qt)                         # load the kernels first
+    step = CapturedStep(lambda: out.copy_(qmm_mod.qmatmul(x, qt)),
+                        torch.device("cuda"))
+    with ImatrixCollector():
+        with pytest.raises(RuntimeError, match="captured step"):
+            step()
+        graph = torch.cuda.CUDAGraph()
+        s = torch.cuda.Stream()
+        with torch.cuda.stream(s):
+            with pytest.raises(RuntimeError, match="CUDA graph capture"):
+                with torch.cuda.graph(graph):
+                    qmm_mod.qmatmul(x, qt)
+    torch.cuda.synchronize()
+    step()                                          # warm-up and capture
+    step()                                          # a replay
+    qmm_mod.set_activation_sim("w4a8")
+    try:
+        with pytest.raises(RuntimeError, match="captured step"):
+            step()
+    finally:
+        qmm_mod.set_activation_sim(None)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, qmm_mod.qmatmul(x, qt))

@@ -197,7 +197,10 @@ def test_quantize_for_device_and_pads(fmt):
     k, n = 11008, 8
     w = _weight(k, n, 1)
     got = tdev.quantize_for_device(w, GGMLType[fmt], device="cpu")
-    ref = jdev.to_device_format(_raw(fmt, w), JType[fmt], (k, n))
+    # both through their package's public codec (the native loops)
+    ref = jdev.to_device_format(
+        np.asarray(jcodecs.quantize(np.ascontiguousarray(w.T), JType[fmt])),
+        JType[fmt], (k, n))
     assert_same_qtensor(got, ref)
     if got.kind == "dense":
         return
@@ -274,10 +277,10 @@ def test_get_rows_and_dequantize_bit_exact(fmt, repacked):
 # ---- small models
 
 @pytest.mark.parametrize("fmt", LAID)
-def test_synthetic_params_bit_exact(fmt, monkeypatch):
+def test_synthetic_params_bit_exact(fmt):
     """The host draw through the port's codecs equals the reference's
-    through its numpy twins (its native path switched off)."""
-    monkeypatch.setattr(jcodecs, "_native_quantize", lambda x, t: None)
+    through its own (both packages' public codecs run their native
+    loops)."""
     cfg = dict(CFG, n_layer=1)
     ref = jgpt2.synthetic_params(jgpt2.GPT2Config(**cfg), JType[fmt], seed=3)
     got = tgpt2.synthetic_params(tgpt2.GPT2Config(**cfg), GGMLType[fmt],

@@ -95,9 +95,10 @@ def test_codecs_bit_exact(fmt):
 
 
 def test_codecs_reject_other_types():
-    # the grid-search codebook kinds have no encoder in the port yet, and
+    # codecs.quantize has no codebook encoder (quant.iq_encode has), and
     # Q8_K no device layout (as in the JAX package)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(NotImplementedError,
+                       match="quant.imatrix.quantize_rows"):
         tcodecs.quantize(np.zeros(256, np.float32), GGMLType.IQ2_XXS)
     with pytest.raises(NotImplementedError):
         tdev.quantize_for_device(np.zeros((256, 8), np.float32),

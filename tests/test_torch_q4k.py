@@ -31,10 +31,12 @@ Q4K, JQ4K = GGMLType.Q4_K, JType.Q4_K
 
 
 def _numpy_twin_device(w):
-    """The JAX package's device layout of w (K, N) through its numpy
-    quantizer."""
+    """The JAX package's device layout of w (K, N) through its public codec
+    (native codecs.cpp, as the port's quantize_for_device takes its own
+    copy; the numpy twins are held to each other in test_codec_bit_exact
+    and tests/test_torch_native.py)."""
     k, n = w.shape
-    raw = np.asarray(jcodecs._QUANTIZERS[JQ4K](np.ascontiguousarray(w.T)))
+    raw = np.asarray(jcodecs.quantize(np.ascontiguousarray(w.T), JQ4K))
     return raw.reshape(-1), jdev.to_device_format(raw.reshape(-1), JQ4K,
                                                   (k, n))
 
