@@ -10,7 +10,8 @@ through the transcription pipeline, eager and as CUDA-graph replay, with
 DTW token timestamps); then GPT-J-6B, LLaMA-2 7B Q4_K_M, Whisper small and
 GPT-2 117M from model files through the port's loaders and tokenizers; then
 the quantization tools: LLaMA-2 7B F16 -> Q4_0 and its perplexity, GPT-2
-117M's imatrix, IQ encoders and W4A8 quality rows.
+117M's imatrix, IQ encoders and W4A8 quality rows; then Magika,
+YOLOv3-tiny and SAM ViT-B from model files.
 
     python3 chip_smoke.py
 
@@ -87,12 +88,13 @@ Phases (any failure exits nonzero and prints no result line):
    and on the CPU, and the small GPT-J BatchedEngine's run_pipelined(4)
    against its step() loop on the card (equal tokens, every cell freed);
 4. GPT-J engine: synthetic GPT-J-6B Q4_0 drawn on the card, prepare_fused +
-   natpair repack, Engine(n_ctx=512) serving 3 requests of a 448-token
-   prompt + 64 greedy tokens, with the launch counts of that run; then the
+   natpair repack, Engine(n_ctx=512) serving N_REQUESTS requests of a
+   448-token prompt + N_PREDICT greedy tokens, with the launch counts of
+   that run; then the
    device busy share of a prefill and of decode steps (torch.profiler
    kernel time against the unprofiled TTFT and step time), and W4A16's
    and the flash forward's (with its tile map) share of the device time;
-   then the same 3 requests through generate(chunk=8) (decode spans
+   then the same requests through generate(chunk=8) (decode spans
    captured as CUDA graphs in a warm-up request, then replayed): tokens
    equal to the chunk-1 run's request by request, the same exact launch
    counts, TTFT, tok/s, ms a token, the capture seconds, the graph pool's
@@ -106,7 +108,7 @@ Phases (any failure exits nonzero and prints no result line):
    q4-stacked's equal an Engine(fused_kv_update=True) on the prepared
    weights;
 5. GPT-2 XL engine: synthetic GPT-2 1558M Q8_0 drawn on the card,
-   prepare_fused + nat8 repack, Engine(n_ctx=1024), the same 3 requests,
+   prepare_fused + nat8 repack, Engine(n_ctx=1024), the same requests,
    launch counts and profile (with nat8 W8A16's and the flash forward's
    share of the prefill's device time, nat8 W8A8's time a launch in a
    decode step), and the device time of the
@@ -151,13 +153,13 @@ Phases (any failure exits nonzero and prints no result line):
    then one step's loss and gradients with the kernels held to the same
    step with every plain version on the card (TRAIN_TOL), and a planted
    fault (dK without its scale) that must fail that check;
-8. GPT-2 117M K-quants at half depth (GPT2_117M_HOST: 6 layers of 768,
-   the script's time limit): synthetic weights drawn on the host
+8. GPT-2 117M K-quants at a quarter depth (GPT2_117M_HOST: 3 layers of
+   768, the script's time limit): synthetic weights drawn on the host
    in Q3_K (the reference's numpy stream and codecs, the quantization
    spread over HOST_WORKERS processes, bit-identical to
    gpt2.synthetic_params; 8b too), params_repack (every
    layer weight to the plane-split layout), Engine(n_ctx=1024) serving the
-   3 requests of phases 4-5 with exact launch counts, the device busy
+   requests of phases 4-5 with exact launch counts, the device busy
    share of a prefill and of a decode step and the device time of the
    gated LM head (dequantize + matmul, N 50257); Q2_K, and the legacy
    layouts (Q4_0 through repack_rowpair, Q8_0 through repack_int8_rows),
@@ -165,7 +167,7 @@ Phases (any failure exits nonzero and prints no result line):
    held to the same with every plain version on the card (KQ_ROUTE_TOL),
    and a planted fault (the plane-split kernel with its low and high
    scale rows swapped) that must fail that check;
-8b. GPT-2 117M formats at half depth: synthetic weights drawn on the host
+8b. GPT-2 117M formats at a quarter depth: synthetic weights drawn on the host
    and quantized by the port's codecs in Q4_0 (the default natpair route),
    Q4_1 (natpair with a bias), Q5_0, Q5_1, Q5_K and Q6_K (nat8), each
    params_repack-ed and served by Engine(n_ctx=1024), one request each
@@ -173,7 +175,7 @@ Phases (any failure exits nonzero and prints no result line):
    a short greedy pass of each with the kernels held to every plain
    version on the card (KQ_ROUTE_TOL), and a planted fault (the nat8 W8A8
    GEMV without its bias term, on Q5_K) that must fail that check;
-8c. GPT-2 117M IQ formats at half depth: IQ4_NL and IQ4_XS quantized on
+8c. GPT-2 117M IQ formats at a quarter depth: IQ4_NL and IQ4_XS quantized on
    the host by the
    port's codecs (HOST_WORKERS processes), params_repack (nat8 g 32, f32
    scales, no bias), one request each with exact launch counts, a short
@@ -191,7 +193,7 @@ Phases (any failure exits nonzero and prints no result line):
    benchmark's llama2-7b-q4_k: uniform nibbles, per-32 scales and mins),
    prepare_fused (q/k/v fused, gate/up fused with n_ff 11008 padded to
    11264) + natpair repack with bf16 scales and bias, Engine(n_ctx=512)
-   serving the 3 requests of phase 4 with exact launch counts (per decode
+   serving the requests of phase 4 with exact launch counts (per decode
    step 129 W4A8 and 32 decode attention, per prefill 129 W4A16 and 32
    flash with their maps), profiled as phase 4; the same requests through
    generate(chunk=8), tokens and KV arena bit-equal to chunk 1's; then a
@@ -224,7 +226,7 @@ Phases (any failure exits nonzero and prints no result line):
    (`output` Q6_K, every other 2-D weight IQ4_XS: int8 table values,
    per-32 f32 scales), prepare_fused (q/k/v fused, gate/up with n_ff
    padded to 11264), params_repack (nat8 g 32 f32, the head nat8 g 16),
-   Engine(n_ctx=512) serving phase 9's 3 requests with exact launch counts
+   Engine(n_ctx=512) serving phase 9's requests with exact launch counts
    (a decode step 129 nat8 W8A8 and 32 decode attention, a prefill 129
    nat8 W8A16 and 32 flash with their maps, no W4A8 / W4A16), profiled;
    then through generate(chunk=8), tokens and KV arena bit-equal; a
@@ -239,23 +241,24 @@ Phases (any failure exits nonzero and prints no result line):
    layers of 768) drawn on the card (synthetic_params_device), the head
    padded 51865 -> 51968, prepare_fused + params_repack: the encoder and
    the cross K/V of one 30 s mel (ms a chunk, 96 nat8 W8A16 and 12 flash an
-   encode), 3 x 64 greedy tokens from sot at one row, eager (ms a token,
-   tok/s, 73 W8A8 a step), each with its device busy share; the route
+   encode), 3 x WHISPER_TOKENS greedy tokens from sot at one row, eager
+   (ms a token, tok/s, 73 W8A8 a step), each with its device busy share; the route
    check: the same pass (encode, prompt, 8 steps) with every plain version
    on the card, its logits within ROUTE_TOL and, forced op by op on the
    kernels' pass, every op within WHISPER_ROUTE_TOL, and a planted fault
    (the encoder's 36 padded keys counted as visible) that must fail it;
    10b WhisperPipeline on the same weights with the head unpadded
-   (dequantize + matmul), beam 5, one temperature, 64 tokens a window: a
-   30 s warm-up, then 60 s of default_rng(3) noise x 0.1 through the
-   eager route and through the captured steps (CUDA-graph replay): RTF,
+   (dequantize + matmul), beam 5, one temperature, WHISPER_TOKENS a
+   window: a 30 s warm-up, then WHISPER_AUDIO_S of default_rng(3) noise x
+   0.1 through the eager route and through the captured steps (CUDA-graph
+   replay): RTF,
    segments, tokens, exact launch counts (per window an encode, the prompt
    of 5 rows x 4 tokens and 72 W8A16 a beam step; the captured route's
    equal to the eager one's), the captured route's tokens, avg_logprob and
    KV cache after every window equal to the eager route's bit for bit, and
    a control (the captured steps with n_past frozen) that must fail that
    check; a beam step eager and captured, wall against device busy, and
-   the gated head's device time; then the 60 s with token_timestamps:
+   the gated head's device time; then the same audio with token_timestamps:
    the timestamp pass's device and host (median filter, DTW) seconds, its
    launches, token_times monotone; 10c Whisper medium (24 + 24 layers of
    1024) as 10a without the route check, and 10d its pipeline as 10b.
@@ -275,7 +278,7 @@ Phases (any failure exits nonzero and prints no result line):
    build of the bytes written, dequantize_qtensor of the first and last
    layer's largest weight bit-equal to codecs.dequantize of its bytes, the
    tokenizer's round trip on LOADER_TEXT, one request of its first 448 ids
-   + 64 greedy tokens (the transcript for Whisper) with exact launch
+   + N_PREDICT greedy tokens (the transcript for Whisper) with exact launch
    counts; the file's bytes and write seconds, the load seconds
    (eng.perf.load_us, eng.perf.report()), the prepare seconds, TTFT and
    tok/s or RTF, peak memory. Phase 3 adds a small GPT-J .bin and LLaMA
@@ -285,15 +288,15 @@ Phases (any failure exits nonzero and prints no result line):
    examples/perplexity.py), files under build/quant_tools (the free space
    checked first), each deleted once its step is done; the host C++
    libraries (native/codecs.cpp, native/iq_encoders.cpp) are built by g++
-   in phase 1. 12a LLaMA-2 7B: F16 weights drawn on the card from a
-   torch.Generator, a GGUF written by GGUFWriter (phase 11b's keys and
-   tokenizer), requantize_gguf to Q4_0 on the C++ codecs (file type and
+   in phase 1. 12a LLaMA-2 7B (16 of its 32 layers): F16 weights drawn on
+   the card from a torch.Generator, a GGUF written by GGUFWriter (phase
+   11b's keys and tokenizer), requantize_gguf to Q4_0 on the C++ codecs (file type and
    every other key's wire type kept, 1-D tensors byte for byte, the first
    and last layers' seven weights, token_embd and output equal to the
    numpy quantize_q4_0 of the dequantized source); tools.perplexity over
    4 windows of 512 tokens of LOADER_TEXT (the loaded tokenizer's ids) on
    the F16 model (dense on the card) and on the Q4_0 model (fuse_gate_up +
-   params_repack: 193 natpair W4A16, 32 flash and 32 tile maps a window),
+   params_repack: 97 natpair W4A16, 16 flash and 16 tile maps a window),
    its mean NLL within PPL_ROUTE_TOL of the same windows on every plain
    version, two planted W4A16 faults past it. 12b GPT-2 117M: an F16
    legacy .bin (wte at WTE_SCALE: peaked logits), the imatrix
@@ -304,9 +307,25 @@ Phases (any failure exits nonzero and prints no result line):
    importance-weighted error than plain Q4_0); the IQ encoders on the
    golden fixture and layer 0's fc_w in IQ2_XS through qmatmul; the W4A8
    quality rows (tools/quality_tpu_row.py's method): Q4_0, Q4_K and Q5_0,
-   a teacher-forced T=1 window of 256 through the W4A8 / W8A8 kernels
-   (48 launches a step) against the plain route with the "w4a8" sim, mean
+   a teacher-forced T=1 window of QUALITY_CTX through the W4A8 / W8A8
+   kernels (48 launches a step) against the plain route with the "w4a8" sim, mean
    KL under KL_GATE, the Q4_K row with the W4A8 bias dropped over it.
+13. Magika, YOLOv3-tiny and SAM ViT-B at their published widths, from
+   model files the phase writes under build/vision and deletes once
+   loaded (no TPU kernel lies on this path: the launch counts stay 0).
+   13a Magika: a GGUF of the seeded weights, identify on five of the
+   repo's own files, the card's probabilities within MAGIKA_PROB_TOL of
+   the CPU pass's, the labels equal. 13b YOLOv3-tiny (16..1024, 80
+   classes, 416 x 416): a GGUF with batch-norm tensors folded at load,
+   detect on a seeded 3 x 480 x 640 image (detections, wall ms), both
+   head maps against the CPU pass at VISION_CONV_NMSE; a planted fault
+   (upscale by tiling) must fail that check. 13c SAM ViT-B (1024 x 1024):
+   a legacy .bin loaded by load_legacy, predict on a seeded 720 x 1280
+   image with one point (encode and decode ms by CUDA events, the three
+   IoUs), the embedding and the mask logits at full width and
+   SAM_CPU_LAYERS encoder layers against the CPU pass at
+   VISION_BLOCK_NMSE; a planted fault (rel_h and rel_w swapped in
+   add_rel_pos) must fail it.
 
     python3 chip_smoke.py --serving-kernels [ROOT]
     python3 chip_smoke.py --gpt2-kernels [ROOT]
@@ -317,7 +336,7 @@ unled, with its time at each K split the plan may take), on the port of
 the checkout at ROOT (default: this one): the same script times another
 commit's kernels.
 
-Each engine phase (5b, 8b, 8c, 9b, 9c, 10 and 12 too), and the timed
+Each engine phase (5b, 8b, 8c, 9b, 9c, 10, 12 and 13 too), and the timed
 training steps, sets the launch counters to 0 just before its run and
 reads them just after; a replayed graph adds the launches its capture recorded
 (_build.CapturedLaunches). Each phase prints its seconds. Every flash forward
@@ -347,7 +366,12 @@ PEAK_INT8 = 1979e12
 GPTJ_6B = dict(n_vocab=50400, n_ctx=512, n_embd=4096, n_head=16, n_layer=28,
                n_rot=64)
 GPT2_XL = dict(n_vocab=50257, n_ctx=1024, n_embd=1600, n_head=25, n_layer=48)
-PROMPT, N_PREDICT, N_REQUESTS = 448, 64, 3
+# a request: a PROMPT-token prompt + N_PREDICT greedy tokens (64 before PR
+# 26; 32 and N_REQUESTS 2, not 3, so the whole script stays inside its time
+# limit on a slower host: the eager chunk-1 steps are host-bound); phase 2
+# times its attention kernels at the Engine's n_ctx, ENGINE_CTX
+PROMPT, N_PREDICT, N_REQUESTS = 448, 32, 2
+ENGINE_CTX = 512
 # decode steps in a span of Engine.generate(chunk) (a captured CUDA graph)
 CHUNK = 8
 # examples/serve.py --bench: n_ctx, requests, arrival every k engine steps,
@@ -369,9 +393,9 @@ ROUTE_TOL = 3.5e-2
 GPT2_117M = dict(n_vocab=50257, n_ctx=1024, n_embd=768, n_head=12, n_layer=12)
 # Phases 8, 8b and 8c quantize their weights on the host (8 and 8b through
 # the C++ codecs since they landed, 8c's IQ4 kinds in numpy): they run
-# GPT-2 117M's widths at half its depth, so the whole script stays inside
-# its time limit
-GPT2_117M_HOST = dict(GPT2_117M, n_layer=6)
+# GPT-2 117M's widths at a quarter of its depth (half in PR 24, a quarter
+# since PR 26), so the whole script stays inside its time limit
+GPT2_117M_HOST = dict(GPT2_117M, n_layer=3)
 TRAIN = dict(batch=8, seq=512, warmup=2, steps=10, alpha=1e-4)
 # A training step's loss and gradients with the kernels against the same
 # step with every plain version on the card (phase 7): max |dg| per leaf
@@ -938,7 +962,7 @@ def check_serving_kernels(ck, timer, gen, llama=False):
             fused_case(kv, NB, T, rows, mask, visible, "cells")
         return
     # flat mode at the Engine's shape: B 1, T 512, n_past 499 (as check C)
-    Tf = PROMPT + N_PREDICT
+    Tf = ENGINE_CTX
     n_past = Tf - 13
     vis_f = torch.arange(Tf, device="cuda")[None] <= n_past
     fused_case(torch.bfloat16, 1, Tf, torch.tensor([n_past], device="cuda"),
@@ -1397,7 +1421,7 @@ def check_llama_kernels(ck, timer, gen):
         del qt, wd
 
     H, D = LLAMA2_7B["n_head"], E // LLAMA2_7B["n_head"]
-    T, n_past = PROMPT + N_PREDICT, PROMPT + N_PREDICT - 13
+    T, n_past = ENGINE_CTX, ENGINE_CTX - 13
     scale = 1.0 / math.sqrt(D)
     visible = torch.arange(T, device="cuda")[None] <= n_past
     mask = torch.where(visible, 0.0, da.NEG)
@@ -3019,7 +3043,8 @@ def swapped_planes():
 
 
 def kquant_gpt2(failures, pool):
-    """Phase 8. GPT-2 117M at full width and half depth (GPT2_117M_HOST) in
+    """Phase 8. GPT-2 117M at full width and a quarter depth
+    (GPT2_117M_HOST) in
     Q3_K (N_REQUESTS requests), Q2_K,
     row-pair Q4_0 and u-order Q8_0 (one request each): weights drawn on the
     host (the reference's numpy stream and codecs, quantized in `pool`'s
@@ -3107,7 +3132,7 @@ def dropped_bias():
 def llama_7b(failures):
     """Phase 9. LLaMA-2 7B Q4_K at full width and depth: weights drawn on
     the card, prepare_fused (F 11008 -> 11264), params_repack with bf16
-    scales and bias, Engine(n_ctx=512) serving the 3 requests of phase 4
+    scales and bias, Engine(n_ctx=512) serving the requests of phase 4
     with exact launch counts, profiled; the same requests through
     generate(chunk=8), tokens and KV arena bit-equal request by request;
     then a teacher-forced pass with the kernels held to the same pass with
@@ -3308,7 +3333,8 @@ def host_params(cfg, wtype, pool, seed=0, scale=0.02, piece=1 << 20):
 
 
 def formats_gpt2(failures, pool):
-    """Phase 8b. GPT-2 117M at full width and half depth in Q4_0 (the default
+    """Phase 8b. GPT-2 117M at full width and a quarter depth in Q4_0 (the
+    default
     natpair
     route), Q4_1, Q5_0, Q5_1, Q5_K and Q6_K: weights drawn on the host (the
     reference's numpy stream) and quantized by the port's codecs in
@@ -3706,7 +3732,8 @@ def qt_bytes(params):
 
 
 def codebooks_gpt2(failures, pool):
-    """Phase 8c. GPT-2 117M at full width and half depth in the nine IQ kinds.
+    """Phase 8c. GPT-2 117M at full width and a quarter depth in the nine IQ
+    kinds.
     IQ4_NL and IQ4_XS: weights drawn on the host and quantized by the
     port's codecs in HOST_WORKERS processes (host_params), params_repack
     (nat8 g 32, f32 scales, no bias), Engine(n_ctx=1024) serving one
@@ -3826,7 +3853,7 @@ def llama_iq4xs(failures):
     depth: the structural draw on the card (iq4_xs_mix), prepare_fused
     (q/k/v of one type fuse; gate/up fused with F 11008 -> 11264),
     params_repack (IQ4_XS nat8 g 32, f32 scales, no bias; the Q6_K head
-    nat8 g 16), Engine(n_ctx=512) serving the 3 requests of phase 4 with
+    nat8 g 16), Engine(n_ctx=512) serving the requests of phase 4 with
     exact launch counts (a decode step 129 nat8 W8A8 and 32 decode
     attention; a prefill 129 nat8 W8A16 and 32 flash with their maps; no
     W4A8 or W4A16), profiled; the same requests through generate(chunk=8),
@@ -3951,9 +3978,10 @@ WHISPER_MEDIUM = dict(WHISPER_SMALL, n_audio_state=1024, n_audio_head=16,
                       n_text_layer=24)
 # measure_whisper: 64 greedy tokens from sot a rep; measure_whisper_rtf: a
 # 30 s warm-up, then default_rng(3) noise x 0.1, beam 5, one temperature,
-# 64 tokens a window: 60 s of it here (the reference's 120 s halved so the
-# whole script stays inside its time limit)
-WHISPER_TOKENS, WHISPER_AUDIO_S = 64, 60
+# 64 tokens a window. Here WHISPER_TOKENS (32 since PR 26) and 30 s of it
+# (the reference's 120 s, halved in PR 24 and again in PR 26), so the whole
+# script stays inside its time limit
+WHISPER_TOKENS, WHISPER_AUDIO_S = 32, 30
 # The small Whisper of phase 3 (the CPU tests' shape, 150 audio positions):
 # its card and CPU runs agree to this share of the largest |logit|, and the
 # encoder states to this share of their largest |value|. Readings of this
@@ -4169,8 +4197,8 @@ def padded_keys_visible():
 def whisper_encode_greedy(label, cfg, params, failures, busy_label=None):
     """tools/bench_models.py measure_whisper on the port: the encoder + the
     cross K/V of one 30 s mel (N(0, 0.5)), ms a chunk (best of 3 x 4
-    chained, host clock to a synchronize), then 64 greedy tokens from sot
-    at one row, eager, the argmax on the card (best of 3 reps, each at the
+    chained, host clock to a synchronize), then WHISPER_TOKENS greedy
+    tokens from sot at one row, eager, the argmax on the card (best of 3 reps, each at the
     positions after the last), ms a token and tok/s; exact launch counts of
     an encode and of the 3 reps; the device busy share of an encode and of
     a greedy step (torch.profiler kernel time against the host-clock
@@ -5478,6 +5506,10 @@ def check_small_loaders(failures):
 # quant.imatrix, quant.iq_encode, tools.perplexity), as a user of the
 # reference runs examples/quantize.py and then examples/perplexity.py
 PPL_CTX, PPL_WINDOWS = 512, 4
+# 12a runs LLaMA-2 7B's widths at half its depth (16 of 32 layers) since PR
+# 26, so the whole script stays inside its time limit (its host requantize,
+# file check and F16 load scale with the depth)
+QUANT_LLAMA = dict(LLAMA2_7B, n_layer=16)
 # 12a: the Q4_0 model's mean NLL over the windows with the kernels against
 # the same windows with every plain version on the card, relative. The two
 # sum each product in another order (bf16 roundings of the activations
@@ -5488,7 +5520,9 @@ PPL_ROUTE_TOL = 1e-3
 # docs/QUALITY_117M.md): the mean over a window's positions of KL(W4A8 sim
 # || kernels)
 KL_GATE = 5e-3
-QUALITY_CTX = 256
+# 12b's window of T=1 steps (256 before PR 26, halved for the script's time
+# limit)
+QUALITY_CTX = 128
 # 12b's F16 GPT-2 117M: its (tied) wte drawn at this scale gives peaked
 # logits (the largest |logit| about 10), so that KL sees a fault
 WTE_SCALE = 0.1
@@ -5626,8 +5660,8 @@ def timed_ppl(label, model, cfg, params, toks, patches=(), **kw):
 
 
 def quant_llama(failures):
-    """12a. LLaMA-2 7B at LLAMA2_7B's widths: F16 weights drawn on the card
-    (a torch.Generator, seed 25), written as a GGUF by the port's
+    """12a. LLaMA-2 7B at QUANT_LLAMA's widths and depth: F16 weights drawn
+    on the card (a torch.Generator, seed 25), written as a GGUF by the port's
     GGUFWriter with phase 11b's tokenizer; requantize_gguf to Q4_0 (the C++
     codecs), the file checked against the source; perplexity over
     PPL_WINDOWS windows of PPL_CTX tokens of LOADER_TEXT (the loaded
@@ -5641,7 +5675,7 @@ def quant_llama(failures):
     from ggml_imax_tpu_torch.ops.qmm import params_repack
     from ggml_imax_tpu_torch.quant.formats import GGMLType as T
     from ggml_imax_tpu_torch.tools.quantize import requantize_gguf
-    cfg = llama.LlamaConfig(**dict(LLAMA2_7B, n_ctx=4096,
+    cfg = llama.LlamaConfig(**dict(QUANT_LLAMA, n_ctx=4096,
                                    rms_eps=float(np.float32(1e-5))))
     L, W = cfg.n_layer, PPL_WINDOWS
     spec = llama_spec(cfg, lambda key, layer: T.F16)
@@ -6105,6 +6139,405 @@ def quant_tools_phase(failures):
     return summary, launches
 
 
+# ---- phase 13: Magika, YOLOv3-tiny and SAM ViT-B at full width (the
+# rest of the op set's path). No TPU kernel lies on it: the products are
+# dense f32 matmuls and cuDNN convolutions with TF32 off, so the launch
+# counts stay 0 and each model is held to the port's own CPU pass on the
+# same inputs, at the NMSE limits of tests/test_backend_ops_sweep.py's TOL
+VISION_CONV_NMSE = 1e-9          # TOL["conv"]: YOLO's head maps
+VISION_BLOCK_NMSE = 5e-7         # TOL["block_f32"]: SAM's embedding, masks
+MAGIKA_PROB_TOL = 1e-5           # max |probability difference|
+# the repo's own files, bytes as read (text, Python, a binary table, CUDA)
+MAGIKA_FILES = ("README.md", "chip_smoke.py", "ROADMAP.md",
+                "ggml_imax_tpu_torch/quant/iq_grids.npz",
+                "ggml_imax_tpu_torch/csrc/flash_attention.cu")
+YOLO_IMAGE = (3, 480, 640)
+SAM_IMAGE = (720, 1280, 3)
+SAM_POINT = (640, 360)           # pixel (x, y)
+# the CPU pass of SAM's encoder: full width, this many layers (layer 2 is
+# a global one, 0 and 1 windowed), so it stays a few seconds
+SAM_CPU_LAYERS = 3
+
+
+def vision_dir() -> Path:
+    """The phase's files go under the checkout's git-ignored build/."""
+    d = Path(__file__).resolve().parent / "build" / "vision"
+    d.mkdir(parents=True, exist_ok=True)
+    return d
+
+
+def nmse(got, ref) -> float:
+    got, ref = got.detach().cpu().double(), ref.detach().cpu().double()
+    return float(((got - ref) ** 2).mean() / (ref * ref).mean().clamp_min(
+        1e-300))
+
+
+def event_ms(fn, reps):
+    """(best, mean) ms of fn by CUDA events, after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return min(times), sum(times) / reps
+
+
+def same_tree(a, b) -> bool:
+    """Two params trees (dicts, lists, tensors on any device) bit-equal."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(map(same_tree, a, b))
+    return a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+
+
+def check_control(label, err, limit, failures):
+    """A planted fault: its check must fail (err over the limit)."""
+    caught = err > limit
+    log(f"  control: {label}: NMSE {err:.3e} (limit {limit:.0e}) -> the "
+        f"check {'fails, as it must' if caught else 'HOLDS'}")
+    if not caught:
+        failures.append(f"{label}: the planted fault passed its check "
+                        f"(NMSE {err:.3e} <= {limit:.0e})")
+
+
+def check_nmse(label, got, ref, limit, failures) -> float:
+    err = nmse(got, ref)
+    ok = err <= limit and bool(torch.isfinite(got).all())
+    log(f"  {label}: NMSE {err:.3e} (limit {limit:.0e}) -> "
+        f"{'holds' if ok else 'FAILS'}")
+    if not ok:
+        failures.append(f"{label}: NMSE {err:.3e} > {limit:.0e} or not finite")
+    return err
+
+
+def magika_phase(failures):
+    """13a: a GGUF of the full synthetic weights, loaded on the card;
+    identify on the repo's own files against the CPU pass."""
+    from ggml_imax_tpu_torch.io.gguf import GGUFWriter
+    from ggml_imax_tpu_torch.models import magika
+    from ggml_imax_tpu_torch.quant.formats import GGMLType
+    host = magika.synthetic_params(np.random.default_rng(0), device="cpu")
+    path = vision_dir() / "magika.gguf"
+    w = GGUFWriter(path)
+    for k, n in magika.GGUF_NAMES.items():
+        w.add_tensor(n, host[k].numpy(), GGMLType.F32)
+    nbytes = sum(t.numel() * 4 for t in host.values())
+    write_timed("13a Magika", path, w.write, nbytes)
+    params, load_s = timed_load("13a Magika GGUF", lambda: magika.load_gguf(
+        path))
+    cpu = magika.load_gguf(path, device="cpu")
+    path.unlink()
+    if not (same_tree(params, host) and same_tree(cpu, host)):
+        failures.append("13a: the loaded Magika weights differ from the drawn")
+    repo = Path(__file__).resolve().parent
+    files = {}
+    for rel in MAGIKA_FILES:
+        data = (repo / rel).read_bytes()
+        t0 = time.perf_counter()
+        top = magika.identify(params, data)
+        wall = (time.perf_counter() - t0) * 1e3
+        toks = magika.file_tokens(data)[None]
+        got = magika.forward(params, toks)[0].cpu()
+        ref = magika.forward(cpu, toks)[0]
+        err = float((got - ref).abs().max())
+        # the same label at each rank, but where two of the CPU pass's
+        # probabilities lie within twice the largest difference (a near-tie
+        # either pass may order its own way)
+        near = np.sort(ref.numpy())[::-1][:len(top) + 1]
+        gaps = np.minimum(np.append(np.inf, -np.diff(near))[:-1],
+                          -np.diff(near))
+        ref_top = magika.identify(cpu, data)
+        same = all(a == b for (a, _), (b, _), g in zip(top, ref_top, gaps)
+                   if g > 2 * err)
+        ok = same and err <= MAGIKA_PROB_TOL
+        labels = ", ".join(f"{n} {p:.6f}" for n, p in top)
+        log(f"  13a {rel} ({len(data)} bytes): {labels}; "
+            f"identify {wall:.2f} ms wall; max |p card - p CPU| {err:.3e} "
+            f"(limit {MAGIKA_PROB_TOL:.0e}), labels equal {same} -> "
+            f"{'holds' if ok else 'FAILS'}")
+        if not ok:
+            failures.append(f"13a {rel}: labels equal {same}, max |dp| "
+                            f"{err:.3e}")
+        files[rel] = {"top": top, "max_abs_err": err, "identify_ms": wall}
+    toks = np.stack([magika.file_tokens((repo / r).read_bytes())
+                     for r in MAGIKA_FILES])
+    best, mean = event_ms(lambda: magika.forward(params, toks), 10)
+    log(f"  13a forward of {len(toks)} windows: {best:.3f} ms best, "
+        f"{mean:.3f} ms mean (CUDA events)")
+    return {"files": files, "load_s": load_s, "forward_ms": best,
+            "forward_windows": len(toks)}
+
+
+def yolo_gguf(path, host, rng):
+    """A YOLOv3-tiny GGUF of `host`'s conv weights (yolov3-tiny.cpp:63-100
+    names) with seeded biases and, for the layers that have one, batch-norm
+    scales, rolling means and variances."""
+    from ggml_imax_tpu_torch.io.gguf import GGUFWriter
+    from ggml_imax_tpu_torch.models import yolo
+    from ggml_imax_tpu_torch.quant.formats import GGMLType
+    w = GGUFWriter(path)
+    nbytes = 0
+    for i, lp in enumerate(host):
+        wt = lp["w"].numpy()
+        cout = wt.shape[0]
+        vecs = {"biases": rng.standard_normal(cout) * 0.05}
+        if yolo.LAYER_CFG[i][1]:
+            vecs.update(scales=rng.uniform(0.5, 2.0, cout),
+                        rolling_mean=rng.standard_normal(cout) * 0.05,
+                        rolling_variance=rng.uniform(0.5, 2.0, cout))
+        w.add_tensor(f"l{i}_weights", wt, GGMLType.F32)
+        for name, v in vecs.items():
+            w.add_tensor(f"l{i}_{name}", v.astype(np.float32), GGMLType.F32)
+        nbytes += wt.nbytes + 4 * cout * len(vecs)
+    return w, nbytes
+
+
+def tiled_upscale(x, scale: int):
+    """A planted fault: the upscale by tiling the map instead of repeating
+    each element."""
+    return x.repeat(1, 1, scale, scale)
+
+
+def yolo_phase(failures):
+    """13b: YOLOv3-tiny at the published widths (16..1024, 80 classes)
+    from a GGUF with batch-norm tensors, folded at load; detect on a
+    seeded image, both head maps against the CPU pass."""
+    from ggml_imax_tpu_torch.models import yolo
+    host = yolo.synthetic_params(np.random.default_rng(0), n_classes=80,
+                                 width=16, device="cpu")
+    path = vision_dir() / "yolov3-tiny.gguf"
+    w, nbytes = yolo_gguf(path, host, np.random.default_rng(1))
+    write_timed("13b YOLOv3-tiny", path, w.write, nbytes)
+    params, load_s = timed_load("13b YOLOv3-tiny GGUF (batch norm folded)",
+                                lambda: yolo.load_gguf(path))
+    cpu = yolo.load_gguf(path, device="cpu")
+    path.unlink()
+    if not same_tree(params, cpu):
+        failures.append("13b: the card's and the CPU's folded weights differ")
+    n_par = sum(lp["w"].numel() + lp["b"].numel() for lp in params)
+    img = np.random.default_rng(2).random(YOLO_IMAGE).astype(np.float32)
+    x = yolo.letterbox(img, device="cuda")[None]
+    xc = yolo.letterbox(img, device="cpu")[None]
+    check_nmse("13b letterbox card vs CPU", x, xc, VISION_CONV_NMSE, failures)
+    got, ref = yolo.forward(params, x), yolo.forward(cpu, xc)
+    errs = [check_nmse(f"13b head{k} {tuple(g.shape)} card vs CPU", g, r,
+                       VISION_CONV_NMSE, failures)
+            for k, g, r in zip((16, 23), got, ref)]
+    fwd_best, fwd_mean = event_ms(lambda: yolo.forward(params, x), 10)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dets = yolo.detect(params, img)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    n_cls = sum(bool((d.prob > 0).any()) for d in dets)
+    n_cpu = len(yolo.detect(cpu, img))
+    log(f"  13b {n_par} parameters; forward {fwd_best:.3f} ms best, "
+        f"{fwd_mean:.3f} ms mean (CUDA events); detect {min(walls):.1f} ms "
+        f"wall best of 3 ({', '.join(f'{t:.1f}' for t in walls)}): "
+        f"{len(dets)} detections ({n_cls} with a class over the threshold; "
+        f"the CPU pass {n_cpu})")
+    with patched([(yolo, "upscale", tiled_upscale)]):
+        bad = yolo.forward(params, x)[1]
+    check_control("13b upscale by tile instead of repeat, head23",
+                  nmse(bad, ref[1]), VISION_CONV_NMSE, failures)
+    return {"params": n_par, "load_s": load_s, "head_nmse": errs,
+            "forward_ms": fwd_best, "detect_ms": min(walls),
+            "detections": len(dets), "detections_with_class": n_cls,
+            "detections_cpu": n_cpu}
+
+
+def sam_tensors(params):
+    """name -> (F32, ne, array) of a SAM params tree as the reference's
+    .bin names them (tests/test_sam.py's writer)."""
+    from ggml_imax_tpu_torch.quant.formats import GGMLType
+    out = {}
+
+    def put(name, a):
+        a = np.ascontiguousarray(a.cpu().numpy(), np.float32)
+        out[name] = (GGMLType.F32, tuple(reversed(a.shape)), a)
+
+    put("image_encoder.pos_embed", params["pe"])
+    put("image_encoder.patch_embed.proj.weight", params["proj_w"])
+    put("image_encoder.patch_embed.proj.bias", params["proj_b"])
+    for j, k in enumerate(("neck_conv0", "neck_n0_g", "neck_conv1",
+                           "neck_n1_g")):
+        put(f"image_encoder.neck.{j}.weight", params[k])
+    put("image_encoder.neck.1.bias", params["neck_n0_b"])
+    put("image_encoder.neck.3.bias", params["neck_n1_b"])
+    for i, lp in enumerate(params["enc_layers"]):
+        pre = f"image_encoder.blocks.{i}"
+        for n, k in (("norm1", "n1"), ("norm2", "n2")):
+            put(f"{pre}.{n}.weight", lp[f"{k}_g"])
+            put(f"{pre}.{n}.bias", lp[f"{k}_b"])
+        put(f"{pre}.attn.rel_pos_w", lp["rel_w"])
+        put(f"{pre}.attn.rel_pos_h", lp["rel_h"])
+        for n, k in (("attn.qkv", "qkv"), ("attn.proj", "proj"),
+                     ("mlp.lin1", "mlp1"), ("mlp.lin2", "mlp2")):
+            put(f"{pre}.{n}.weight", lp[f"{k}_w"].T)
+            put(f"{pre}.{n}.bias", lp[f"{k}_b"])
+    put("prompt_encoder.pe_layer.positional_encoding_gaussian_matrix",
+        params["pe_gauss"])
+    put("prompt_encoder.not_a_point_embed.weight", params["not_a_pt"][None])
+    put("prompt_encoder.no_mask_embed.weight", params["no_mask"][None])
+    for i, e in enumerate(params["pt_embd"]):
+        put(f"prompt_encoder.point_embeddings.{i}.weight", e[None])
+    dec = params["dec"]
+
+    def attn(prefix, a):
+        for k, n in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"),
+                     ("o", "out_proj")):
+            put(f"{prefix}.{n}.weight", a[f"{k}_w"].T)
+            put(f"{prefix}.{n}.bias", a[f"{k}_b"])
+
+    def mlp3(prefix, m):
+        for j in range(3):
+            put(f"{prefix}.layers.{j}.weight", m[f"w{j}"].T)
+            put(f"{prefix}.layers.{j}.bias", m[f"b{j}"])
+
+    for i, lp in enumerate(dec["layers"]):
+        pre = f"mask_decoder.transformer.layers.{i}"
+        attn(f"{pre}.self_attn", lp["self"])
+        attn(f"{pre}.cross_attn_token_to_image", lp["t2i"])
+        attn(f"{pre}.cross_attn_image_to_token", lp["i2t"])
+        for j in (1, 2, 3, 4):
+            put(f"{pre}.norm{j}.weight", lp[f"n{j}_g"])
+            put(f"{pre}.norm{j}.bias", lp[f"n{j}_b"])
+        for n, k in (("mlp.lin1", "mlp1"), ("mlp.lin2", "mlp2")):
+            put(f"{pre}.{n}.weight", lp[f"{k}_w"].T)
+            put(f"{pre}.{n}.bias", lp[f"{k}_b"])
+    attn("mask_decoder.transformer.final_attn_token_to_image",
+         dec["final_t2i"])
+    put("mask_decoder.transformer.norm_final_attn.weight", dec["nf_g"])
+    put("mask_decoder.transformer.norm_final_attn.bias", dec["nf_b"])
+    for j, k in ((0, "up0_w"), (1, "up1_g"), (3, "up3_w")):
+        put(f"mask_decoder.output_upscaling.{j}.weight", dec[k])
+    for j, k in ((0, "up0_b"), (1, "up1_b"), (3, "up3_b")):
+        put(f"mask_decoder.output_upscaling.{j}.bias", dec[k])
+    for i, m in enumerate(dec["hyper"]):
+        mlp3(f"mask_decoder.output_hypernetworks_mlps.{i}", m)
+    mlp3("mask_decoder.iou_prediction_head", dec["iou"])
+    put("mask_decoder.iou_token.weight", dec["iou_token"])
+    put("mask_decoder.mask_tokens.weight", dec["mask_tokens"])
+    return out
+
+
+def swapped_rel_pos(attn, rel_w, rel_h):
+    """A planted fault: add_rel_pos with rel_h and rel_w swapped."""
+    from ggml_imax_tpu_torch.ops.tensor_ops import add_rel_pos
+    return add_rel_pos(attn, rel_h, rel_w)
+
+
+def sam_phase(failures):
+    """13c: SAM ViT-B (the full SamConfig) from a legacy .bin, predict on a
+    seeded 720 x 1280 image with one point; the encoder at full width and
+    SAM_CPU_LAYERS layers, and the decoder on its output, against the CPU
+    pass."""
+    from dataclasses import replace
+
+    from ggml_imax_tpu_torch.io.legacy_bin import write_legacy_bin
+    from ggml_imax_tpu_torch.models import sam
+    cfg = sam.SamConfig()
+    t0 = time.time()
+    host = sam.synthetic_params(cfg, np.random.default_rng(0), device="cpu")
+    log(f"  13c weights drawn on the host in {time.time() - t0:.2f} s")
+    tensors = sam_tensors(host)
+    hp = {"n_enc_state": cfg.n_enc_state, "n_enc_layer": cfg.n_enc_layer,
+          "n_enc_head": cfg.n_enc_head, "n_enc_out_chans": cfg.n_enc_out_chans,
+          "n_pt_embd": cfg.n_pt_embd, "ftype": 0}
+    path = vision_dir() / "sam_vit_b.bin"
+    nbytes = sum(a.nbytes for _, _, a in tensors.values())
+    write_timed("13c SAM ViT-B", path, lambda: write_legacy_bin(
+        path, hp, sam.HPARAM_NAMES, [], tensors, has_vocab=False), nbytes)
+    del tensors
+    (lcfg, params), load_s = timed_load("13c SAM ViT-B .bin",
+                                        lambda: sam.load_legacy(path))
+    path.unlink()
+    if lcfg != cfg or not same_tree(params, host):
+        failures.append("13c: the loaded SAM config or weights differ from "
+                        "the drawn")
+    img = np.random.default_rng(3).integers(0, 256, SAM_IMAGE, dtype=np.uint8)
+    x, (nh, nw) = sam.preprocess(img, cfg)
+    pt01 = (np.asarray(SAM_POINT, np.float32) * (nh / SAM_IMAGE[0],
+                                                 nw / SAM_IMAGE[1])
+            / cfg.n_img_size)
+    enc_ms = event_ms(lambda: sam.encode_image(cfg, params, x), 3)
+    embd = sam.encode_image(cfg, params, x)
+    sparse, dense = sam.encode_prompt(cfg, params, pt01)
+    pe = sam.image_pe(cfg, params)
+    dec_ms = event_ms(lambda: sam.decode_mask(cfg, params, embd, sparse,
+                                              dense, pe), 5)
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        masks, iou = sam.predict(cfg, params, img, SAM_POINT)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    ok = masks.shape == (3,) + SAM_IMAGE[:2] and bool(np.isfinite(iou).all()) \
+        and bool(torch.isfinite(embd).all())
+    log(f"  13c encode {enc_ms[0]:.2f} ms best, {enc_ms[1]:.2f} ms mean of 3; "
+        f"decode {dec_ms[0]:.3f} ms best, {dec_ms[1]:.3f} ms mean of 5 (CUDA "
+        f"events); predict {min(walls):.1f} ms wall (best of 2); IoU "
+        f"{', '.join(f'{v:.5f}' for v in iou)}; mask area "
+        f"{', '.join(f'{m.mean():.4f}' for m in masks)} of the image; "
+        f"shapes and values {'ok' if ok else 'WRONG'}")
+    if not ok:
+        failures.append("13c: predict's masks or IoUs have the wrong shape "
+                        "or are not finite")
+    # the card against the CPU at SAM_CPU_LAYERS encoder layers
+    cfg_c = replace(cfg, n_enc_layer=SAM_CPU_LAYERS)
+    card_c = dict(params, enc_layers=params["enc_layers"][:SAM_CPU_LAYERS])
+    host_c = dict(host, enc_layers=host["enc_layers"][:SAM_CPU_LAYERS])
+    xc, _ = sam.preprocess(img, cfg, device="cpu")
+    check_nmse("13c preprocess card vs CPU", x, xc, VISION_BLOCK_NMSE,
+               failures)
+    t0 = time.time()
+    e_cpu = sam.encode_image(cfg_c, host_c, xc)
+    m_cpu, i_cpu = sam.decode_mask(cfg, host, e_cpu, sparse.cpu(),
+                                   dense.cpu(), pe.cpu())
+    log(f"  13c CPU pass ({SAM_CPU_LAYERS} encoder layers + decode) "
+        f"{time.time() - t0:.1f} s")
+    e_card = sam.encode_image(cfg_c, card_c, x)
+    m_card, i_card = sam.decode_mask(cfg, params, e_card, sparse, dense, pe)
+    errs = {k: check_nmse(f"13c {k} card vs CPU ({SAM_CPU_LAYERS} encoder "
+                          "layers)", g, r, VISION_BLOCK_NMSE, failures)
+            for k, g, r in (("embedding", e_card, e_cpu),
+                            ("mask logits", m_card, m_cpu),
+                            ("iou", i_card, i_cpu))}
+    with patched([(sam, "add_rel_pos", swapped_rel_pos)]):
+        bad = sam.encode_image(cfg_c, card_c, x)
+    check_control("13c add_rel_pos with rel_h and rel_w swapped, embedding",
+                  nmse(bad, e_cpu), VISION_BLOCK_NMSE, failures)
+    return {"load_s": load_s, "encode_ms": enc_ms[0], "decode_ms": dec_ms[0],
+            "predict_ms": min(walls), "iou": [float(v) for v in iou],
+            "nmse": errs}
+
+
+def vision_phase(failures):
+    """Phase 13: 13a-13c, each with the launch counters at 0 just before
+    and read just after (no kernel lies on this path: they stay 0).
+    Returns (summary, launch counts by run)."""
+    from ggml_imax_tpu_torch import _build
+    summary, launches = {}, {}
+    for key, run in (("magika", magika_phase), ("yolov3_tiny", yolo_phase),
+                     ("sam_vit_b", sam_phase)):
+        t0 = time.time()
+        _build.reset_launches()
+        summary[key] = run(failures)
+        launches[f"vision_{key}"] = dict(_build.LAUNCHES)
+        torch.cuda.empty_cache()
+        log(f"  -- {key}: {time.time() - t0:.1f} s, kernel launches "
+            f"{sum(launches[f'vision_{key}'].values())}")
+        if failures:
+            break
+    return summary, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6410,9 +6843,19 @@ def main() -> int:
         raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
     launches.update(by_run)
     log(f"# phase 12: {time.time() - t0:.1f} s")
+
+    # ---- 13. Magika, YOLOv3-tiny and SAM ViT-B
+    log("# phase 13: Magika, YOLOv3-tiny (416 x 416, 80 classes) and SAM "
+        "ViT-B (1024 x 1024) from model files, card vs CPU")
+    t0 = time.time()
+    engines["vision"], by_run = vision_phase(failures)
+    if failures:
+        raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
+    launches.update(by_run)
+    log(f"# phase 13: {time.time() - t0:.1f} s")
     log("# phases run: 1, 2, 3, 4, 5, 5b, 6, 7, 8, 8b, 8c, 9, 9b, 9c, 10, 11, "
-        "12")
-    log(f"# phases 1-12: {time.time() - t_start:.1f} s")
+        "12, 13")
+    log(f"# phases 1-13: {time.time() - t_start:.1f} s")
 
     kernels = []
     for k in KERNELS:

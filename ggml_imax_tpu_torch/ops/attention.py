@@ -1,25 +1,15 @@
 """Reference attention (counterpart of ggml_imax_tpu/ops/attention.py
-`attention_xla`): QK^T -> masked softmax -> V with GQA broadcast, additive
-mask, ALiBi and logit soft-capping. Plain PyTorch; it is also the decode
-(Tq == 1) branch of ops/flash_attention.attention."""
+`attention_xla` and `causal_mask`): QK^T -> masked softmax -> V with GQA
+broadcast, additive mask, ALiBi and logit soft-capping. Plain PyTorch; it
+is also the decode (Tq == 1) branch of ops/flash_attention.attention."""
 from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
-
-def alibi_slopes(n_head: int, max_bias: float) -> np.ndarray:
-    """Per-head ALiBi slopes (ggml's formula)."""
-    if max_bias <= 0.0:
-        return np.ones(n_head, dtype=np.float32)
-    n_head_log2 = 1 << int(np.floor(np.log2(n_head)))
-    m0 = 2.0 ** (-max_bias / n_head_log2)
-    m1 = 2.0 ** (-max_bias / 2.0 / n_head_log2)
-    h = np.arange(n_head)
-    return np.where(h < n_head_log2, m0 ** (h + 1),
-                    m1 ** (2 * (h - n_head_log2) + 1)).astype(np.float32)
+from .._device import resolve_device
+from .softmax import alibi_slopes
 
 
 def attention_xla(q, k, v, mask=None, *, scale: float | None = None,
@@ -55,3 +45,14 @@ def attention_xla(q, k, v, mask=None, *, scale: float | None = None,
     p = e / torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30)
     o = p.to(vf.dtype).float() @ vf.float()
     return o.transpose(1, 2).to(out_dtype)
+
+
+def causal_mask(t_q: int, t_k: int, n_past: int, dtype=torch.float32,
+                device=None):
+    """Additive causal mask for a query block starting at position n_past
+    attending over t_k cached keys: (t_q, t_k), 0 where visible, -inf
+    elsewhere, on `device` (the card unless "cpu")."""
+    dev = resolve_device(device)
+    q_pos = torch.arange(t_q, device=dev)[:, None] + n_past
+    k_pos = torch.arange(t_k, device=dev)[None, :]
+    return torch.where(k_pos <= q_pos, 0.0, float("-inf")).to(dtype)

@@ -31,8 +31,9 @@ import math
 import torch
 
 from .. import _build
-from .attention import alibi_slopes, attention_xla
+from .attention import attention_xla
 from .decode_attention import NEG
+from .softmax import alibi_slopes
 
 
 def padded_keys(Tk: int, block_k: int = 512) -> int:

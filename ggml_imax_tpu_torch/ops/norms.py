@@ -28,3 +28,15 @@ def rms_norm(x, weight=None, eps: float = GGML_EPS_DEFAULT):
     if weight is not None:
         y = y * weight.float()
     return y.to(x.dtype)
+
+
+def group_norm(x, n_groups: int, eps: float = GGML_EPS_DEFAULT):
+    """ggml's group_norm over (channels of a group, spatial), no affine: x
+    laid out as ggml's conv tensors, (..., C, S) with S = H * W."""
+    xf = x.float()
+    *lead, c, s = xf.shape
+    g = xf.reshape(*lead, n_groups, c // n_groups * s)
+    mean = g.mean(dim=-1, keepdim=True)
+    var = ((g - mean) ** 2).mean(dim=-1, keepdim=True)
+    y = (g - mean) / torch.sqrt(var + eps)
+    return y.reshape(*lead, c, s).to(x.dtype)

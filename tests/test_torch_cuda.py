@@ -2733,3 +2733,243 @@ def test_capture_guard_raises_on_card(gen):
         qmm_mod.set_activation_sim(None)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, qmm_mod.qmatmul(x, qt))
+
+
+# ---- the rest of the op set, and Magika / YOLO / SAM, on the card against
+# the CPU pass (no hand-written kernel: torch ops, cuDNN with TF32 off)
+
+# tests/test_backend_ops_sweep.py's TOL; "sweep2": the NMSE of
+# tests/test_backend_ops_sweep2.py's rope, norm and timestep cases
+VISION_TOL = {"unary_f32": 1e-10, "unary_bf16": 1e-4, "softmax": 1e-10,
+              "conv": 1e-9, "block_f32": 5e-7, "sweep2": 1e-9}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+
+
+def _nmse(got, ref):
+    got, ref = got.detach().cpu().double(), ref.detach().cpu().double()
+    return float(((got - ref) ** 2).mean() / (ref * ref).mean().clamp_min(
+        1e-300))
+
+
+def _on_both(fn, *args, **kw):
+    """fn on CPU tensors and on their copies on the card: (card, cpu)."""
+    moved = [a.cuda() if isinstance(a, torch.Tensor) else a for a in args]
+    return fn(*moved, **kw), fn(*args, **kw)
+
+
+def _op_cases():
+    from ggml_imax_tpu_torch.ops import activations as act
+    from ggml_imax_tpu_torch.ops import attention as att
+    from ggml_imax_tpu_torch.ops import conv as cv
+    from ggml_imax_tpu_torch.ops import moe, norms, rope, softmax, ssm
+    from ggml_imax_tpu_torch.ops import tensor_ops as top
+    g = torch.Generator().manual_seed(20250817)
+    r = lambda *s: torch.randn(*s, generator=g)
+    mask = torch.where(torch.rand(2, 1, 16, 33, generator=g) < 0.2,
+                       float("-inf"), 0.0)
+    mask[..., 0] = 0.0
+    mask3 = mask[:, 0]
+    pos = torch.randint(0, 4096, (2, 9), generator=g)
+    cases = {}
+    for name in ("gelu", "gelu_quick", "silu", "relu", "leaky_relu",
+                 "sigmoid", "tanh", "elu", "hardswish", "hardsigmoid",
+                 "abs_", "sgn", "neg", "step", "relu_squared"):
+        cases[f"{name}_f32"] = (getattr(act, name), (r(63, 129) * 2,),
+                                "unary_f32")
+        cases[f"{name}_bf16"] = (getattr(act, name),
+                                 ((r(63, 129) * 2).bfloat16(),), "unary_bf16")
+    cases |= {
+        "soft_max_ext": (lambda x, m: softmax.soft_max_ext(x, m, 0.125),
+                         (r(2, 4, 16, 33), mask), "softmax"),
+        "soft_max_ext_alibi": (lambda x, m: softmax.soft_max_ext(
+            x, m, 1.0, 8.0), (r(2, 4, 16, 33), mask), "softmax"),
+        "soft_max_ext_alibi_rank3": (lambda x, m: softmax.soft_max_ext(
+            x, m, 1.0, 8.0), (r(2, 4, 16, 33), mask3), "softmax"),
+        "sum_rows": (top.sum_rows, (r(4, 257),), "unary_f32"),
+        "mean": (top.mean, (r(4, 257),), "unary_f32"),
+        "sum_": (top.sum_, (r(16, 10, 2, 5),), "unary_f32"),
+        "cross_entropy_loss": (top.cross_entropy_loss, (
+            r(5, 11), torch.eye(11)[torch.randint(0, 11, (5,),
+                                                  generator=g)]), "unary_f32"),
+        "timestep_embedding": (lambda t: top.timestep_embedding(t, 15), (
+            torch.tensor([0.0, 1.0, 17.5, 999.0]),), "sweep2"),
+        "outer_prod": (top.outer_prod, (r(3, 7), r(3, 5)), "unary_f32"),
+        "acc": (lambda d, s: top.acc(d, s, (1, 2, 3)), (r(4, 6, 8),
+                                                       r(2, 3, 4)), "unary_f32"),
+        "win_part_unpart": (lambda x: top.win_unpart(top.win_part(x, 14),
+                                                     64, 64, 14),
+                            (r(1, 64, 64, 8),), "unary_f32"),
+        "get_rel_pos": (lambda t: top.get_rel_pos(t, 64, 64), (r(127, 64),),
+                        "unary_f32"),
+        "add_rel_pos": (top.add_rel_pos, (r(3, 20, 20), r(3, 4, 5, 5),
+                                          r(3, 4, 5, 4)), "unary_f32"),
+        "diag_mask_inf": (lambda x: top.diag_mask_inf(x, 2), (r(2, 6, 6),),
+                          "unary_f32"),
+        "group_norm": (lambda x: norms.group_norm(x, 4, eps=1e-6),
+                       (r(2, 8, 30),), "unary_f32"),
+        "causal_mask": (lambda x: att.causal_mask(6, 9, 2,
+                                                  device=x.device) + x,
+                        (torch.zeros(6, 9),), "unary_f32"),
+        "conv_2d": (lambda x, w: cv.conv_2d(x, w, s0=2, s1=2, p0=2, p1=2),
+                    (r(2, 4, 20, 17), r(4, 4, 5, 3)), "conv"),
+        "conv_2d_dilated": (lambda x, w: cv.conv_2d(x, w, s0=1, s1=2, p0=2,
+                                                    p1=1, d0=2, d1=1),
+                            (r(2, 3, 12, 14), r(4, 3, 3, 5)), "conv"),
+        "conv_2d_patch16": (lambda x, w: cv.conv_2d(x, w, s0=16, s1=16),
+                            (r(1, 3, 128, 128), r(64, 3, 16, 16)), "conv"),
+        "conv_transpose_1d": (lambda x, w: cv.conv_transpose_1d(x, w, 2, 1, 2),
+                              (r(1, 4, 20), r(4, 6, 3)), "conv"),
+        "conv_transpose_2d_p0": (lambda x, w: cv.conv_transpose_2d_p0(x, w, 2),
+                                 (r(1, 256, 16, 16), r(256, 64, 2, 2)),
+                                 "conv"),
+        "im2col": (lambda x: cv.im2col(x, 3, 3, s0=2, s1=2, p0=1, p1=1),
+                   (r(2, 3, 10, 11),), "conv"),
+        "pool_2d_max": (lambda x: cv.pool_2d(x, "max", 3, 3, 2, 2, 1, 1),
+                        (r(2, 2, 15, 17),), "conv"),
+        "pool_2d_avg_wide_pad": (lambda x: cv.pool_2d(x, "avg", 2, 3, 1, 2,
+                                                      2, 1),
+                                 (r(2, 2, 9, 7),), "conv"),
+        "pool_1d_avg": (lambda x: cv.pool_1d(x, "avg", 3, 2, 1),
+                        (r(2, 2, 17),), "conv"),
+        "upscale": (lambda x: cv.upscale(x, 2), (r(1, 2, 3, 4),), "conv"),
+        "pad": (lambda x: cv.pad(x, 3, 2, 1), (r(1, 2, 3, 4),), "conv"),
+        "interpolate_bilinear": (lambda x: cv.interpolate_bilinear(x, 5, 7),
+                                 (r(1, 3, 16, 16),), "conv"),
+        "rope_glm": (lambda x, p: rope.rope(x, p, None, 4, n_ctx=64),
+                     (r(2, 9, 3, 32), pos), "sweep2"),
+        "rope_yarn_neox": (lambda x, p: rope.rope(
+            x, p, None, 2, freq_scale=0.25, ext_factor=1.0, n_orig_ctx=512),
+            (r(2, 9, 3, 32), pos), "sweep2"),
+        "rope_xpos_down_backward": (lambda x, p: rope.rope(
+            x, p, xpos_base=512.0, xpos_down=True, forward=False),
+            (r(2, 9, 3, 32), pos), "sweep2"),
+        "ssm_conv": (lambda s, x, c: ssm.ssm_conv(s, x, c)[0],
+                     (r(5, 3), r(10, 5), r(5, 4)), "unary_f32"),
+        "ssm_scan": (lambda *a: torch.cat([t.reshape(-1) for t in
+                                           ssm.ssm_scan(*a)]),
+                     (r(6, 4) * 0.1, r(64, 6), r(64, 6),
+                      -r(6, 4).abs(), r(64, 4), r(64, 4)), "unary_f32"),
+        "mul_mat_id": (moe.mul_mat_id, (r(4, 16, 8), r(10, 16),
+                                        torch.randint(0, 4, (10, 2),
+                                                      generator=g)),
+                       "unary_f32"),
+        "mul_mat_id_grouped_overflow": (
+            lambda a, x, i: moe.mul_mat_id_grouped(a, x, i, capacity=3),
+            (r(3, 8, 4), r(7, 8), torch.tensor(
+                [[0, 1], [0, 0], [2, 0], [1, 1], [0, 2], [1, 0], [0, 0]])),
+            "unary_f32"),
+    }
+    router = r(12, 5)
+    router[:, 3] = router[:, 1]                   # tied logits
+    cases["moe_ffn_ties"] = (lambda *a: moe.moe_ffn(*a, n_used=2), (
+        r(6, 12), router, r(5, 12, 24), r(5, 12, 24), r(5, 24, 12)),
+        "unary_f32")
+    return cases
+
+
+_OP_CASES = None
+
+
+def _op_case(name):
+    global _OP_CASES
+    if _OP_CASES is None:
+        _OP_CASES = _op_cases()
+    return _OP_CASES[name]
+
+
+@pytest.mark.parametrize("name", [
+    f"{n}_{d}" for n in ("gelu", "gelu_quick", "silu", "relu", "leaky_relu",
+                         "sigmoid", "tanh", "elu", "hardswish", "hardsigmoid",
+                         "abs_", "sgn", "neg", "step", "relu_squared")
+    for d in ("f32", "bf16")] + [
+    "soft_max_ext", "soft_max_ext_alibi", "soft_max_ext_alibi_rank3",
+    "sum_rows", "mean", "sum_", "cross_entropy_loss", "timestep_embedding",
+    "outer_prod", "acc", "win_part_unpart", "get_rel_pos", "add_rel_pos",
+    "diag_mask_inf", "group_norm", "causal_mask", "conv_2d",
+    "conv_2d_dilated", "conv_2d_patch16", "conv_transpose_1d",
+    "conv_transpose_2d_p0", "im2col", "pool_2d_max", "pool_2d_avg_wide_pad",
+    "pool_1d_avg", "upscale", "pad", "interpolate_bilinear", "rope_glm",
+    "rope_yarn_neox", "rope_xpos_down_backward", "ssm_conv", "ssm_scan",
+    "mul_mat_id", "mul_mat_id_grouped_overflow", "moe_ffn_ties"])
+def test_op_on_card_matches_cpu(card, name):
+    fn, args, family = _op_case(name)
+    got, ref = _on_both(fn, *args)
+    assert got.is_cuda and got.dtype == ref.dtype and got.shape == ref.shape
+    finite = torch.isfinite(ref)
+    assert torch.equal(torch.isfinite(got).cpu(), finite)
+    err = _nmse(torch.where(finite, got.cpu(), 0), torch.where(finite, ref, 0))
+    print(f"{name}: NMSE {err:.3e} (limit {VISION_TOL[family]:.0e})")
+    assert err < VISION_TOL[family]
+
+
+def test_index_ops_on_card_equal_cpu(card):
+    """argsort / top_k / argmax with ties, and the exact moves, bit for bit
+    on the card."""
+    from ggml_imax_tpu_torch.ops import tensor_ops as top
+    g = torch.Generator().manual_seed(3)
+    x = torch.randint(-3, 3, (3, 128), generator=g).float()
+    for fn in (lambda t: top.argsort(t), lambda t: top.argsort(t, True),
+               lambda t: top.top_k(t, 16), top.argmax,
+               lambda t: top.flip(t, 1), lambda t: top.repeat(t, (6, 128)),
+               lambda t: top.set_(t, t[:2, :5] * 2, (2, 126))):
+        got, ref = _on_both(fn, x)
+        assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.parametrize("src,dst", [((3, 720, 1280), (3, 576, 1024)),
+                                     ((720, 1280, 3), (576, 1024, 3)),
+                                     ((3, 480, 640), (3, 312, 416)),
+                                     ((3, 144, 256), (3, 720, 1280)),
+                                     ((3, 13, 17), (3, 29, 11))])
+def test_resize_on_card_matches_cpu(card, src, dst):
+    from ggml_imax_tpu_torch.ops.conv import _resize_bilinear
+    x = torch.randn(*src, generator=torch.Generator().manual_seed(1))
+    got, ref = _on_both(lambda t: _resize_bilinear(t, dst), x)
+    assert _nmse(got, ref) < VISION_TOL["conv"]
+
+
+@pytest.mark.parametrize("block", ["window", "global"])
+def test_sam_encoder_block_full_width_on_card(card, block):
+    """One SAM ViT-B encoder block (768 wide, 12 heads, 1024 x 1024 input,
+    windows of 14 or the global 64 x 64 grid) and the neck, card vs CPU."""
+    from dataclasses import replace
+
+    from ggml_imax_tpu_torch.models import sam
+    cfg = replace(sam.SamConfig(), n_enc_layer=1,
+                  global_attn=(0,) if block == "global" else ())
+    host = sam.synthetic_params(cfg, np.random.default_rng(0), device="cpu")
+    params = sam.synthetic_params(cfg, np.random.default_rng(0))
+    x = torch.randn(1, 3, 1024, 1024, generator=torch.Generator()
+                    .manual_seed(2))
+    got = sam.encode_image(cfg, params, x.cuda())
+    ref = sam.encode_image(cfg, host, x)
+    assert _nmse(got, ref) < VISION_TOL["block_f32"]
+
+
+def test_yolo_forward_on_card_matches_cpu(card):
+    """YOLOv3-tiny at the published widths on a letterboxed 480 x 640
+    image: both head maps at the sweep's conv NMSE."""
+    from ggml_imax_tpu_torch.models import yolo
+    host = yolo.synthetic_params(np.random.default_rng(0), device="cpu")
+    params = yolo.synthetic_params(np.random.default_rng(0))
+    img = np.random.default_rng(1).random((3, 480, 640)).astype(np.float32)
+    got = yolo.forward(params, yolo.letterbox(img)[None])
+    ref = yolo.forward(host, yolo.letterbox(img, device="cpu")[None])
+    for g, r in zip(got, ref):
+        assert g.is_cuda and _nmse(g, r) < VISION_TOL["conv"]
+
+
+def test_magika_on_card_matches_cpu(card):
+    from ggml_imax_tpu_torch.models import magika
+    host = magika.synthetic_params(np.random.default_rng(0), device="cpu")
+    params = magika.synthetic_params(np.random.default_rng(0))
+    data = np.random.default_rng(4).bytes(3000)
+    got = magika.forward(params, magika.file_tokens(data)[None])
+    ref = magika.forward(host, magika.file_tokens(data)[None])
+    assert got.is_cuda
+    assert float((got.cpu() - ref).abs().max()) <= 1e-5

@@ -174,4 +174,11 @@ def test_port_imports_no_jax():
             "ggml_imax_tpu_torch.runtime.whisper_pipeline",
             "ggml_imax_tpu_torch.io.gguf",
             "ggml_imax_tpu_torch.io.legacy_bin",
-            "ggml_imax_tpu_torch.tokenizer.bpe"} <= set(mods)
+            "ggml_imax_tpu_torch.tokenizer.bpe",
+            "ggml_imax_tpu_torch.ops.softmax",
+            "ggml_imax_tpu_torch.ops.tensor_ops",
+            "ggml_imax_tpu_torch.ops.ssm",
+            "ggml_imax_tpu_torch.ops.moe",
+            "ggml_imax_tpu_torch.models.magika",
+            "ggml_imax_tpu_torch.models.yolo",
+            "ggml_imax_tpu_torch.models.sam"} <= set(mods)

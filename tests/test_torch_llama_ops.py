@@ -114,12 +114,16 @@ def test_rope_split_is_rope_under_the_permutation():
 
 
 def test_unported_rope_arguments_raise():
-    x, pos = torch.zeros(1, 2, 1, 8), torch.zeros(1, 2, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="GLM"):
-        trope.rope(x, pos, mode=4)
-    with pytest.raises(NotImplementedError, match="YaRN"):
-        trope.rope(x, pos, mode=2, ext_factor=1.0)
-    with pytest.raises(NotImplementedError, match="xPos"):
-        trope.rope(x, pos, xpos_base=512.0)
+    """The arguments rope once refused (GLM mode, YaRN, xPos) are ported
+    now: they run, none raises NotImplementedError (their parity with the
+    JAX package is tests/test_torch_rope_modes.py's); an odd n_dims still
+    raises."""
+    x = torch.ones(1, 2, 1, 8)
+    pos = torch.arange(2, dtype=torch.long)[None]
+    for kw in (dict(mode=4, n_ctx=4), dict(mode=2, ext_factor=1.0,
+                                           freq_scale=0.5),
+               dict(xpos_base=512.0)):
+        y = trope.rope(x, pos, **kw)
+        assert y.shape == x.shape and bool(torch.isfinite(y).all()), kw
     with pytest.raises(ValueError, match="even"):
         trope.rope(x, pos, n_dims=5)
