@@ -11,7 +11,9 @@ DTW token timestamps); then GPT-J-6B, LLaMA-2 7B Q4_K_M, Whisper small and
 GPT-2 117M from model files through the port's loaders and tokenizers; then
 the quantization tools: LLaMA-2 7B F16 -> Q4_0 and its perplexity, GPT-2
 117M's imatrix, IQ encoders and W4A8 quality rows; then Magika,
-YOLOv3-tiny and SAM ViT-B from model files.
+YOLOv3-tiny and SAM ViT-B from model files; then MNIST's FC net and CNN
+trained (Adam and L-BFGS) and exported, and GPT-J-6B's decode step
+exported and replayed from the saved graph.
 
     python3 chip_smoke.py
 
@@ -326,6 +328,29 @@ Phases (any failure exits nonzero and prints no result line):
    SAM_CPU_LAYERS encoder layers against the CPU pass at
    VISION_BLOCK_NMSE; a planted fault (rel_h and rel_w swapped in
    add_rel_pos) must fail it.
+14. MNIST, L-BFGS and graph export. 14a: the FC net (784-500-10) and the
+   CNN (8 and 16 channels, 10 classes) trained full-batch with the
+   reference's Adam (FC 150 iterations at 5e-3, CNN 60 at 1e-2, stopping
+   where its convergence tests stop) on MNIST_N images of the JAX tests'
+   synthetic_digits recipe drawn on the card (ms an iteration, accuracy
+   over the JAX tests' bars), the first 5 losses on MNIST_SUBSET of them
+   held to the port on the CPU (MNIST_CPU_RTOL). 14b: L-BFGS
+   (default_params("lbfgs")) on test_optimize.py's least squares (x within
+   1e-3 of lstsq's), then on the FC net for up to LBFGS_ITERS iterations
+   (the loss must fall; evaluations an iteration), the subset's losses and
+   evaluation counts held to the CPU's. 14c: both trained nets through
+   export_model / load_model under build/export (deleted after), the
+   reloaded logits within EXPORT_TOL of the eager forward's. 14d, run
+   inside phase 4 on its prepared GPT-J-6B weights: the decode step
+   exported by export_graph (the weights and the KV arena as arguments,
+   the kernels as ops/library's custom ops), saved, loaded, and replayed
+   EXPORT_STEPS greedy steps after the eager prefill of phase 4's first
+   prompt: its tokens equal to phase 4's eager run and the eager steps',
+   its logits and KV arena bit-equal to theirs, 2 L + 1 W4A8 and L
+   decode attention launches a step, no tensor stored in the file (trace,
+   save and load seconds, the file's bytes); a planted fault (W4A8 with
+   each byte's nibbles swapped, as the w4a8_gemv op's CUDA implementation)
+   must fail that check.
 
     python3 chip_smoke.py --serving-kernels [ROOT]
     python3 chip_smoke.py --gpt2-kernels [ROOT]
@@ -336,7 +361,7 @@ unled, with its time at each K split the plan may take), on the port of
 the checkout at ROOT (default: this one): the same script times another
 commit's kernels.
 
-Each engine phase (5b, 8b, 8c, 9b, 9c, 10, 12 and 13 too), and the timed
+Each engine phase (5b, 8b, 8c, 9b, 9c, 10, 12, 13 and 14 too), and the timed
 training steps, sets the launch counters to 0 just before its run and
 reads them just after; a replayed graph adds the launches its capture recorded
 (_build.CapturedLaunches). Each phase prints its seconds. Every flash forward
@@ -6538,6 +6563,327 @@ def vision_phase(failures):
     return summary, launches
 
 
+# ---- phase 14: MNIST, L-BFGS, graph export
+
+# MNIST at its published widths (FC 784-500-10, CNN 8 and 16 channels, 10
+# classes) on the JAX tests' synthetic_digits recipe (a template image per
+# class plus noise 0.3, the CNN's 0.2), drawn on the card at MNIST's
+# training-set size; each net trains for the JAX test's iterations at its
+# learning rate and must pass its accuracy bar
+MNIST_N = 60000
+MNIST_TRAIN = {"fc": (150, 5e-3, 0.95), "cnn": (60, 1e-2, 0.9)}
+# a subset on which the card is held to the port on the CPU: the first 5
+# Adam losses, then L-BFGS's losses and evaluation counts, each difference
+# relative to the CPU's loss but to no less than 1% of its first loss (the
+# FC net's loss falls to ~1e-7 in 3 steps, where the two differ in the last
+# digits: 5.3e-2 of the loss itself in my first card run). The two sum
+# their f32 products in another order (cuBLAS / cuDNN against the host's)
+MNIST_SUBSET = 512
+MNIST_CPU_RTOL = 1e-4
+LBFGS_ITERS = 20
+# an exported model's logits against the eager forward's (the JAX test's)
+EXPORT_TOL = 1e-5
+# 14d: greedy steps replayed from the exported GPT-J-6B decode step
+EXPORT_STEPS = 8
+
+
+def export_dir() -> Path:
+    """Phase 14's files go under the checkout's git-ignored build/."""
+    d = Path(__file__).resolve().parent / "build" / "export"
+    d.mkdir(parents=True, exist_ok=True)
+    return d
+
+
+def mnist_data(gen, kind, n):
+    """synthetic_digits on the card: (images, labels)."""
+    shape, noise = ((784,), 0.3) if kind == "fc" else ((1, 28, 28), 0.2)
+    templates = torch.randn((10,) + shape, generator=gen, device="cuda")
+    labels = torch.randint(0, 10, (n,), generator=gen, device="cuda")
+    images = templates[labels] + noise * torch.randn(
+        (n,) + shape, generator=gen, device="cuda")
+    return images, labels
+
+
+def counted(fwd, calls):
+    """fwd, appending one to calls per call (an evaluation of the loss)."""
+    def run(p, x):
+        calls.append(1)
+        return fwd(p, x)
+    return run
+
+
+def mnist_run(kind, images, labels, device, **kw):
+    """mnist.train from the seed-0 draw on `device`: (params, the loss and
+    the evaluations so far at each iteration, seconds, result)."""
+    from ggml_imax_tpu_torch.models import mnist
+    params = getattr(mnist, f"init_{kind}_params")(np.random.default_rng(0),
+                                                   device=device)
+    calls, seen = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, params = mnist.train(
+        counted(getattr(mnist, f"{kind}_forward"), calls), params,
+        images.to(device), labels.to(device),
+        callback=lambda it, f: seen.append((f, len(calls))), **kw)
+    torch.cuda.synchronize()
+    return params, seen, time.perf_counter() - t0, res
+
+
+def subset_check(label, kind, images, labels, failures, counts=False, **kw):
+    """The card against the port on the CPU on the first MNIST_SUBSET
+    images: every loss within MNIST_CPU_RTOL (and, with counts, the same
+    evaluations at every iteration)."""
+    sub = images[:MNIST_SUBSET], labels[:MNIST_SUBSET]
+    card = mnist_run(kind, *sub, "cuda", **kw)[1]
+    cpu = mnist_run(kind, *sub, "cpu", **kw)[1]
+    floor = 1e-2 * abs(cpu[0][0])
+    err = max(abs(a - b) / max(abs(b), floor)
+              for (a, _), (b, _) in zip(card, cpu))
+    same_n = [n for _, n in card] == [n for _, n in cpu]
+    ok = len(card) == len(cpu) and err <= MNIST_CPU_RTOL and (
+        same_n or not counts)
+    log(f"  {label}: {len(card)} iterations on {MNIST_SUBSET} images, card "
+        f"vs CPU max rel loss diff {err:.3e} (tol {MNIST_CPU_RTOL:.0e}; loss "
+        f"{cpu[0][0]:.4f} -> {cpu[-1][0]:.3e})"
+        + (f", evaluations equal {same_n}" if counts else "")
+        + f" -> {'holds' if ok else 'FAILS'}")
+    if not ok:
+        failures.append(f"{label}: card vs CPU {err:.3e}, {len(card)} vs "
+                        f"{len(cpu)} iterations, evaluations equal {same_n}")
+    return err
+
+
+def mnist_train_phase(failures, gen):
+    """14a: both nets trained with Adam on MNIST_N images on the card."""
+    from ggml_imax_tpu_torch.models import mnist
+    out, trained = {}, {}
+    for kind in ("fc", "cnn"):
+        n_iter, lr, bar = MNIST_TRAIN[kind]
+        images, labels = mnist_data(gen, kind, MNIST_N)
+        err = subset_check(f"14a MNIST {kind} Adam", kind, images, labels,
+                           failures, n_iter=5, lr=lr)
+        params, seen, dt, res = mnist_run(kind, images, labels, "cuda",
+                                          n_iter=n_iter, lr=lr)
+        acc = mnist.accuracy(getattr(mnist, f"{kind}_forward"), params,
+                             images, labels)
+        ms = dt * 1e3 / len(seen)
+        log(f"  14a MNIST {kind}: {len(seen)} Adam iterations ({res.name}) "
+            f"on {MNIST_N} images, {ms:.3f} ms an iteration, loss "
+            f"{seen[0][0]:.4f} -> {seen[-1][0]:.6f}, accuracy {acc:.4f} "
+            f"(bar {bar})")
+        if not acc > bar:
+            failures.append(f"14a MNIST {kind}: accuracy {acc:.4f} <= {bar}")
+        out[kind] = {"iterations": len(seen), "ms_per_iteration": ms,
+                     "loss_first": seen[0][0], "loss_last": seen[-1][0],
+                     "accuracy": acc, "subset_rel_err": err}
+        trained[kind] = (params, images[:1024].clone())
+        del images, labels
+        torch.cuda.empty_cache()
+    return out, trained
+
+
+def lbfgs_phase(failures, gen):
+    """14b: test_optimize.py's least squares, then MNIST FC with L-BFGS."""
+    from ggml_imax_tpu_torch.optimize import default_params, opt
+    rng = np.random.default_rng(1234)
+    a = torch.from_numpy(rng.standard_normal((32, 8)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(32).astype(np.float32))
+    x0 = torch.from_numpy(rng.standard_normal(8).astype(np.float32))
+    x_star = np.linalg.lstsq(a.numpy(), b.numpy(), rcond=None)[0]
+    a, b = a.cuda(), b.cuda()
+    p = default_params("lbfgs")
+    res, x, ctx = opt(lambda x: torch.mean((a @ x - b) ** 2), x0.cuda(), p)
+    err = float(np.abs(x.detach().cpu().numpy() - x_star).max())
+    evals = [i["num_linesearch_steps"] + 1 for i in ctx.opt_state["info"]]
+    log(f"  14b least squares: {res.name} in {ctx.iter} iterations, "
+        f"evaluations {evals}, max |x - x*| {err:.2e} (tol 1e-3)")
+    if not err <= 1e-3:
+        failures.append(f"14b least squares: |x - x*| {err:.3e} > 1e-3")
+    po = default_params("lbfgs")
+    po.lbfgs.n_iter = LBFGS_ITERS
+    images, labels = mnist_data(gen, "fc", MNIST_N)
+    sub_err = subset_check("14b MNIST fc L-BFGS", "fc", images, labels,
+                           failures, counts=True, params_opt=po)
+    _, seen, dt, res = mnist_run("fc", images, labels, "cuda", params_opt=po)
+    per_iter = np.diff([0] + [n for _, n in seen]).tolist()
+    log(f"  14b MNIST fc L-BFGS on {MNIST_N} images: {len(seen)} iterations "
+        f"({res.name}), loss {seen[0][0]:.4f} -> {seen[-1][0]:.3e}, "
+        f"evaluations per iteration {per_iter} ({sum(per_iter)} in all), "
+        f"{dt * 1e3 / sum(per_iter):.3f} ms an evaluation")
+    if not seen[-1][0] < seen[0][0]:
+        failures.append(f"14b MNIST fc L-BFGS: the loss did not fall "
+                        f"({seen[0][0]} -> {seen[-1][0]})")
+    return {"lstsq_iterations": ctx.iter, "lstsq_evaluations": evals,
+            "lstsq_err": err, "mnist_iterations": len(seen),
+            "mnist_evaluations": per_iter, "mnist_loss_first": seen[0][0],
+            "mnist_loss_last": seen[-1][0], "subset_rel_err": sub_err,
+            "ms_per_evaluation": dt * 1e3 / sum(per_iter)}
+
+
+def export_mnist_phase(trained, failures):
+    """14c: each trained net through export_model and load_model."""
+    from ggml_imax_tpu_torch.models import mnist
+    out = {}
+    for kind, (params, x) in trained.items():
+        path = export_dir() / f"mnist-{kind}.gitg"
+        info = mnist.export_model(getattr(mnist, f"{kind}_forward"), params,
+                                  x, path)
+        t0 = time.perf_counter()
+        run = mnist.load_model(path)
+        load_s = time.perf_counter() - t0
+        path.unlink()
+        got = run(x)
+        with torch.no_grad():
+            want = getattr(mnist, f"{kind}_forward")(params, x)
+        err = abs_err(got, want)
+        ok = got.is_cuda and err <= EXPORT_TOL
+        log(f"  14c MNIST {kind} exported at batch {x.shape[0]}: "
+            f"{info['bytes']} bytes, trace {info['trace_s']:.2f} s, save "
+            f"{info['save_s']:.2f} s, load {load_s:.2f} s; reloaded logits "
+            f"vs eager max |diff| {err:.3e} (tol {EXPORT_TOL:.0e}) -> "
+            f"{'holds' if ok else 'FAILS'}")
+        if not ok:
+            failures.append(f"14c MNIST {kind}: reloaded logits {err:.3e} "
+                            f"from the eager forward")
+        out[kind] = dict(info, load_s=load_s, max_abs_err=err)
+    return out
+
+
+def mnist_phase(failures):
+    """Phase 14a-14c. Returns (summary, launch counts by run: no kernel
+    lies on these paths, so they stay 0)."""
+    from ggml_imax_tpu_torch import _build
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    launches = {}
+    _build.reset_launches()
+    summary, trained = mnist_train_phase(failures, gen)
+    launches["mnist_train"] = dict(_build.LAUNCHES)
+    _build.reset_launches()
+    summary["lbfgs"] = lbfgs_phase(failures, gen)
+    launches["mnist_lbfgs"] = dict(_build.LAUNCHES)
+    _build.reset_launches()
+    summary["export"] = export_mnist_phase(trained, failures)
+    launches["mnist_export"] = dict(_build.LAUNCHES)
+    return summary, launches
+
+
+def swapped_nibbles_w4a8():
+    """14d's control: natpair_faults' swapped nibbles on the W4A8 GEMV,
+    the kernel the exported step's w4a8_gemv op launches."""
+    from dataclasses import replace
+
+    from ggml_imax_tpu_torch.ops import qmm
+    real = qmm.w4a8_gemv
+
+    def fault(x8, dx, qt, xs=None):
+        q = ((qt.q & 0x0F) << 4) | (qt.q >> 4)
+        return real(x8, dx, replace(qt, q=q.contiguous()), xs)
+    return [(qmm, "w4a8_gemv", fault)]
+
+
+def exported_gptj_step(cfg, params, runs, failures):
+    """14d, on phase 4's prepared GPT-J-6B weights: the decode step
+    exported with the kernels' ops (the weights and the KV arena are
+    arguments), saved, loaded, and replayed EXPORT_STEPS greedy steps after
+    the eager prefill of phase 4's first prompt, against the eager steps
+    (Engine.decode_step) from the same arena. Returns (summary, the
+    replay's launch counts)."""
+    from ggml_imax_tpu_torch import _build
+    from ggml_imax_tpu_torch.io.graph_export import (export_graph,
+                                                     load_graph,
+                                                     stored_tensor_bytes)
+    from ggml_imax_tpu_torch.models import gptj
+    from ggml_imax_tpu_torch.models.common import KVCache
+    from ggml_imax_tpu_torch.runtime.engine import Engine
+    _, prompts, outs, _ = runs
+    eng = Engine(gptj, cfg, params, n_ctx=ENGINE_CTX)
+    lg, prefilled = eng.prefill(eng.new_cache(), np.asarray([prompts[0]]))
+    first, n0 = int(lg[0].argmax()), len(prompts[0])
+    copy = lambda c: KVCache(c.k.clone(), c.v.clone(), heads=c.heads)
+    eager, replay, faulty = prefilled, copy(prefilled), copy(prefilled)
+    want, toks = [], [first]
+    for i in range(EXPORT_STEPS):
+        lg, eager = eng.decode_step(eager, np.asarray([toks[-1]]), n0 + i)
+        want.append(torch.from_numpy(lg[0]))
+        toks.append(int(lg[0].argmax()))
+
+    def step(params, tok, pos, cache, n_past):
+        return gptj.forward(cfg, params, tok, pos, cache, n_past)
+
+    dev = lambda v: torch.tensor(v, device="cuda")
+    path = export_dir() / "gptj-6b-step.gitg"
+    info = export_graph(step, (params, dev([[first]]), dev([[n0]]),
+                               eng.new_cache(), dev(n0)), path)
+    stored = stored_tensor_bytes(path)
+    t0 = time.perf_counter()
+    run = load_graph(path)
+    load_s = time.perf_counter() - t0
+    path.unlink()
+
+    def replayed(cache):
+        logits, picks = [], [first]
+        for i in range(EXPORT_STEPS):
+            lg, _ = run(params, dev([[picks[-1]]]), dev([[n0 + i]]), cache,
+                        dev(n0 + i))
+            logits.append(lg[0, 0].cpu())
+            picks.append(int(logits[-1].argmax()))
+        return logits, picks
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    got, picks = replayed(replay)
+    replay_s = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    L = cfg.n_layer
+    check_counts(counts, {"w4a8_gemv": EXPORT_STEPS * (2 * L + 1),
+                          "decode_attention": EXPORT_STEPS * L}, failures)
+    weights = sum(t.numel() * t.element_size()
+                  for t in torch.utils._pytree.tree_leaves(params)
+                  if isinstance(t, torch.Tensor))
+    bit_equal = all(torch.equal(g, w) for g, w in zip(got, want))
+    err = max(rel_err(g, w) for g, w in zip(got, want))
+    same_arena = torch.equal(replay.k, eager.k) and torch.equal(replay.v,
+                                                                eager.v)
+    ref = outs[0][:EXPORT_STEPS + 1]
+    log(f"  14d GPT-J-6B decode step exported: trace {info['trace_s']:.2f} "
+        f"s, save {info['save_s']:.2f} s, load {load_s:.2f} s; artifact "
+        f"{info['bytes']} bytes, tensors stored in it {stored} bytes "
+        f"(weights passed as arguments: {weights} bytes)")
+    log(f"  14d replay of {EXPORT_STEPS} greedy steps from prompt 0 ({n0} "
+        f"tokens): {replay_s * 1e3 / EXPORT_STEPS:.2f} ms a step; tokens "
+        f"{picks}, equal to phase 4's eager run {picks == ref} and to the "
+        f"eager steps {picks == toks}; logits bit-equal {bit_equal} (max "
+        f"rel diff {err:.3e}), arena bit-equal {same_arena}; launches "
+        f"{ {k: n for k, n in counts.items() if n} }")
+    if not (picks == ref == toks and bit_equal and same_arena):
+        failures.append(f"14d: the replayed step parts from the eager one "
+                        f"(tokens {picks} vs {ref}, logits bit-equal "
+                        f"{bit_equal}, max rel {err:.3e}, arena {same_arena})")
+    if stored or info["bytes"] > weights / 100:
+        failures.append(f"14d: the artifact stores {stored} bytes of tensors "
+                        f"({info['bytes']} bytes in all)")
+    with patched(swapped_nibbles_w4a8()):
+        bad, bad_picks = replayed(faulty)
+    bad_err = max(rel_err(g, w) for g, w in zip(bad, want))
+    caught = bad_err > ROUTE_TOL or bad_picks != toks
+    log(f"  control: W4A8 with each byte's nibbles swapped as the w4a8_gemv "
+        f"op's CUDA implementation: max rel logit diff {bad_err:.3e}, tokens "
+        f"equal {bad_picks == toks} -> the replay check "
+        f"{'fails, as it must' if caught else 'HOLDS'}")
+    if not caught:
+        failures.append("14d: the planted W4A8 fault passed the replay check")
+    del run, replay, faulty, eng
+    torch.cuda.empty_cache()
+    return {"trace_s": info["trace_s"], "save_s": info["save_s"],
+            "load_s": load_s, "artifact_bytes": info["bytes"],
+            "stored_tensor_bytes": stored, "weight_bytes": weights,
+            "replay_ms_per_step": replay_s * 1e3 / EXPORT_STEPS,
+            "logits_bit_equal": bit_equal, "max_rel_err": err,
+            "control_rel_err": bad_err}, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6674,6 +7020,15 @@ def main() -> int:
     launches.update(by_run)
     if failures:
         raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
+    # ---- 14d. the decode step exported and replayed, on these weights
+    log("# phase 14d: GPT-J-6B Q4_0 decode step through torch.export "
+        "(export_graph / load_graph, the kernels as custom ops)")
+    t14 = time.time()
+    engines["gptj_exported"], launches["gptj_exported"] = exported_gptj_step(
+        cfg, params, runs, failures)
+    if failures:
+        raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
+    log(f"# phase 14d: {time.time() - t14:.1f} s")
     del params, runs                       # runs holds copies of the arena
     torch.cuda.empty_cache()
     log(f"# phase 4: {time.time() - t0:.1f} s")
@@ -6853,9 +7208,19 @@ def main() -> int:
         raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
     launches.update(by_run)
     log(f"# phase 13: {time.time() - t0:.1f} s")
-    log("# phases run: 1, 2, 3, 4, 5, 5b, 6, 7, 8, 8b, 8c, 9, 9b, 9c, 10, 11, "
-        "12, 13")
-    log(f"# phases 1-13: {time.time() - t_start:.1f} s")
+
+    # ---- 14. MNIST, L-BFGS and graph export (14d ran inside phase 4)
+    log(f"# phase 14: MNIST FC 784-500-10 and CNN 8/16 on {MNIST_N} images "
+        "(Adam), L-BFGS, export_model / load_model")
+    t0 = time.time()
+    engines["mnist"], by_run = mnist_phase(failures)
+    if failures:
+        raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
+    launches.update(by_run)
+    log(f"# phase 14: {time.time() - t0:.1f} s")
+    log("# phases run: 1, 2, 3, 4, 14d, 5, 5b, 6, 7, 8, 8b, 8c, 9, 9b, 9c, "
+        "10, 11, 12, 13, 14")
+    log(f"# phases 1-14: {time.time() - t_start:.1f} s")
 
     kernels = []
     for k in KERNELS:

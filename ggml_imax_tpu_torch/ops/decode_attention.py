@@ -201,8 +201,12 @@ def decode_attention(cache, li: int, q, mask, *, scale=None):
                      .float(), min=NEG)
     args = (q.reshape(B, Hq, D), *_arena_args(cache, li), m2, cache.heads,
             float(scale))
-    fn = decode_attention_plain if q.device.type == "cpu" \
-        else decode_attention_kernel
+    if torch.compiler.is_exporting():        # a traced graph holds the op
+        from . import library
+        fn = library.decode_attention
+    else:
+        fn = decode_attention_plain if q.device.type == "cpu" \
+            else decode_attention_kernel
     return fn(*args).reshape(B, 1, Hq, D)
 
 
@@ -323,8 +327,12 @@ def _update(cache, li, q, k_new, v_new, rows, m2, scale):
                  v_new.reshape(NB, -1).to(cache.v.dtype), None, None)
     args = (q.reshape(NB, Hq, D), *_arena_args(cache, li), *fresh, m2,
             rows.reshape(NB), cache.heads, float(scale))
-    fn = decode_attention_update_plain if q.device.type == "cpu" \
-        else decode_attention_update_kernel
+    if torch.compiler.is_exporting():        # a traced graph holds the op
+        from . import library
+        fn = library.decode_attention_update
+    else:
+        fn = decode_attention_update_plain if q.device.type == "cpu" \
+            else decode_attention_update_kernel
     return fn(*args), cache
 
 

@@ -446,7 +446,10 @@ def qmatmul_natpair(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
         xs = None
         if qt.bias is not None:
             xs = dx[:, 0] * x8[:, 0].float().sum(-1)
-        out = w4a8_gemv(x8[:, 0], dx[:, 0], qt, xs)[None]
+        gemv = w4a8_gemv
+        if torch.compiler.is_exporting():    # a traced graph holds the op
+            from .library import w4a8_gemv as gemv
+        out = gemv(x8[:, 0], dx[:, 0], qt, xs)[None]
     else:
         out = w4a16_gemm(x2, qt)
     return out.reshape(*lead, qt.n)

@@ -2973,3 +2973,106 @@ def test_magika_on_card_matches_cpu(card):
     ref = magika.forward(host, magika.file_tokens(data)[None])
     assert got.is_cuda
     assert float((got.cpu() - ref).abs().max()) <= 1e-5
+
+
+# ---- the kernels' custom ops and graph export (ops/library.py,
+# io/graph_export.py)
+
+
+def test_library_ops_on_card_equal_the_wrappers(gen):
+    """Each op's CUDA implementation is the wrapper's launch: equal bits,
+    one launch counted."""
+    from ggml_imax_tpu_torch.ops import library
+    qt = natpair(4096, 1280, gen)
+    x8, dx = qmm.quantize_activations_q8(
+        torch.randn(1, 4096, generator=gen, device="cuda"))
+    cases = [("w4a8_gemv", lambda: library.w4a8_gemv(x8[:, 0], dx[:, 0], qt),
+              lambda: qmm.w4a8_gemv(x8[:, 0], dx[:, 0], qt))]
+    cache = init_kv_cache(1, 1, 512, 16, 256, torch.bfloat16, device="cuda")
+    cache.k.copy_(torch.randn(cache.k.shape, generator=gen, device="cuda"))
+    cache.v.copy_(torch.randn(cache.v.shape, generator=gen, device="cuda"))
+    q3 = torch.randn(1, 16, 256, generator=gen, device="cuda")
+    m2 = torch.where(torch.arange(512, device="cuda")[None] < 300, 0.0,
+                     da.NEG).float()
+    args = (q3, cache.k[0], cache.v[0], None, None, m2, 16, 0.0625)
+    cases.append(("decode_attention", lambda: library.decode_attention(*args),
+                  lambda: da.decode_attention_kernel(*args)))
+    kn = torch.randn(1, 4096, generator=gen, device="cuda").bfloat16()
+    vn = torch.randn(1, 4096, generator=gen, device="cuda").bfloat16()
+    rows = torch.tensor([300], device="cuda")
+    arenas = [c.clone() for c in (cache.k[0], cache.v[0]) for _ in range(2)]
+
+    def upd(fn, k, v):
+        return fn(q3, k, v, None, None, kn, vn, None, None, m2, rows, 16,
+                  0.0625)
+    cases.append(("decode_attention_update",
+                  lambda: upd(library.decode_attention_update, arenas[0],
+                              arenas[2]),
+                  lambda: upd(da.decode_attention_update_kernel, arenas[1],
+                              arenas[3])))
+    for name, via_op, direct in cases:
+        _build.reset_launches()
+        got = via_op()
+        assert _build.LAUNCHES[name] == 1, name
+        assert torch.equal(got, direct()), name
+    assert torch.equal(arenas[0], arenas[1]) and torch.equal(arenas[2],
+                                                             arenas[3])
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_exported_gptj_step_on_card_equals_eager(gen, tmp_path, fused):
+    """The small GPT-J decode step exported on the card and reloaded: the
+    eager step's logits and arena bit for bit over 4 greedy steps, and per
+    step 2 L + 1 W4A8 launches and L decode attention launches of the
+    route taken."""
+    from ggml_imax_tpu_torch.io.graph_export import export_graph, load_graph
+    cfg = gptj.GPTJConfig(n_vocab=640, n_ctx=32, n_embd=256, n_head=2,
+                          n_layer=2, n_rot=32)
+    params = qmm.params_repack(gptj.prepare_fused(
+        gptj.synthetic_params(cfg, seed=31), cfg))
+
+    def step(params, tok, pos, cache, n_past):
+        return gptj.forward(cfg, params, tok, pos, cache, n_past,
+                            fused_kv_update=fused)
+
+    dev = lambda v: torch.tensor(v, device="cuda")
+    path = tmp_path / "step.gitg"
+    export_graph(step, (params, dev([[5]]), dev([[0]]), gptj.init_cache(cfg),
+                        dev(0)), path)
+    run = load_graph(path)
+    assert run.header["device"] == "cuda"
+    eager, replay = gptj.init_cache(cfg), gptj.init_cache(cfg)
+    tok = dev([[5]])
+    attn = "decode_attention_update" if fused else "decode_attention"
+    for i in range(4):
+        want, _ = step(params, tok, dev([[i]]), eager, dev(i))
+        _build.reset_launches()
+        got, _ = run(params, tok, dev([[i]]), replay, dev(i))
+        torch.cuda.synchronize()
+        assert {k: n for k, n in _build.LAUNCHES.items() if n} == {
+            "w4a8_gemv": 2 * cfg.n_layer + 1, attn: cfg.n_layer}
+        assert torch.equal(got, want)
+        assert torch.equal(replay.k, eager.k) and torch.equal(replay.v,
+                                                              eager.v)
+        tok = want[:, -1].argmax(-1, keepdim=True)
+
+
+def test_reloaded_cnn_on_card_equals_eager(card, tmp_path):
+    """A reloaded CNN runs its convolutions with cuDNN's TF32 off, as the
+    eager forward does (load_graph's replay flag), and leaves the global
+    flag as it found it."""
+    from ggml_imax_tpu_torch.models import mnist
+    params = mnist.init_cnn_params(np.random.default_rng(0))
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (64, 1, 28, 28)).astype(np.float32)).cuda()
+    path = tmp_path / "cnn.gitg"
+    mnist.export_model(mnist.cnn_forward, params, x, path)
+    run = mnist.load_model(path)
+    before = torch.backends.cudnn.allow_tf32
+    got = run(x)
+    assert torch.backends.cudnn.allow_tf32 == before
+    with torch.no_grad():
+        want = mnist.cnn_forward(params, x)
+    assert got.is_cuda
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, want)

@@ -151,9 +151,3 @@ def test_frozen_quantized_weights_are_not_leaves():
     assert [t is x for t, x in zip(leaves, (dense.q, tree["b"]))] == [True, True]
     assert len(leaves) == 2
 
-
-def test_lbfgs_is_not_ported():
-    p = topt.default_params("lbfgs")
-    assert p.past == 0 and p.max_no_improvement == 0
-    with pytest.raises(NotImplementedError):
-        topt.opt(lambda x: (x * x).sum(), torch.ones(2), p)
