@@ -13,7 +13,9 @@ the quantization tools: LLaMA-2 7B F16 -> Q4_0 and its perplexity, GPT-2
 117M's imatrix, IQ encoders and W4A8 quality rows; then Magika,
 YOLOv3-tiny and SAM ViT-B from model files; then MNIST's FC net and CNN
 trained (Adam and L-BFGS) and exported, and GPT-J-6B's decode step
-exported and replayed from the saved graph.
+exported and replayed from the saved graph; then the parallel paths:
+GPT-J-6B and LLaMA-2 7B tensor-parallel decode, the ring prefill, a
+pipeline and a sharded GGUF load, as two gloo processes sharing the card.
 
     python3 chip_smoke.py
 
@@ -66,7 +68,10 @@ Phases (any failure exits nonzero and prints no result line):
    (phase 10): flash with no mask at Tq = Tk = 1500 (padded keys 1536) over
    12 and 16 heads of 64 and at B 5, Tq 4, Tk 1500, nat8 W8A16 on Q5_0
    weights at mlp0_w M 1500 and qkv_w M 20 and 5, W8A8 on the head padded
-   to 768 x 51968, and conv_1d against f64 (f32, not TF32)), with its
+   to 768 x 51968, and conv_1d against f64 (f32, not TF32)); phase 15's
+   local shapes (check_parallel_kernels: GPT-J-6B and LLaMA-2 7B tp 2's
+   W4A8 and W4A16 at M 448, decode attention and flash at the local
+   heads, the pipeline's MLP products at M 128), with its
    time (CUDA
    events, L2 flushed before each launch), the plain version's time, one
    PyTorch library call computing the same function (a yardstick only: the
@@ -352,6 +357,33 @@ Phases (any failure exits nonzero and prints no result line):
    each byte's nibbles swapped, as the w4a8_gemv op's CUDA implementation)
    must fail that check.
 
+15. the parallel paths (parallel/tp.py, ring_attention.py, pipeline.py,
+   io/sharded.py): PARALLEL_RANKS processes spawned by
+   parallel.distributed.spawn over gloo (NCCL refuses two ranks on one
+   device), every rank on cuda:0, a file:// rendezvous under
+   build/parallel; the rank bodies are this script's functions. 15a
+   GPT-J-6B tp 2 at full width and depth: phase 4's draw, prepare_fused;
+   rank 0 runs the single-device reference (phase 4's first prompt, then
+   TP_STEPS greedy steps, bf16 and q8_0 arenas), every rank shards
+   (shard_params_tp), frees the whole, repacks its shard and runs
+   forward_tp fed the reference's tokens: check_forced at TP_TOL, every
+   rank's logits equal, exact launches; a planted fault (rank 1's partial
+   left out of one all_reduce) must fail. 15b LLaMA-2 7B Q4_K tp 2
+   (TP_LLAMA_LAYERS layers, fuse_gate_up(pad_multiple=1), bf16 scales)
+   the same way at TP_LLAMA_TOL; the fault: gu_w cut without its
+   component order. 15c the ring prefill, tp 1 x sp 2, of a RING_CTX-token
+   prompt: each rank's logits rows and arena chunk against the
+   single-device prefill (RING_TOL); the fault: kpos not rotated. 15d
+   GPipe, 2 stages of PIPE_BLOCKS GPT-J-6B MLP blocks (W4A16 at M
+   PIPE_ROWS) over PIPE_MICRO micro-batches, bit-equal to the stages run
+   in sequence in one process; the fault: the stage order swapped. 15e
+   load_qtensor_sharded of a Q4_K 4096 x 32000 head from a GGUF written
+   under build/parallel (deleted after): each rank's half bit-equal to the
+   whole load's columns. The backend, world size and the point-to-point
+   route are printed; times are two processes time-sharing one H100, not
+   a scaling measurement. The kernels line counts each path's launches
+   summed over the ranks (tp_gptj, tp_llama, ring_prefill, pipeline).
+
     python3 chip_smoke.py --serving-kernels [ROOT]
     python3 chip_smoke.py --gpt2-kernels [ROOT]
 
@@ -361,7 +393,7 @@ unled, with its time at each K split the plan may take), on the port of
 the checkout at ROOT (default: this one): the same script times another
 commit's kernels.
 
-Each engine phase (5b, 8b, 8c, 9b, 9c, 10, 12, 13 and 14 too), and the timed
+Each engine phase (5b, 8b, 8c, 9b, 9c, 10, 12, 13, 14 and 15's ranks too), and the timed
 training steps, sets the launch counters to 0 just before its run and
 reads them just after; a replayed graph adds the launches its capture recorded
 (_build.CapturedLaunches). Each phase prints its seconds. Every flash forward
@@ -1380,7 +1412,7 @@ def check_kquant_kernels(ck, timer, gen):
 def q4k_natpair(K, N, gen):
     """A Q4_K weight as models/llama.synthetic_params_device draws it,
     repacked to natpair with bf16 scales and bias (params_repack's
-    scale_dtype), as phase 9 runs it."""
+    scale_dtype, which also picks its K tag), as phase 9 runs it."""
     from ggml_imax_tpu_torch.ops import qmm
     from ggml_imax_tpu_torch.quant.device import QTensor
     from ggml_imax_tpu_torch.quant.formats import GGMLType
@@ -1390,9 +1422,8 @@ def q4k_natpair(K, N, gen):
         .mul_(0.02 / 9)
     b = torch.randn((K // 32, N), generator=gen, device="cuda").abs_() \
         .mul_(-0.02 / 3)
-    return qmm.repack_natpair(QTensor("nib4", q, s, b, K, N, GGMLType.Q4_K),
-                              512 if K % 512 == 0 else 256,
-                              scale_dtype=torch.bfloat16)
+    return qmm.params_repack(QTensor("nib4", q, s, b, K, N, GGMLType.Q4_K),
+                             scale_dtype=torch.bfloat16)
 
 
 def check_llama_kernels(ck, timer, gen):
@@ -6884,6 +6915,627 @@ def exported_gptj_step(cfg, params, runs, failures):
             "control_rel_err": bad_err}, counts
 
 
+# Phase 15: the parallel paths (parallel/tp.py, ring_attention.py,
+# pipeline.py, io/sharded.py) as PARALLEL_RANKS processes that share the one
+# card over gloo (NCCL refuses two ranks on one device): each rank's kernels
+# at its local (sharded) shapes and the collectives in their places, held
+# to the single-device runs. Its times are two processes time-sharing one
+# H100, not a scaling measurement.
+PARALLEL_RANKS = 2
+# 15a / 15b: phase 4's first prompt, then TP_STEPS greedy steps
+TP_STEPS = 8
+# 15b's depth: LLaMA-2 7B's 32 layers
+TP_LLAMA_LAYERS = 32
+# 15c: the ring prefill's context, tp 1 x sp PARALLEL_RANKS
+RING_CTX = 1024
+# 15d: two stages of GPipe, each PIPE_BLOCKS GPT-J-6B MLP blocks, over
+# PIPE_MICRO micro-batches of PIPE_ROWS rows
+PIPE_BLOCKS, PIPE_MICRO, PIPE_ROWS = 4, 4, 128
+# 15e: a Q4_K LM head (ggml ne (4096, 32000)) written by GGUFWriter, each
+# rank loading its half of the rows
+SHARD_NE = (4096, 32000)
+# the ranks' spawn, run and check, in seconds
+PARALLEL_TIMEOUT = 600
+# 15a: the TP pass fed the single-device run's tokens, held to it as
+# check_forced holds a pass (this share of the largest |logit|, picks equal
+# but at near-ties). The two sum of_w's partials in another order, which
+# flips bf16 and int8 activation roundings downstream, as phase 6's sound
+# routes (up to 1.66%). Readings of this script on an H100 (PERF.md):
+# sound up to 1.9% (the picks equal but at a near-tie, top-2 margin
+# 0.0015, where a greedy pass parts), the planted fault (rank 1's partial
+# left out of one layer's all_reduce) 20%. ROUTE_TOL lies between.
+TP_TOL = ROUTE_TOL
+# 15b: as 15a for LLaMA-2 7B. The structural draw's logits barely move
+# (largest |logit| ~51): readings on an H100 sound 2.2e-7, the planted
+# fault (gu_w's columns cut without the component order) 1.3e-4 and more.
+# 5e-6 is 23x the one and 1/26 of the other.
+TP_LLAMA_TOL = 5e-6
+# 15c: the ring prefill's logits (share of the largest |logit|) and arena
+# (of its largest |value|) against the single-device prefill (f32 ring
+# attention against bf16 flash). Readings on an H100: sound 5.3-6.1e-3,
+# the planted fault (kpos not rotated with its keys) 0.45-0.59. ROUTE_TOL
+# is 6x the one and 1/13 of the other.
+RING_TOL = ROUTE_TOL
+
+
+def parallel_dir() -> Path:
+    """Phase 15's file and rendezvous go under the checkout's git-ignored
+    build/."""
+    d = Path(__file__).resolve().parent / "build" / "parallel"
+    d.mkdir(parents=True, exist_ok=True)
+    return d
+
+
+def first_prompt(n_vocab: int) -> list:
+    """Phase 4's first request prompt (serve()'s draw) for a vocab."""
+    rng = np.random.default_rng(0)
+    rng.integers(0, n_vocab, PROMPT)                  # the warm-up prompt
+    return [int(t) for t in rng.integers(0, n_vocab, PROMPT)]
+
+
+def decode_case(ck, timer, gen, label, H, D, T):
+    """Decode attention over one layer of a T-row arena at H kv heads of D,
+    bf16 and q8_0, against its plain version (led), as phase 2 times it."""
+    from ggml_imax_tpu_torch.models.common import init_kv_cache, update_kv
+    from ggml_imax_tpu_torch.ops import decode_attention as da
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    scale, n_past = 1.0 / math.sqrt(D), T - 13
+    visible = torch.arange(T, device="cuda")[None] <= n_past
+    mask = torch.where(visible, 0.0, da.NEG)
+    for kv in (torch.bfloat16, "q8_0"):
+        cache = init_kv_cache(2, 1, T, H, D, kv, device="cuda")
+        kk, vv = (torch.randn(1, T, H, D, generator=gen, device="cuda")
+                  for _ in range(2))
+        update_kv(cache, 1, kk, vv, 0)
+        q = torch.randn(1, H, D, generator=gen, device="cuda")
+        args = (q, cache.k[1], cache.v[1],
+                None if cache.ks is None else cache.ks[1],
+                None if cache.vs is None else cache.vs[1], mask, H, scale)
+        kb, vb = (t.to(torch.bfloat16).permute(0, 2, 1, 3).contiguous()
+                  for t in (kk, vv))
+        qb = q.to(torch.bfloat16)[:, :, None]
+        elt = 2 if cache.ks is None else 1 + 4 / 32
+        ck.record("decode_attention",
+                  f"{label} {'bf16' if cache.ks is None else 'q8_0'} B=1 "
+                  f"H={H} D={D} T={T} S={da.decode_plan(1, H, T)}",
+                  da.decode_attention_kernel(*args),
+                  da.decode_attention_plain(*args), 1e-2,
+                  timer(lambda: da.decode_attention_kernel(*args), iters=50,
+                        lead=True),
+                  timer(lambda: da.decode_attention_plain(*args), iters=5,
+                        lead=True),
+                  timer(lambda: sdpa(qb, kb, vb,
+                                     attn_mask=visible[:, None, None]),
+                        iters=50, lead=True),
+                  H * D * 4 + 2 * T * H * D * elt + T * 4 + H * D * 4,
+                  4 * H * T * D, PEAK_BF16)
+        del cache
+
+
+def check_parallel_kernels(ck, timer, gen):
+    """Rows 1-6 at phase 15's local shapes, each against its plain version
+    and timed as phase 2 times them: GPT-J-6B tp 2 (natpair W4A8 at m 1 and
+    W4A16 at the prompt's M 448 on qkvf_w 4096x14336, of_w 10240x4096 and
+    the head 4096x25600; decode attention at 8 kv heads of 256 over 512
+    rows; flash 448 x 512 over 8 heads of 256), LLaMA-2 7B Q4_K tp 2 (bf16
+    scales and bias, the same M on qkv_w 4096x6144, o_w 2048x4096, gu_w
+    4096x11008, down_w 5504x4096 and the head 4096x16000; decode attention
+    at 16 kv heads of 128; flash over 16 heads of 128) and the pipeline's
+    MLP blocks (W4A16 at M 128 on fc_in 4096x16384 and fc_out
+    16384x4096)."""
+    E, tp = GPTJ_6B["n_embd"], PARALLEL_RANKS
+    for label, (K, N) in {"qkvf_w": (E, 7 * E // tp),
+                          "of_w": (5 * E // tp, E),
+                          "lm_head": (E, 51200 // tp)}.items():
+        time_instance(ck, timer, gen, f"tp{tp} gptj {label}",
+                      random_natpair(K, N, gen), (1, PROMPT))
+    for label, (K, N) in {"fc_in_w": (E, 4 * E),
+                          "fc_out_w": (4 * E, E)}.items():
+        time_instance(ck, timer, gen, f"pipeline {label}",
+                      random_natpair(K, N, gen), (PIPE_ROWS,))
+    F, V = LLAMA2_7B["n_ff"], LLAMA2_7B["n_vocab"]
+    for label, (K, N) in {"qkv_w": (E, 3 * E // tp), "o_w": (E // tp, E),
+                          "gu_w": (E, 2 * F // tp), "down_w": (F // tp, E),
+                          "output": (E, V // tp)}.items():
+        time_instance(ck, timer, gen, f"tp{tp} llama {label}",
+                      q4k_natpair(K, N, gen), (1, PROMPT))
+    decode_case(ck, timer, gen, f"tp{tp} gptj", GPTJ_6B["n_head"] // tp, 256,
+                ENGINE_CTX)
+    decode_case(ck, timer, gen, f"tp{tp} llama", LLAMA2_7B["n_head"] // tp,
+                128, ENGINE_CTX)
+    for label, H, D in (("gptj", GPTJ_6B["n_head"] // tp, 256),
+                        ("llama", LLAMA2_7B["n_head"] // tp, 128)):
+        flash_case(ck, timer, gen, f"tp{tp} {label} B=1 Tq={PROMPT} "
+                   f"Tk={ENGINE_CTX} H={H} D={D}", 1, PROMPT, ENGINE_CTX, H,
+                   H, D, {}, timed=True, q_off=0)
+
+
+def greedy_run(fwd, cache, prompt, n_steps, feed=None):
+    """prompt, then n_steps decode steps through fwd(tokens, positions,
+    cache, n_past) on the card, each fed the previous pick (or feed[i], a
+    teacher-forced pass): (each forward's pick, its last-row logits as
+    (1, V) host f32 numpy, the prefill's ms, each step's ms)."""
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, cache = fwd(torch.tensor([prompt], device=dev),
+                    torch.arange(len(prompt), device=dev)[None], cache, 0)
+    toks, logs = [int(lg[0, -1].argmax())], [lg[0, -1:].float().cpu().numpy()]
+    pre_ms, step_ms = (time.perf_counter() - t0) * 1e3, []
+    for i in range(n_steps):
+        n = len(prompt) + i
+        t0 = time.perf_counter()
+        fed = toks[-1] if feed is None else feed[i]
+        lg, cache = fwd(torch.tensor([[fed]], device=dev),
+                        torch.tensor([[n]], device=dev), cache, n)
+        toks.append(int(lg[0, -1].argmax()))
+        logs.append(lg[0, -1:].float().cpu().numpy())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return toks, logs, pre_ms, step_ms
+
+
+def reference_tokens(rank, toks):
+    """Rank 0's single-device tokens on every rank (broadcast_object_list;
+    the TP passes are fed them), once the ranks meet."""
+    import torch.distributed as dist
+    box = [toks if rank == 0 else None]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def with_launches(fn):
+    """fn()'s result and the launches it made (the counters set to 0 just
+    before, read just after)."""
+    from ggml_imax_tpu_torch import _build
+    _build.reset_launches()
+    out = fn()
+    return out, dict(_build.LAUNCHES)
+
+
+def summed(*counts) -> dict:
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def skipped_all_reduce(rank: int, at: int):
+    """15a's planted fault: dist.all_reduce as it is, but on rank 1 its
+    at-th call sends zeros and keeps the rank's own partial (that layer's
+    sum misses rank 1's part on rank 0, and rank 1 keeps only its own)."""
+    import torch.distributed as dist
+    real, calls = dist.all_reduce, [0]
+
+    def all_reduce(t, *args, **kw):
+        calls[0] += 1
+        if rank == 1 and calls[0] == at:
+            return real(torch.zeros_like(t), *args, **kw)
+        return real(t, *args, **kw)
+    return all_reduce
+
+
+def tp_gptj_rank(rank, world):
+    """15a on one rank: phase 4's GPT-J-6B draw, prepare_fused; rank 0 runs
+    the single-device reference (bf16 and q8_0 arenas, greedy); each rank
+    shards (shard_params_tp), frees the whole, repacks its shard and runs
+    forward_tp on both arenas fed the reference's tokens (counted), then
+    the planted fault."""
+    import torch.distributed as dist
+    from ggml_imax_tpu_torch.models import gptj
+    from ggml_imax_tpu_torch.ops.qmm import params_repack
+    from ggml_imax_tpu_torch.parallel import tp
+    cfg = gptj.GPTJConfig(**GPTJ_6B)
+    prompt = first_prompt(cfg.n_vocab)
+    prepared = gptj.prepare_fused(gptj.synthetic_params_device(cfg, seed=0),
+                                  cfg)
+    out, kvs = {}, {"bf16": torch.bfloat16, "q8_0": "q8_0"}
+    if rank == 0:
+        ref = params_repack(prepared)
+        for kv, dt in kvs.items():
+            out["ref", kv] = greedy_run(
+                lambda t, p, c, n: gptj.forward(cfg, ref, t, p, c, n),
+                gptj.init_cache(cfg, dtype=dt), prompt, TP_STEPS)
+        del ref
+    local = params_repack(tp.shard_params_tp(prepared, cfg, rank, world))
+    del prepared
+    torch.cuda.empty_cache()
+    feed = {kv: reference_tokens(rank, out.get(("ref", kv), [None])[0])
+            for kv in kvs}
+    fwd = lambda t, p, c, n: tp.forward_tp(cfg, local, t, p, c, n)
+    counts = []
+    for kv, dt in kvs.items():
+        arena = tp.init_cache_tp(cfg, world, dtype=dt)
+        dist.barrier()
+        out["tp", kv], c = with_launches(lambda: greedy_run(
+            fwd, arena, prompt, TP_STEPS, feed[kv]))
+        counts.append(c)
+    out["launches"] = summed(*counts)
+    at = cfg.n_layer // 2                  # the prefill's middle layer
+    with patched([(dist, "all_reduce", skipped_all_reduce(rank, at))]):
+        out["fault"] = greedy_run(fwd, tp.init_cache_tp(cfg, world), prompt,
+                                  TP_STEPS, feed["bf16"])
+    out["local_gib"] = sum(t.numel() * t.element_size() for lp in
+                           local["layers"] for w in (lp["qkvf_w"], lp["of_w"])
+                           for t in (w.q, w.scale)) / 2**30
+    return out
+
+
+def tp_llama_rank(rank, world):
+    """15b on one rank: LLaMA-2 7B's structural Q4_K draw (TP_LLAMA_LAYERS
+    layers), fuse_qkv + fuse_gate_up(pad_multiple=1); rank 0 runs the
+    single-device reference (greedy); each rank shards
+    (shard_params_tp_llama), repacks with bf16 scales and runs
+    forward_tp_llama fed the reference's tokens (counted), then the
+    planted fault (gu_w cut without its component-wise order)."""
+    from ggml_imax_tpu_torch.models import llama
+    from ggml_imax_tpu_torch.ops.qmm import params_repack
+    from ggml_imax_tpu_torch.parallel import tp
+    from ggml_imax_tpu_torch.parallel.sharding import COL, qtensor_piece
+    cfg = llama.LlamaConfig(**dict(LLAMA2_7B, n_layer=TP_LLAMA_LAYERS))
+    prompt = first_prompt(cfg.n_vocab)
+    prepared = llama.fuse_gate_up(llama.fuse_qkv(
+        llama.synthetic_params_device(cfg, seed=0)), pad_multiple=1)
+    repack = lambda p: params_repack(p, scale_dtype=torch.bfloat16)
+    import torch.distributed as dist
+    out = {}
+    if rank == 0:
+        ref = repack(prepared)
+        out["ref"] = greedy_run(
+            lambda t, p, c, n: llama.forward(cfg, ref, t, p, c, n),
+            llama.init_cache(cfg), prompt, TP_STEPS)
+        del ref
+    local = repack(tp.shard_params_tp_llama(prepared, cfg, rank, world))
+    feed = reference_tokens(rank, out.get("ref", [None])[0])
+    fwd = lambda prm: lambda t, p, c, n: tp.forward_tp_llama(cfg, prm, t, p,
+                                                             c, n)
+    dist.barrier()
+    out["tp"], out["launches"] = with_launches(lambda: greedy_run(
+        fwd(local), tp.init_cache_tp(cfg, world), prompt, TP_STEPS, feed))
+    faulty = dict(local, layers=[
+        dict(lp, gu_w=repack(qtensor_piece(full["gu_w"], COL, rank, world)))
+        for lp, full in zip(local["layers"], prepared["layers"])])
+    del prepared
+    out["fault"] = greedy_run(fwd(faulty), tp.init_cache_tp(cfg, world),
+                              prompt, TP_STEPS, feed)
+    return out
+
+
+def unrotated_kpos(ring_shift):
+    """15c's planted fault: the ring's keys and values rotate, kpos stays
+    (each rank masks the keys it receives by its own positions)."""
+    return lambda tensors, group=None: \
+        ring_shift(tensors[:2], group) + list(tensors[2:])
+
+
+def ring_prefill_rank(rank, world):
+    """15c on one rank: phase 4's GPT-J-6B weights at n_ctx RING_CTX,
+    prepared and repacked whole (tp 1); the single-device prefill of a
+    RING_CTX-token prompt, then forward_ring_prefill over a (tp 1, sp
+    world) mesh (counted): this rank's logits rows and arena chunk against
+    the reference's, then the planted fault."""
+    import importlib
+    from ggml_imax_tpu_torch.models import gptj
+    from ggml_imax_tpu_torch.ops.qmm import params_repack
+    from ggml_imax_tpu_torch.parallel import distributed as D
+    from ggml_imax_tpu_torch.parallel import tp
+    ra = importlib.import_module("ggml_imax_tpu_torch.parallel.ring_attention")
+    cfg = gptj.GPTJConfig(**dict(GPTJ_6B, n_ctx=RING_CTX))
+    params = params_repack(gptj.prepare_fused(
+        gptj.synthetic_params_device(cfg, seed=0), cfg))
+    toks = torch.tensor([np.random.default_rng(3).integers(
+        0, cfg.n_vocab, RING_CTX).tolist()], device="cuda")
+    pos = torch.arange(RING_CTX, device="cuda")[None]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref, arena = gptj.forward(cfg, params, toks, pos, gptj.init_cache(cfg), 0)
+    torch.cuda.synchronize()
+    ref_ms = (time.perf_counter() - t0) * 1e3
+    mesh = D.global_mesh({"tp": 1, "sp": world}, device="cuda")
+    groups = (mesh.get_group("tp"), mesh.get_group("sp"))
+    s, T_loc = mesh["sp"].get_local_rank(), RING_CTX // world
+    rows = slice(s * T_loc, (s + 1) * T_loc)
+
+    def run():
+        cache = tp.init_cache_ringsp(cfg, 1, world)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = tp.forward_ring_prefill(cfg, params, toks, pos, cache,
+                                            *groups)
+        torch.cuda.synchronize()
+        return {"ms": (time.perf_counter() - t0) * 1e3,
+                "logits": rel_err(lg[0], ref[0, rows]),
+                "k": rel_err(cache.k, arena.k[:, :, rows]),
+                "v": rel_err(cache.v, arena.v[:, :, rows]),
+                "finite": bool(torch.isfinite(lg).all())}
+    out, launches = with_launches(run)
+    with patched([(ra, "ring_shift", unrotated_kpos(ra.ring_shift))]):
+        fault = run()
+    return {"run": out, "launches": launches, "fault": fault,
+            "ref_ms": ref_ms, "sp_rank": s,
+            "route": D.p2p_route(groups[1], "cuda")}
+
+
+def mlp_block(seed):
+    """A GPT-J-6B MLP block (LN, fc_in, gelu, fc_out, residual) drawn as
+    gptj.synthetic_params_device draws a layer's (Q4_0, here natpair), from
+    its own seed."""
+    E = GPTJ_6B["n_embd"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    vec = lambda n: torch.randn(n, generator=gen, device="cuda").mul_(0.02)
+    return {"ln_g": vec(E) + 1.0, "ln_b": vec(E),
+            "fc_in_w": random_natpair(E, 4 * E, gen), "fc_in_b": vec(4 * E),
+            "fc_out_w": random_natpair(4 * E, E, gen), "fc_out_b": vec(E)}
+
+
+def mlp_stage(blocks, x):
+    """A pipeline stage: its blocks in turn on x (rows, E) f32, the
+    products on W4A16 (rows > 1)."""
+    from ggml_imax_tpu_torch.ops.activations import gelu
+    from ggml_imax_tpu_torch.ops.norms import layer_norm
+    from ggml_imax_tpu_torch.ops.qmatmul import qmatmul
+    mm = lambda h, w: qmatmul(h, w, out_dtype=torch.float32)
+    for b in blocks:
+        h = gelu(mm(layer_norm(x, b["ln_g"], b["ln_b"]), b["fc_in_w"])
+                 + b["fc_in_b"])
+        x = x + mm(h, b["fc_out_w"]) + b["fc_out_b"]
+    return x
+
+
+def pipeline_rank(rank, world):
+    """15d on one rank: stage r = MLP blocks [r B, (r + 1) B) (seeds 1000 +
+    block); pipeline_forward over PIPE_MICRO micro-batches of PIPE_ROWS
+    (counted), against the stages run in sequence on each micro-batch in
+    one process (rank 0: every block), bit for bit; then the planted fault
+    (the stage order swapped)."""
+    from ggml_imax_tpu_torch.parallel.pipeline import (pipeline_forward,
+                                                       stack_stage_params)
+    E = GPTJ_6B["n_embd"]
+    stage = lambda r: [mlp_block(1000 + r * PIPE_BLOCKS + i)
+                       for i in range(PIPE_BLOCKS)]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+    x = torch.randn(PIPE_MICRO * PIPE_ROWS, E, generator=gen, device="cuda")
+    mine = [stage(rank) if r == rank else None for r in range(world)]
+    run = lambda stages: pipeline_forward(mlp_stage, stack_stage_params(
+        stages), x, n_microbatch=PIPE_MICRO)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y, launches = with_launches(lambda: run(mine))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    swapped = [stage(world - 1 - rank) if r == rank else None
+               for r in range(world)]
+    fault = run(swapped)
+    out = {"launches": launches, "ms": ms}
+    if rank == 0:
+        stages = [stage(r) for r in range(world)]
+        ref = []
+        for m in x.split(PIPE_ROWS):
+            for st in stages:
+                m = mlp_stage(st, m)
+            ref.append(m)
+        ref = torch.cat(ref)
+        out.update(equal=bool(torch.equal(y, ref)),
+                   err=rel_err(y, ref), fault_equal=bool(torch.equal(
+                       fault, ref)), fault_err=rel_err(fault, ref),
+                   finite=bool(torch.isfinite(y).all()))
+    return out
+
+
+def sharded_load_rank(rank, world, path):
+    """15e on one rank: its half of the Q4_K head's rows through
+    load_qtensor_sharded, against the same columns of the whole load, bit
+    for bit."""
+    from ggml_imax_tpu_torch.io.gguf import GGUFReader
+    from ggml_imax_tpu_torch.io.sharded import load_qtensor_sharded
+    from ggml_imax_tpu_torch.quant.device import to_device_format
+    with GGUFReader(path) as r:
+        info = r.tensors["output.weight"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        piece = load_qtensor_sharded(r, "output.weight", rank, world,
+                                     device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        whole = to_device_format(r.tensor_data("output.weight"),
+                                 info.ggml_type, info.shape, device="cuda")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    w = whole.n // world
+    cols = slice(rank * w, (rank + 1) * w)
+    equal = all(torch.equal(getattr(piece, f), getattr(whole, f)[:, cols])
+                for f in ("q", "scale", "bias")) and \
+        (piece.k, piece.n) == (whole.k, w)
+    return {"equal": equal, "piece_s": t1 - t0, "whole_s": t2 - t1,
+            "piece_bytes": info.nbytes // world, "bytes": info.nbytes}
+
+
+def parallel_rank(rank, world, gguf_path):
+    """Phase 15's rank body: a process of its own on cuda:0 in a gloo group
+    of `world` ranks (parallel.distributed.spawn); 15a-15e in turn, each
+    freeing its weights before the next. Returns what the parent checks
+    and prints (host numbers and arrays)."""
+    from ggml_imax_tpu_torch import _build
+    from ggml_imax_tpu_torch.parallel import distributed as D
+    _build.lib()                       # built by the parent: loaded here
+    out = {"route": D.p2p_route(None, "cuda"),
+           "device": torch.cuda.current_device()}
+    for key, body in (("tp_gptj", tp_gptj_rank), ("tp_llama", tp_llama_rank),
+                      ("ring_prefill", ring_prefill_rank),
+                      ("pipeline", pipeline_rank)):
+        t0 = time.time()
+        out[key] = body(rank, world)
+        out[key]["s"] = time.time() - t0
+        torch.cuda.empty_cache()
+    out["sharded_load"] = sharded_load_rank(rank, world, gguf_path)
+    return out
+
+
+def parallel_phase(failures):
+    """15. The parallel paths on PARALLEL_RANKS gloo ranks sharing cuda:0
+    (the ranks' bodies above, one spawn through parallel.distributed.spawn
+    with a file:// rendezvous under build/parallel): 15a GPT-J-6B tp 2,
+    15b LLaMA-2 7B tp 2, 15c the ring prefill (tp 1 x sp 2), 15d the
+    pipeline, 15e load_qtensor_sharded. Returns (summary, launches by
+    path, summed over the ranks)."""
+    from ggml_imax_tpu_torch.io.gguf import GGUFWriter
+    from ggml_imax_tpu_torch.parallel import distributed as D
+    from ggml_imax_tpu_torch.quant.formats import GGMLType
+    d = parallel_dir()
+    path = d / "head-q4_k.gguf"
+    w = GGUFWriter(path)
+    w.add_tensor("output.weight", random_raw(GGMLType.Q4_K, SHARD_NE,
+                                             np.random.default_rng(15)),
+                 GGMLType.Q4_K, shape=SHARD_NE)
+    w.write()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    try:
+        ranks = D.spawn(parallel_rank, PARALLEL_RANKS, (str(path),),
+                        rendezvous_dir=d, timeout=PARALLEL_TIMEOUT,
+                        backend="gloo", device="cuda:0")
+    finally:
+        path.unlink(missing_ok=True)
+    wall = time.time() - t0
+    log(f"  backend gloo, world size {PARALLEL_RANKS}, every rank on "
+        f"cuda:{ranks[0]['device']} (two processes time-sharing one H100); "
+        f"all_reduce / all_gather / broadcast on CUDA tensors (gloo's CUDA "
+        f"path), ring and pipeline point-to-point through "
+        f"{ranks[0]['route']} tensors; spawn to the last result {wall:.1f} s")
+    for key in ("tp_gptj", "tp_llama", "ring_prefill", "pipeline"):
+        log(f"  {key}: ranks' seconds "
+            f"{[round(r[key]['s'], 1) for r in ranks]}")
+    summary, launches = {"wall_s": wall}, {}
+    as_run = lambda r: (r[0], [torch.from_numpy(x) for x in r[1]])
+
+    # 15a
+    a = [r["tp_gptj"] for r in ranks]
+    for kv in ("bf16", "q8_0"):
+        ref, got = a[0]["ref", kv], [x["tp", kv] for x in a]
+        log(f"  15a GPT-J-6B tp {PARALLEL_RANKS} {kv} arena, two processes "
+            f"time-sharing one H100: prefill {[round(g[2], 2) for g in got]} "
+            "ms, step median "
+            f"{[round(float(np.median(g[3])), 2) for g in got]}"
+            f" ms; single-device on rank 0 (rank 1 drawing beside it) "
+            f"{ref[2]:.2f} ms, {float(np.median(ref[3])):.2f} ms; the "
+            f"reference's tokens {ref[0]}, tp's picks fed them {got[0][0]}")
+        summary[f"tp_gptj_{kv}"] = {
+            "prefill_ms": [g[2] for g in got],
+            "step_ms_median": [float(np.median(g[3])) for g in got],
+            "ref_prefill_ms": ref[2],
+            "ref_step_ms_median": float(np.median(ref[3]))}
+        for rk, g in enumerate(got):
+            check_forced(f"15a {kv} rank {rk}", as_run(ref), as_run(g),
+                         failures, TP_TOL)
+        if not all(np.array_equal(x, y) for g in got[1:]
+                   for x, y in zip(got[0][1], g[1])):
+            failures.append(f"15a {kv}: the ranks' logits differ")
+    check_forced("15a planted fault (rank 1's partial out of all_reduce "
+                 f"{GPTJ_6B['n_layer'] // 2})", as_run(a[0]["ref", "bf16"]),
+                 as_run(a[0]["fault"]), failures, TP_TOL, control=True)
+    log(f"  15a local qkvf_w + of_w {a[0]['local_gib']:.3f} GiB a rank")
+    L = GPTJ_6B["n_layer"]
+    per_run = {"w4a16_gemm": 2 * L + 1, "flash_attention": L,
+               "flash_backward_tiles": L,
+               "w4a8_gemv": TP_STEPS * (2 * L + 1),
+               "decode_attention": TP_STEPS * L}
+    for x in a:
+        check_counts(x["launches"], {k: 2 * n for k, n in per_run.items()},
+                     failures)
+    launches["tp_gptj"] = summed(*[x["launches"] for x in a])
+
+    # 15b
+    b = [r["tp_llama"] for r in ranks]
+    got = [x["tp"] for x in b]
+    log(f"  15b LLaMA-2 7B Q4_K tp {PARALLEL_RANKS}, {TP_LLAMA_LAYERS} "
+        f"layers, two processes time-sharing one H100: prefill "
+        f"{[round(g[2], 2) for g in got]} ms, step median "
+        f"{[round(float(np.median(g[3])), 2) for g in got]} ms; "
+        f"single-device {b[0]['ref'][2]:.2f} ms, "
+        f"{float(np.median(b[0]['ref'][3])):.2f} ms; the reference's tokens "
+        f"{b[0]['ref'][0]}, tp's picks fed them {got[0][0]}")
+    summary["tp_llama"] = {
+        "layers": TP_LLAMA_LAYERS, "prefill_ms": [g[2] for g in got],
+        "step_ms_median": [float(np.median(g[3])) for g in got],
+        "ref_prefill_ms": b[0]["ref"][2],
+        "ref_step_ms_median": float(np.median(b[0]["ref"][3]))}
+    for rk, g in enumerate(got):
+        check_forced(f"15b rank {rk}", as_run(b[0]["ref"]), as_run(g),
+                     failures, TP_LLAMA_TOL)
+    if not all(np.array_equal(x, y) for g in got[1:]
+               for x, y in zip(got[0][1], g[1])):
+        failures.append("15b: the ranks' logits differ")
+    check_forced("15b planted fault (gu_w cut without its component order)",
+                 as_run(b[0]["ref"]), as_run(b[0]["fault"]), failures,
+                 TP_LLAMA_TOL, control=True)
+    L = TP_LLAMA_LAYERS
+    for x in b:
+        check_counts(x["launches"], {
+            "w4a16_gemm": 4 * L + 1, "flash_attention": L,
+            "flash_backward_tiles": L, "w4a8_gemv": TP_STEPS * (4 * L + 1),
+            "decode_attention": TP_STEPS * L}, failures)
+    launches["tp_llama"] = summed(*[x["launches"] for x in b])
+
+    # 15c
+    c = [r["ring_prefill"] for r in ranks]
+    for x in c:
+        run, fault = x["run"], x["fault"]
+        ok = run["finite"] and max(run["logits"], run["k"], run["v"]) \
+            <= RING_TOL
+        caught = fault["logits"] > RING_TOL
+        log(f"  15c ring prefill sp rank {x['sp_rank']} "
+            f"({RING_CTX // PARALLEL_RANKS} of {RING_CTX} tokens, p2p "
+            f"through {x['route']} tensors): "
+            f"logits {run['logits']:.3e}, arena k {run['k']:.3e} v "
+            f"{run['v']:.3e} of the largest |value| (limit {RING_TOL:.1e}) -> "
+            f"{'holds' if ok else 'fails'}; planted fault (kpos not rotated) "
+            f"logits {fault['logits']:.3e}, k {fault['k']:.3e} -> "
+            f"{'caught' if caught else 'MISSED'}; ring {run['ms']:.1f} ms "
+            f"(two processes time-sharing one H100), single-device prefill "
+            f"{x['ref_ms']:.1f} ms")
+        if not ok:
+            failures.append(f"15c sp rank {x['sp_rank']}: ring prefill "
+                            f"{run} past {RING_TOL}")
+        if not caught:
+            failures.append(f"15c sp rank {x['sp_rank']}: the planted fault "
+                            f"passed ({fault['logits']:.3e})")
+        check_counts(x["launches"], {"w4a16_gemm": 2 * GPTJ_6B["n_layer"]
+                                     + 1}, failures)
+    summary["ring_prefill"] = {"ms": [x["run"]["ms"] for x in c],
+                               "ref_ms": [x["ref_ms"] for x in c],
+                               "err": [x["run"] for x in c]}
+    launches["ring_prefill"] = summed(*[x["launches"] for x in c])
+
+    # 15d
+    p = [r["pipeline"] for r in ranks]
+    log(f"  15d pipeline, {PARALLEL_RANKS} stages x {PIPE_BLOCKS} MLP blocks, "
+        f"{PIPE_MICRO} micro-batches of {PIPE_ROWS} rows: bit-equal to the "
+        f"stages in sequence {p[0]['equal']} (max rel {p[0]['err']:.1e}); "
+        f"planted fault (stage order swapped) equal {p[0]['fault_equal']} "
+        f"(max rel {p[0]['fault_err']:.3e}); {[round(x['ms'], 1) for x in p]}"
+        " ms (two processes time-sharing one H100)")
+    if not (p[0]["equal"] and p[0]["finite"]):
+        failures.append(f"15d: the pipeline differs from the stages in "
+                        f"sequence ({p[0]['err']:.3e})")
+    if p[0]["fault_equal"]:
+        failures.append("15d: the swapped stages passed the check")
+    for x in p:
+        check_counts(x["launches"], {"w4a16_gemm": 2 * PIPE_BLOCKS
+                                     * PIPE_MICRO}, failures)
+    summary["pipeline"] = {"ms": [x["ms"] for x in p]}
+    launches["pipeline"] = summed(*[x["launches"] for x in p])
+
+    # 15e
+    e = [r["sharded_load"] for r in ranks]
+    log(f"  15e load_qtensor_sharded Q4_K {SHARD_NE}: each rank's half "
+        f"bit-equal to the whole load's columns {[x['equal'] for x in e]}; "
+        f"{e[0]['piece_bytes']} of {e[0]['bytes']} bytes a rank, piece "
+        f"{[round(x['piece_s'], 3) for x in e]} s, whole "
+        f"{[round(x['whole_s'], 3) for x in e]} s (warm file)")
+    if not all(x["equal"] for x in e):
+        failures.append("15e: a rank's piece differs from the whole load")
+    summary["sharded_load"] = e
+    return summary, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6949,6 +7601,7 @@ def main() -> int:
     check_llama_serving_kernels(ck, timer, gen)
     check_format_kernels(ck, timer, gen)
     check_whisper_kernels(ck, timer, gen)
+    check_parallel_kernels(ck, timer, gen)
     del timer                                      # the 256 MB flush buffer
     torch.cuda.empty_cache()
     failures = ck.failures
@@ -7218,9 +7871,20 @@ def main() -> int:
         raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
     launches.update(by_run)
     log(f"# phase 14: {time.time() - t0:.1f} s")
+
+    # ---- 15. the parallel paths on gloo ranks sharing the card
+    log(f"# phase 15: GPT-J-6B and LLaMA-2 7B tp {PARALLEL_RANKS}, ring "
+        f"prefill, pipeline and sharded load ({PARALLEL_RANKS} processes "
+        "time-sharing one H100 over gloo)")
+    t0 = time.time()
+    engines["parallel"], by_path = parallel_phase(failures)
+    if failures:
+        raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
+    launches.update(by_path)
+    log(f"# phase 15: {time.time() - t0:.1f} s")
     log("# phases run: 1, 2, 3, 4, 14d, 5, 5b, 6, 7, 8, 8b, 8c, 9, 9b, 9c, "
-        "10, 11, 12, 13, 14")
-    log(f"# phases 1-14: {time.time() - t_start:.1f} s")
+        "10, 11, 12, 13, 14, 15")
+    log(f"# phases 1-15: {time.time() - t_start:.1f} s")
 
     kernels = []
     for k in KERNELS:

@@ -113,6 +113,11 @@ def _device_type(args) -> str:
     return "cuda" if "cuda" in types else "cpu"
 
 
+def trace_graph(fn, example_args) -> torch.export.ExportedProgram:
+    """torch.export's program of fn(*example_args), traced non-strict."""
+    return torch.export.export(_Fn(fn), tuple(example_args), strict=False)
+
+
 def export_graph(fn, example_args, path: str | Path) -> dict:
     """Trace fn(*example_args) (tensors, or pytrees of tensors, QTensors
     and KVCaches) and write a self-contained graph: the examples' shapes,
@@ -120,7 +125,7 @@ def export_graph(fn, example_args, path: str | Path) -> dict:
     seconds spent tracing and saving and the file's bytes."""
     example_args = tuple(example_args)
     t0 = time.perf_counter()
-    ep = torch.export.export(_Fn(fn), example_args, strict=False)
+    ep = trace_graph(fn, example_args)
     t1 = time.perf_counter()
     ep._example_inputs = None             # the arguments: not saved
     buf = io.BytesIO()
