@@ -15,7 +15,9 @@ YOLOv3-tiny and SAM ViT-B from model files; then MNIST's FC net and CNN
 trained (Adam and L-BFGS) and exported, and GPT-J-6B's decode step
 exported and replayed from the saved graph; then the parallel paths:
 GPT-J-6B and LLaMA-2 7B tensor-parallel decode, the ring prefill, a
-pipeline and a sharded GGUF load, as two gloo processes sharing the card.
+pipeline and a sharded GGUF load, as two gloo processes sharing the card;
+and the entry points: every example CLI on those files, the serving
+benchmark CLI, and the quantization quality gate trained on the card.
 
     python3 chip_smoke.py
 
@@ -160,7 +162,7 @@ Phases (any failure exits nonzero and prints no result line):
    then one step's loss and gradients with the kernels held to the same
    step with every plain version on the card (TRAIN_TOL), and a planted
    fault (dK without its scale) that must fail that check;
-8. GPT-2 117M K-quants at a quarter depth (GPT2_117M_HOST: 3 layers of
+8. GPT-2 117M K-quants at a sixth of its depth (GPT2_117M_HOST: 2 layers of
    768, the script's time limit): synthetic weights drawn on the host
    in Q3_K (the reference's numpy stream and codecs, the quantization
    spread over HOST_WORKERS processes, bit-identical to
@@ -174,7 +176,7 @@ Phases (any failure exits nonzero and prints no result line):
    held to the same with every plain version on the card (KQ_ROUTE_TOL),
    and a planted fault (the plane-split kernel with its low and high
    scale rows swapped) that must fail that check;
-8b. GPT-2 117M formats at a quarter depth: synthetic weights drawn on the host
+8b. GPT-2 117M formats at a sixth of its depth: synthetic weights drawn on the host
    and quantized by the port's codecs in Q4_0 (the default natpair route),
    Q4_1 (natpair with a bias), Q5_0, Q5_1, Q5_K and Q6_K (nat8), each
    params_repack-ed and served by Engine(n_ctx=1024), one request each
@@ -182,7 +184,7 @@ Phases (any failure exits nonzero and prints no result line):
    a short greedy pass of each with the kernels held to every plain
    version on the card (KQ_ROUTE_TOL), and a planted fault (the nat8 W8A8
    GEMV without its bias term, on Q5_K) that must fail that check;
-8c. GPT-2 117M IQ formats at a quarter depth: IQ4_NL and IQ4_XS quantized on
+8c. GPT-2 117M IQ formats at a sixth of its depth: IQ4_NL and IQ4_XS quantized on
    the host by the
    port's codecs (HOST_WORKERS processes), params_repack (nat8 g 32, f32
    scales, no bias), one request each with exact launch counts, a short
@@ -295,17 +297,20 @@ Phases (any failure exits nonzero and prints no result line):
    examples/perplexity.py), files under build/quant_tools (the free space
    checked first), each deleted once its step is done; the host C++
    libraries (native/codecs.cpp, native/iq_encoders.cpp) are built by g++
-   in phase 1. 12a LLaMA-2 7B (16 of its 32 layers): F16 weights drawn on
+   in phase 1. 12a LLaMA-2 7B (8 of its 32 layers): F16 weights drawn on
    the card from a torch.Generator, a GGUF written by GGUFWriter (phase
-   11b's keys and tokenizer), requantize_gguf to Q4_0 on the C++ codecs (file type and
+   11b's keys and tokenizer), requantized to Q4_0 by examples/quantize.py
+   (16e; requantize_gguf on the C++ codecs) (file type and
    every other key's wire type kept, 1-D tensors byte for byte, the first
    and last layers' seven weights, token_embd and output equal to the
    numpy quantize_q4_0 of the dequantized source); tools.perplexity over
-   4 windows of 512 tokens of LOADER_TEXT (the loaded tokenizer's ids) on
+   4 windows of 512 tokens of LOADER_TEXT's file (the loaded tokenizer's ids) on
    the F16 model (dense on the card) and on the Q4_0 model (fuse_gate_up +
-   params_repack: 97 natpair W4A16, 16 flash and 16 tile maps a window),
+   params_repack: 6 L + 1 natpair W4A16, L flash and L tile maps a window),
    its mean NLL within PPL_ROUTE_TOL of the same windows on every plain
-   version, two planted W4A16 faults past it. 12b GPT-2 117M: an F16
+   version, two planted W4A16 faults past it; then examples/perplexity.py
+   (16e) on the Q4_0 file and the text file, the loaded layout as the JAX
+   CLI runs it, its perplexity within PPL_ROUTE_TOL of the kernels'. 12b GPT-2 117M: an F16
    legacy .bin (wte at WTE_SCALE: peaked logits), the imatrix
    (ImatrixCollector over tools.perplexity, 4 windows of 512) held to a
    recorder of the first and last layers' activations and refused inside
@@ -316,7 +321,8 @@ Phases (any failure exits nonzero and prints no result line):
    quality rows (tools/quality_tpu_row.py's method): Q4_0, Q4_K and Q5_0,
    a teacher-forced T=1 window of QUALITY_CTX through the W4A8 / W8A8
    kernels (48 launches a step) against the plain route with the "w4a8" sim, mean
-   KL under KL_GATE, the Q4_K row with the W4A8 bias dropped over it.
+   KL under tools/quality_kernel_row.py's KL_GATE (5e-3, the reference's
+   kernel-path gate), the Q4_K row with the W4A8 bias dropped over it.
 13. Magika, YOLOv3-tiny and SAM ViT-B at their published widths, from
    model files the phase writes under build/vision and deletes once
    loaded (no TPU kernel lies on this path: the launch counts stay 0).
@@ -383,6 +389,31 @@ Phases (any failure exits nonzero and prints no result line):
    route are printed; times are two processes time-sharing one H100, not
    a scaling measurement. The kernels line counts each path's launches
    summed over the ranks (tp_gptj, tp_llama, ring_prefill, pipeline).
+16. the entry points: each CLI of ggml_imax_tpu_torch/examples/ through
+   its main(argv) in this process (stdout captured; its launch counts on
+   the kernels line as cli_*), where its phase has its file. 16a
+   examples/gptj.py on 11a's .bin (greedy, CLI_TOKENS tokens: the prompt +
+   tok.decode of 11a's tokens); 16b examples/llama.py on 11b's Q4_K_M GGUF
+   (the default residency must refuse the mix in one line; --resident
+   as-is held to its own graph with every plain version on the card, fed
+   its picks, ROUTE_TOL); 16c
+   examples/whisper.py on 11c's .bin and its audio as a WAV (the segments
+   equal 11c's); 16d examples/gpt2.py and examples/serve.py on 11d's .bin
+   (gpt2 as 16a; serve -np 4 the same run to run, -np 1 greedy held to
+   11d's engine fed its picks, ROUTE_TOL, and equal to 11d's tokens) and one
+   subprocess `python -m
+   ggml_imax_tpu_torch.examples.gpt2`; 16e examples/quantize.py as 12a's
+   requantize step and examples/perplexity.py on its Q4_0 file (within
+   PPL_ROUTE_TOL of the kernels'); 16f examples/magika.py, yolo.py and
+   sam.py on 13a-13c's files (their lines those of the phase); 16g
+   examples/mnist.py (FC and CNN; the reloaded prediction the eager one)
+   and examples/simple.py. After phase 15: 16h examples/serve.py --bench
+   --steady -np 8 --n_predict 64 at GPT-J-6B geometry (its JSON line beside
+   phase 6's numbers) and 16i tools/quality_gate.py trained on the card
+   (1500 steps; it must learn structure and every format must pass) and
+   tools/quality_kernel_row.py (Q4_0, Q4_K, Q5_0 under KL 5e-3), files
+   under build/qgate. Rows 1, 3, 5, 6, 7, 9, 14, 16 and 17 must each launch
+   on an entry point's path (CLI_KERNELS).
 
     python3 chip_smoke.py --serving-kernels [ROOT]
     python3 chip_smoke.py --gpt2-kernels [ROOT]
@@ -425,9 +456,10 @@ GPTJ_6B = dict(n_vocab=50400, n_ctx=512, n_embd=4096, n_head=16, n_layer=28,
 GPT2_XL = dict(n_vocab=50257, n_ctx=1024, n_embd=1600, n_head=25, n_layer=48)
 # a request: a PROMPT-token prompt + N_PREDICT greedy tokens (64 before PR
 # 26; 32 and N_REQUESTS 2, not 3, so the whole script stays inside its time
-# limit on a slower host: the eager chunk-1 steps are host-bound); phase 2
-# times its attention kernels at the Engine's n_ctx, ENGINE_CTX
-PROMPT, N_PREDICT, N_REQUESTS = 448, 32, 2
+# limit on a slower host: the eager chunk-1 steps are host-bound; one
+# request since phase 16 joined); phase 2 times its attention kernels at the
+# Engine's n_ctx, ENGINE_CTX
+PROMPT, N_PREDICT, N_REQUESTS = 448, 32, 1
 ENGINE_CTX = 512
 # decode steps in a span of Engine.generate(chunk) (a captured CUDA graph)
 CHUNK = 8
@@ -450,9 +482,10 @@ ROUTE_TOL = 3.5e-2
 GPT2_117M = dict(n_vocab=50257, n_ctx=1024, n_embd=768, n_head=12, n_layer=12)
 # Phases 8, 8b and 8c quantize their weights on the host (8 and 8b through
 # the C++ codecs since they landed, 8c's IQ4 kinds in numpy): they run
-# GPT-2 117M's widths at a quarter of its depth (half in PR 24, a quarter
-# since PR 26), so the whole script stays inside its time limit
-GPT2_117M_HOST = dict(GPT2_117M, n_layer=3)
+# GPT-2 117M's widths at a sixth of its depth (2 of 12 layers: half, then a
+# quarter, before the entry points of phase 16 joined), so the whole script
+# stays inside its time limit
+GPT2_117M_HOST = dict(GPT2_117M, n_layer=2)
 TRAIN = dict(batch=8, seq=512, warmup=2, steps=10, alpha=1e-4)
 # A training step's loss and gradients with the kernels against the same
 # step with every plain version on the card (phase 7): max |dg| per leaf
@@ -3099,7 +3132,7 @@ def swapped_planes():
 
 
 def kquant_gpt2(failures, pool):
-    """Phase 8. GPT-2 117M at full width and a quarter depth
+    """Phase 8. GPT-2 117M at full width and a sixth of its depth
     (GPT2_117M_HOST) in
     Q3_K (N_REQUESTS requests), Q2_K,
     row-pair Q4_0 and u-order Q8_0 (one request each): weights drawn on the
@@ -3389,7 +3422,7 @@ def host_params(cfg, wtype, pool, seed=0, scale=0.02, piece=1 << 20):
 
 
 def formats_gpt2(failures, pool):
-    """Phase 8b. GPT-2 117M at full width and a quarter depth in Q4_0 (the
+    """Phase 8b. GPT-2 117M at full width and a sixth of its depth in Q4_0 (the
     default
     natpair
     route), Q4_1, Q5_0, Q5_1, Q5_K and Q6_K: weights drawn on the host (the
@@ -3788,7 +3821,7 @@ def qt_bytes(params):
 
 
 def codebooks_gpt2(failures, pool):
-    """Phase 8c. GPT-2 117M at full width and a quarter depth in the nine IQ
+    """Phase 8c. GPT-2 117M at full width and a sixth of its depth in the nine IQ
     kinds.
     IQ4_NL and IQ4_XS: weights drawn on the host and quantized by the
     port's codecs in HOST_WORKERS processes (host_params), params_repack
@@ -5203,19 +5236,16 @@ def loaders_gptj(failures):
     nbytes = sum(r.nbytes for _, _, r in tensors.values())
     size, write_s = write_timed("11a", path, lambda: write_legacy_bin(
         path, hp, gptj.HPARAM_NAMES, vocab, tensors), nbytes)
-    try:
-        floors = load_floors("11a", path)
-        (lcfg, params, tok), load_s = timed_load(
-            "11a gptj.load_legacy", lambda: gptj.load_legacy(path))
-    finally:
-        path.unlink()
+    floors = load_floors("11a", path)
+    (lcfg, params, tok), load_s = timed_load(
+        "11a gptj.load_legacy", lambda: gptj.load_legacy(path))
     if lcfg != cfg:
         failures.append(f"11a: config {lcfg} != {cfg}")
     check_loaded("11a", params, spec, tensors, failures)
     del tensors
     prompt = check_tokenizer("11a", tok, cfg.n_vocab, failures)
     if failures:
-        return None, None
+        return None, None, {}
     t0 = time.time()
     eng = Engine(gptj, cfg, params, n_ctx=512, residency="q4-fused")
     del params
@@ -5229,10 +5259,17 @@ def loaders_gptj(failures):
         {"w4a8_gemv": n_dec * (2 * L + 1), "decode_attention": n_dec * L,
          "w4a16_gemm": 2 * L + 1, "flash_attention": L,
          "flash_backward_tiles": L}, failures)
+    n = CLI_TOKENS - 1
+    cli, cli_counts, _, _ = cli_generation(
+        "16a gptj", "gptj", path, eng, tok, prompt, out["tokens"], 512,
+        {"w4a8_gemv": n * (2 * L + 1), "decode_attention": n * L,
+         "w4a16_gemm": 2 * L + 1, "flash_attention": L,
+         "flash_backward_tiles": L}, failures)
     del eng
     torch.cuda.empty_cache()
     return dict(out, file_bytes=size, write_s=write_s, read_s=floors[0],
-                upload_s=floors[1], load_s=load_s, prepare_s=prep_s), counts
+                upload_s=floors[1], load_s=load_s, prepare_s=prep_s,
+                cli=cli), counts, {"cli_gptj": cli_counts}
 
 
 def llama_gguf_kv(w, cfg, tokens, merges, file_type):
@@ -5258,17 +5295,14 @@ def llama_gguf_kv(w, cfg, tokens, merges, file_type):
     w.add_kv("tokenizer.ggml.merges", merges)
 
 
-def loaders_llama(failures):
-    """11b. LLaMA-2 7B Q4_K_M GGUF at LLAMA2_7B's widths (n_ctx 4096, as the
-    model's): llama.cpp's keys and names, Q4_K_M's mix (q4_k_m), the
-    byte-level vocab and merges; written by io.gguf.GGUFWriter,
-    llama.load_gguf, prepared as phase 9b (fuse_gate_up, params_repack with
-    bf16 scales; "q4-fused" refuses the mix), Engine at n_ctx 512, one
-    request."""
+def write_llama_gguf(label):
+    """11b's file: LLaMA-2 7B Q4_K_M GGUF at LLAMA2_7B's widths (n_ctx 4096,
+    as the model's): llama.cpp's keys and names, Q4_K_M's mix (q4_k_m), the
+    byte-level vocab and merges, drawn from seed 12 and written by
+    io.gguf.GGUFWriter into loader_dir(). -> (cfg, spec, tensors, path,
+    bytes, write seconds)."""
     from ggml_imax_tpu_torch.io.gguf import GGUFWriter
     from ggml_imax_tpu_torch.models import llama
-    from ggml_imax_tpu_torch.ops.qmm import params_repack
-    from ggml_imax_tpu_torch.runtime.engine import Engine
     # the file keeps the rms epsilon as f32, as llama.cpp's do
     cfg = llama.LlamaConfig(**dict(LLAMA2_7B, n_ctx=4096,
                                    rms_eps=float(np.float32(1e-5))))
@@ -5276,7 +5310,7 @@ def loaders_llama(failures):
     t0 = time.time()
     tensors = file_tensors(spec, np.random.default_rng(12))
     tokens, merges = byte_level_vocab(cfg.n_vocab)
-    log(f"  11b: {len(tensors)} tensors drawn on the host, {len(merges)} "
+    log(f"  {label}: {len(tensors)} tensors drawn on the host, {len(merges)} "
         f"merges learned, in {time.time() - t0:.2f} s")
     path = loader_dir() / "llama-2-7b-q4_k_m.gguf"
 
@@ -5287,20 +5321,28 @@ def loaders_llama(failures):
             w.add_tensor(name, raw, t, shape=ne)
         w.write()
     nbytes = sum(r.nbytes for _, _, r in tensors.values())
-    size, write_s = write_timed("11b", path, write, nbytes)
-    try:
-        floors = load_floors("11b", path)
-        (lcfg, params, tok), load_s = timed_load(
-            "11b llama.load_gguf", lambda: llama.load_gguf(path))
-    finally:
-        path.unlink()
+    size, write_s = write_timed(label, path, write, nbytes)
+    return cfg, spec, tensors, path, size, write_s
+
+
+def loaders_llama(failures):
+    """11b. write_llama_gguf's file, llama.load_gguf, prepared as phase 9b
+    (fuse_gate_up, params_repack with bf16 scales; "q4-fused" refuses the
+    mix), Engine at n_ctx 512, one request."""
+    from ggml_imax_tpu_torch.models import llama
+    from ggml_imax_tpu_torch.ops.qmm import params_repack
+    from ggml_imax_tpu_torch.runtime.engine import Engine
+    cfg, spec, tensors, path, size, write_s = write_llama_gguf("11b")
+    floors = load_floors("11b", path)
+    (lcfg, params, tok), load_s = timed_load(
+        "11b llama.load_gguf", lambda: llama.load_gguf(path))
     if lcfg != cfg:
         failures.append(f"11b: config {lcfg} != {cfg}")
     check_loaded("11b", params, spec, tensors, failures)
     del tensors
     prompt = check_tokenizer("11b", tok, cfg.n_vocab, failures)
     if failures:
-        return None, None
+        return None, None, {}
     try:
         Engine(llama, cfg, params, residency="q4-fused")
         failures.append("11b: residency 'q4-fused' took a Q4_K_M mix")
@@ -5309,6 +5351,7 @@ def loaders_llama(failures):
     t0 = time.time()
     prepared = params_repack(llama.fuse_gate_up(params),
                              scale_dtype=torch.bfloat16)
+    loaded = params                  # 16b runs the loaded layout beside 11b
     del params
     eng = Engine(llama, cfg, prepared, n_ctx=512)
     del prepared
@@ -5322,10 +5365,14 @@ def loaders_llama(failures):
         {"w4a8_gemv": n_dec * 160, "nat8_w8a8": n_dec * 33,
          "decode_attention": n_dec * L, "w4a16_gemm": 160, "nat8_w8a16": 33,
          "flash_attention": L, "flash_backward_tiles": L}, failures)
+    cli, cli_counts = cli_llama(path, eng, loaded, tok, prompt,
+                                out["tokens"], failures)
+    del loaded
     del eng
     torch.cuda.empty_cache()
     return dict(out, file_bytes=size, write_s=write_s, read_s=floors[0],
-                upload_s=floors[1], load_s=load_s, prepare_s=prep_s), counts
+                upload_s=floors[1], load_s=load_s, prepare_s=prep_s,
+                cli=cli), counts, {"cli_llama": cli_counts}
 
 
 def loaders_whisper(failures):
@@ -5336,6 +5383,7 @@ def loaders_whisper(failures):
     captured steps: 30 s of phase 10's audio, beam 5."""
     from ggml_imax_tpu_torch import _build
     from ggml_imax_tpu_torch.audio.mel import mel_filterbank
+    from ggml_imax_tpu_torch.audio.wav import read_wav, write_wav
     from ggml_imax_tpu_torch.models import whisper as W
     from ggml_imax_tpu_torch.ops.qmm import params_repack
     from ggml_imax_tpu_torch.quant.formats import GGMLType
@@ -5353,12 +5401,9 @@ def loaders_whisper(failures):
     nbytes = sum(r.nbytes for _, _, r in tensors.values())
     size, write_s = write_timed("11c", path, lambda: write_whisper_bin(
         path, cfg, filters, vocab, tensors), nbytes)
-    try:
-        floors = load_floors("11c", path)
-        (lcfg, params, lfilters, lvocab), load_s = timed_load(
-            "11c whisper.load_legacy", lambda: W.load_legacy(path))
-    finally:
-        path.unlink()
+    floors = load_floors("11c", path)
+    (lcfg, params, lfilters, lvocab), load_s = timed_load(
+        "11c whisper.load_legacy", lambda: W.load_legacy(path))
     ok = lcfg == cfg and np.array_equal(lfilters, filters) and \
         lvocab[:len(vocab)] == vocab and len(lvocab) == cfg.n_vocab
     log(f"  11c: config, mel filters and vocab (padded to {len(lvocab)}) as "
@@ -5368,14 +5413,17 @@ def loaders_whisper(failures):
     check_loaded("11c", params, spec, tensors, failures)
     del tensors
     if failures:
-        return None, None
+        return None, None, {}
     t0 = time.time()
     params = params_repack(W.prepare_fused(params))
     pipe = WhisperPipeline(cfg, params, lfilters, lvocab)
     torch.cuda.synchronize()
     prep_s = time.time() - t0
+    # the audio as a WAV (16-bit, read back): the same samples as 16c's CLI
     rng = np.random.default_rng(3)
-    samples = (rng.standard_normal(30 * 16000) * 0.1).astype(np.float32)
+    wav = loader_dir() / "whisper-30s.wav"
+    write_wav(wav, (rng.standard_normal(30 * 16000) * 0.1).astype(np.float32))
+    samples = read_wav(wav)
     fp = FullParams(beam_size=5, temperatures=(0.0,),
                     max_tokens=WHISPER_TOKENS)
     steps, real = [], pipe._fill
@@ -5412,12 +5460,14 @@ def loaders_whisper(failures):
                                for t in s.tokens):
         failures.append(f"11c: {windows} segments, tokens "
                         f"{[s.tokens[:8] for s in segs]}")
+    cli, cli_counts = cli_whisper(path, wav, segs, failures)
     del pipe, params
     torch.cuda.empty_cache()
     return {"file_bytes": size, "write_s": write_s, "read_s": floors[0],
-            "upload_s": floors[1], "load_s": load_s, "prepare_s": prep_s, "wall_s": wall, "rtf": 30 / wall,
-            "beam_steps": len(steps), "peak_gib": peak,
-            "text": [s.text for s in segs]}, counts
+            "upload_s": floors[1], "load_s": load_s, "prepare_s": prep_s,
+            "wall_s": wall, "rtf": 30 / wall, "beam_steps": len(steps),
+            "peak_gib": peak, "text": [s.text for s in segs], "cli": cli}, \
+        counts, {"cli_whisper": cli_counts}
 
 
 def loaders_gpt2(failures):
@@ -5437,19 +5487,16 @@ def loaders_gpt2(failures):
     size, write_s = write_timed("11d", path, lambda: write_legacy_bin(
         path, hp, gpt2.HPARAM_NAMES, greedy_vocab(cfg.n_vocab), tensors),
         nbytes)
-    try:
-        floors = load_floors("11d", path)
-        (lcfg, params, tok), load_s = timed_load(
-            "11d gpt2.load_legacy", lambda: gpt2.load_legacy(path))
-    finally:
-        path.unlink()
+    floors = load_floors("11d", path)
+    (lcfg, params, tok), load_s = timed_load(
+        "11d gpt2.load_legacy", lambda: gpt2.load_legacy(path))
     if lcfg != cfg:
         failures.append(f"11d: config {lcfg} != {cfg}")
     check_loaded("11d", params, spec, tensors, failures)
     del tensors
     prompt = check_tokenizer("11d", tok, cfg.n_vocab, failures)
     if failures:
-        return None, None
+        return None, None, {}
     t0 = time.time()
     eng = Engine(gpt2, cfg, params, n_ctx=1024, residency="q4-fused")
     del params
@@ -5460,25 +5507,41 @@ def loaders_gpt2(failures):
         "11d", eng, prompt, tok, load_s,
         {"w4a8_gemv": n_dec * 4 * L, "w4a16_gemm": 4 * L,
          "flash_attention": L, "flash_backward_tiles": L}, failures)
+    n = CLI_TOKENS - 1
+    cli, cli_counts, argv, stdout = cli_generation(
+        "16d gpt2", "gpt2", path, eng, tok, prompt, out["tokens"], 1024,
+        {"w4a8_gemv": n * 4 * L, "w4a16_gemm": 4 * L, "flash_attention": L,
+         "flash_backward_tiles": L}, failures)
+    cli["module_entry"] = cli_module_entry(argv, stdout, failures)
+    cli["serve"], serve_counts = cli_serve(path, eng, tok, prompt,
+                                           out["tokens"], failures)
     del eng
     torch.cuda.empty_cache()
     return dict(out, file_bytes=size, write_s=write_s, read_s=floors[0],
-                upload_s=floors[1], load_s=load_s, prepare_s=prep_s), counts
+                upload_s=floors[1], load_s=load_s, prepare_s=prep_s,
+                cli=cli), counts, {"cli_gpt2": cli_counts,
+                                   "cli_serve": serve_counts}
 
 
 def loaders_phase(failures):
-    """Phase 11: 11a-11d, each file written, loaded, checked and deleted
-    before the next. Returns (summary, launch counts by run)."""
+    """Phase 11: 11a-11d, each file written, loaded, checked, run by its CLI
+    (16a-16d) and deleted before the next. Returns (summary, launch counts
+    by run)."""
     summary, launches = {}, {}
     for key, run in (("gptj_bin", loaders_gptj), ("llama_gguf", loaders_llama),
                      ("whisper_bin", loaders_whisper),
                      ("gpt2_bin", loaders_gpt2)):
         t0 = time.time()
-        out, counts = run(failures)
+        try:
+            out, counts, cli = run(failures)
+        finally:
+            for f in loader_dir().iterdir():
+                f.unlink()
         log(f"  -- {key}: {time.time() - t0:.1f} s")
         if failures:
             break
         summary[key], launches[f"loaders_{key}"] = out, counts
+        launches.update(cli)
     return summary, launches
 
 
@@ -5562,20 +5625,17 @@ def check_small_loaders(failures):
 # quant.imatrix, quant.iq_encode, tools.perplexity), as a user of the
 # reference runs examples/quantize.py and then examples/perplexity.py
 PPL_CTX, PPL_WINDOWS = 512, 4
-# 12a runs LLaMA-2 7B's widths at half its depth (16 of 32 layers) since PR
-# 26, so the whole script stays inside its time limit (its host requantize,
-# file check and F16 load scale with the depth)
-QUANT_LLAMA = dict(LLAMA2_7B, n_layer=16)
+# 12a runs LLaMA-2 7B's widths at a quarter of its depth (8 of 32 layers;
+# 16 before phase 16 joined), so the whole script, phase 16 included, stays
+# inside its time limit (its host requantize, file check and F16 load scale
+# with the depth)
+QUANT_LLAMA = dict(LLAMA2_7B, n_layer=8)
 # 12a: the Q4_0 model's mean NLL over the windows with the kernels against
 # the same windows with every plain version on the card, relative. The two
 # sum each product in another order (bf16 roundings of the activations
 # downstream flip); the planted faults must move it past the limit. Readings
 # of this script on an H100: PERF.md.
 PPL_ROUTE_TOL = 1e-3
-# 12b: the reference's kernel-path quality gate (tools/quality_tpu_row.py,
-# docs/QUALITY_117M.md): the mean over a window's positions of KL(W4A8 sim
-# || kernels)
-KL_GATE = 5e-3
 # 12b's window of T=1 steps (256 before PR 26, halved for the script's time
 # limit)
 QUALITY_CTX = 128
@@ -5695,6 +5755,70 @@ def natpair_faults():
             "the zero point dropped": [(qmm, "w4a16_gemm", unsigned_levels)]}
 
 
+def ppl_text(tok, n):
+    """A text file of LOADER_TEXT's words (repeated as needed), the fewest
+    to which the loaded tokenizer gives n ids or more (under n + PPL_CTX):
+    tools.perplexity and the perplexity CLI score the same windows. ->
+    (its first n ids, path)."""
+    words = LOADER_TEXT.split()
+    while len(tok.encode(" ".join(words))) < n:
+        words += LOADER_TEXT.split()
+    lo, hi = 1, len(words)                 # the fewest words giving n ids
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if len(tok.encode(" ".join(words[:mid]))) >= n:
+            hi = mid
+        else:
+            lo = mid + 1
+    text = " ".join(words[:lo])
+    ids = tok.encode(text)
+    if not n <= len(ids) < n + PPL_CTX:
+        raise SystemExit(f"chip_smoke FAILED: {len(ids)} ids in the "
+                         f"perplexity text, {n} wanted")
+    path = quant_dir() / "perplexity-text.txt"
+    path.write_text(text)
+    return np.asarray(ids[:n], np.int64), path
+
+
+def quantize_cli(src, dst, failures):
+    """16e: examples/quantize.py src dst q4_0, the requantize step of 12a."""
+    got, err, _, _, code = run_cli(
+        "examples.quantize", [str(src), str(dst), "q4_0"],
+        "16e quantize")
+    lines = got.splitlines()
+    log(f"  16e quantize: {len(lines)} tensors requantized, "
+        f"{err.strip().splitlines()[-1] if err.strip() else ''}")
+    if code != 0 or not lines or not err.startswith("total:"):
+        failures.append(f"16e quantize: exit {code!r}, stderr {err[-200:]!r}")
+
+
+def perplexity_cli(q4, text_path, rk, failures):
+    """16e: examples/perplexity.py on the Q4_0 file over the text file (the
+    params as loaded, as the JAX CLI runs them; the launch counts say which
+    route that takes): its perplexity within PPL_ROUTE_TOL of the kernels'
+    (relative, as log PPL = the mean NLL) over the same tokens."""
+    got, err, counts, secs, code = run_cli(
+        "examples.perplexity", ["-m", str(q4), "-f", str(text_path), "-c",
+                                str(PPL_CTX)], "16e perplexity")
+    m = re.search(r"^perplexity: ([0-9.]+) over (\d+) tokens$", got.strip())
+    if code != 0 or not m:
+        failures.append(f"16e perplexity: exit {code!r}, {got!r}")
+        return {"wall_s": secs}, counts
+    rel = abs(math.log(float(m[1])) - rk["nll"]) / rk["nll"]
+    route = "the kernels" if counts["w4a16_gemm"] else \
+        "the plain dequantize + matmul products (the loaded layout)"
+    ok = rel <= PPL_ROUTE_TOL and int(m[2]) == rk["n_tokens"]
+    log(f"  16e perplexity: {got.strip()!r} ({len(err.splitlines())} lines "
+        f"on stderr) through {route} and flash; log PPL vs 12a's kernels' "
+        f"mean NLL {rk['nll']:.8f}: rel {rel:.3e} (limit "
+        f"{PPL_ROUTE_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"16e perplexity: {got.strip()} vs NLL {rk['nll']}, "
+                        f"rel {rel:.3e}")
+    return {"wall_s": secs, "ppl": float(m[1]), "route": route,
+            "rel_nll": rel}, counts
+
+
 def timed_ppl(label, model, cfg, params, toks, patches=(), **kw):
     """tools.perplexity over toks with the launch counts set to 0 just
     before and read just after. -> (result, counts, seconds)."""
@@ -5718,19 +5842,20 @@ def timed_ppl(label, model, cfg, params, toks, patches=(), **kw):
 def quant_llama(failures):
     """12a. LLaMA-2 7B at QUANT_LLAMA's widths and depth: F16 weights drawn
     on the card (a torch.Generator, seed 25), written as a GGUF by the port's
-    GGUFWriter with phase 11b's tokenizer; requantize_gguf to Q4_0 (the C++
-    codecs), the file checked against the source; perplexity over
-    PPL_WINDOWS windows of PPL_CTX tokens of LOADER_TEXT (the loaded
-    tokenizer's ids) on the F16 model (dense f32 on the card, the plain
-    products; flash attention) and on the Q4_0 model prepared as phase 11b
-    prepares its model (fuse_gate_up, params_repack: every product natpair
-    W4A16), against the same windows on the plain versions, and with the
-    planted faults. Returns (summary, launch counts by run)."""
+    GGUFWriter with phase 11b's tokenizer; examples/quantize.py to Q4_0
+    (16e: requantize_gguf, the C++ codecs), the file checked against the
+    source; perplexity over PPL_WINDOWS windows of PPL_CTX tokens of a text
+    file of LOADER_TEXT (ppl_text; the loaded tokenizer's ids) on the F16
+    model (dense f32 on the card, the plain products; flash attention) and
+    on the Q4_0 model prepared as phase 11b prepares its model
+    (fuse_gate_up, params_repack: every product natpair W4A16), against the
+    same windows on the plain versions, and with the planted faults; then
+    examples/perplexity.py on the Q4_0 file and the text (16e). Returns
+    (summary, launch counts by run)."""
     from ggml_imax_tpu_torch.io.gguf import GGUFWriter
     from ggml_imax_tpu_torch.models import llama
     from ggml_imax_tpu_torch.ops.qmm import params_repack
     from ggml_imax_tpu_torch.quant.formats import GGMLType as T
-    from ggml_imax_tpu_torch.tools.quantize import requantize_gguf
     cfg = llama.LlamaConfig(**dict(QUANT_LLAMA, n_ctx=4096,
                                    rms_eps=float(np.float32(1e-5))))
     L, W = cfg.n_layer, PPL_WINDOWS
@@ -5758,8 +5883,8 @@ def quant_llama(failures):
             "12a F16 GGUF", f16, write, encoded_bytes(spec, T.F16))
         del tensors
         out["q4_0_bytes"], out["requantize_s"] = write_timed(
-            "12a requantize_gguf F16 -> Q4_0 (the C++ codecs)", q4,
-            lambda: requantize_gguf(f16, q4, T.Q4_0),
+            "12a examples/quantize.py F16 -> Q4_0 (requantize_gguf, the C++ "
+            "codecs)", q4, lambda: quantize_cli(f16, q4, failures),
             encoded_bytes(spec, T.Q4_0))
         sampled = ["token_embd.weight", "output.weight"] + [
             f"blk.{i}.{n}.weight" for i in (0, L - 1)
@@ -5774,9 +5899,8 @@ def quant_llama(failures):
         f16.unlink(missing_ok=True)
     if lcfg != cfg or tok is None:
         failures.append(f"12a: config {lcfg}, tokenizer {tok}")
-        q4.unlink(missing_ok=True)
         return None, None
-    toks = text_tokens(tok, W * PPL_CTX)
+    toks, text_path = ppl_text(tok, W * PPL_CTX)
     flash = {"flash_attention": W * L, "flash_backward_tiles": W * L}
     launches = {}
     r16, launches["quant_llama_f16"], out["ppl_f16_s"] = timed_ppl(
@@ -5784,11 +5908,8 @@ def quant_llama(failures):
     check_counts(launches["quant_llama_f16"], flash, failures)
     del params
     torch.cuda.empty_cache()
-    try:
-        (_, qparams, _), out["load_q4_0_s"] = timed_load(
-            "12a llama.load_gguf Q4_0", lambda: llama.load_gguf(q4))
-    finally:
-        q4.unlink(missing_ok=True)
+    (_, qparams, _), out["load_q4_0_s"] = timed_load(
+        "12a llama.load_gguf Q4_0", lambda: llama.load_gguf(q4))
     t0 = time.time()
     prepared = params_repack(llama.fuse_gate_up(qparams))
     del qparams
@@ -5819,6 +5940,8 @@ def quant_llama(failures):
                             f"by {faults[name]:.3e} only")
     del prepared
     torch.cuda.empty_cache()
+    out["cli"], launches["cli_perplexity"] = perplexity_cli(q4, text_path, rk,
+                                                            failures)
     log(f"  12a PPL F16 {r16['ppl']:.6f}, Q4_0 {rk['ppl']:.6f} (delta "
         f"{rk['ppl'] - r16['ppl']:+.6f}), Q4_0 plain {rp['ppl']:.6f}; "
         "seeded random weights: not a quality measure")
@@ -6005,42 +6128,19 @@ def iq_on_host(f16, mats, failures):
             "iq2_xs_rel": err}
 
 
-def log_probs(z):
-    z = z.float()
-    z = z - z.amax(dim=-1, keepdim=True)
-    return z - torch.log(torch.exp(z).sum(dim=-1, keepdim=True))
-
-
-def window_ppl(logits, toks) -> float:
-    """Teacher-forced PPL over the window: positions 0..T-2 predict 1..T-1."""
-    lp = log_probs(logits[:-1]).gather(1, toks[1:, None])
-    return float(torch.exp(-lp.mean()))
-
-
-def mean_kl(p_logits, q_logits) -> float:
-    """Mean over positions of KL(p || q)."""
-    lp, lq = log_probs(p_logits), log_probs(q_logits)
-    return float((lp.exp() * (lp - lq)).sum(-1).mean())
-
-
-def decode_window(cfg, params, toks, patches=()):
-    """A teacher-forced T=1 decode over the window through gpt2.forward
-    (bf16 KV cache, bf16 compute): every quantized product is an m = 1
-    GEMV. -> (logits (T, V) f32, launch counts)."""
+def counted_row(cfg, prepared, toks, sim, patches=()):
+    """tools/quality_kernel_row.kernel_row (a teacher-forced T=1 decode
+    over the window through the kernels, bf16 KV and compute) with the
+    launch counters set to 0 just before and read just after. -> (row,
+    launch counts)."""
     from ggml_imax_tpu_torch import _build
-    from ggml_imax_tpu_torch.models import gpt2
-    cache = gpt2.init_cache(cfg, 1, len(toks))
-    out = []
+    from ggml_imax_tpu_torch.tools import quality_kernel_row as qkr
     torch.cuda.synchronize()
     _build.reset_launches()
-    with torch.no_grad(), patched(patches):
-        for i in range(len(toks)):
-            lg, _ = gpt2.forward(cfg, params, toks[i].view(1, 1),
-                                 torch.full((1, 1), i, device="cuda"),
-                                 cache, i)
-            out.append(lg[0, 0])
+    with patched(patches):
+        row = qkr.kernel_row(cfg, prepared, toks, sim)
     torch.cuda.synchronize()
-    return torch.stack(out), dict(_build.LAUNCHES)
+    return row, dict(_build.LAUNCHES)
 
 
 QUALITY_ROWS = (("Q4_0", "w4a8_gemv", "natpair W4A8"),
@@ -6049,18 +6149,20 @@ QUALITY_ROWS = (("Q4_0", "w4a8_gemv", "natpair W4A8"),
 
 
 def quality_rows(f16, cfg, toks, failures):
-    """12b's W4A8 quality rows (the method of tools/quality_tpu_row.py):
-    each format requantized from the F16 file without an imatrix (the C++
-    codecs, whole model), loaded; the window as one T = QUALITY_CTX forward
-    on the plain route (the loaded layout and every plain version, f32
-    compute and KV) with set_activation_sim("w4a8"), and as a teacher-forced
-    T=1 decode through the kernels after params_repack with bf16 scales;
-    PPL of each, the mean KL(sim || kernels) against KL_GATE; the Q4_K row
-    again with the W4A8 kernel's bias term dropped, which must fail it."""
+    """12b's W4A8 quality rows (tools/quality_kernel_row.py's row
+    function, kernel_row): each format requantized from the F16 file
+    without an imatrix (the C++ codecs, whole model), loaded; the window as
+    one T = QUALITY_CTX forward on the plain route (the loaded layout and
+    every plain version, f32 compute and KV) with set_activation_sim("w4a8"),
+    and as a teacher-forced T=1 decode through the kernels after
+    params_repack with bf16 scales; PPL of each, the mean KL(sim ||
+    kernels) against qkr.KL_GATE; the Q4_K row again with the W4A8 kernel's
+    bias term dropped, which must fail it."""
     from ggml_imax_tpu_torch.models import gpt2
     from ggml_imax_tpu_torch.ops import qmatmul as qmm_mod
     from ggml_imax_tpu_torch.ops.qmm import params_repack
     from ggml_imax_tpu_torch.quant.formats import GGMLType as T
+    from ggml_imax_tpu_torch.tools import quality_kernel_row as qkr
     from ggml_imax_tpu_torch.tools.quantize import requantize_legacy_bin
     T_ = len(toks)
     rows, launches = {}, {}
@@ -6088,27 +6190,27 @@ def quality_rows(f16, cfg, toks, failures):
         prepared = params_repack(params, scale_dtype=torch.bfloat16)
         del params
         t0 = time.time()
-        ker, counts = decode_window(cfg, prepared, toks)
+        ker, counts = counted_row(cfg, prepared, toks, sim)
         secs = time.time() - t0
         check_counts(counts, {kernel: T_ * 4 * cfg.n_layer}, failures)
-        kl = mean_kl(sim, ker)
-        row = {"ppl_kernels": window_ppl(ker, toks),
-               "ppl_sim": window_ppl(sim, toks), "kl": kl,
+        kl = ker["kl"]
+        row = {"ppl_kernels": ker["ppl"],
+               "ppl_sim": qkr.window_ppl(sim, toks), "kl": kl,
                "max_abs_logit": float(sim.abs().max()),
                "requantize_s": req_s, "decode_s": secs}
-        ok = kl < KL_GATE
+        ok = ker["pass"]
         log(f"  12b {fmt} ({family}): PPL kernels {row['ppl_kernels']:.4f}, "
             f"PPL W4A8 sim {row['ppl_sim']:.4f}, mean KL(sim || kernels) "
-            f"{kl:.3e} (gate {KL_GATE:.0e}) {'PASS' if ok else 'FAIL'}; "
+            f"{kl:.3e} (gate {qkr.KL_GATE:.0e}) {'PASS' if ok else 'FAIL'}; "
             f"largest |logit| {row['max_abs_logit']:.2f}; {T_} decode steps "
             f"in {secs:.2f} s, launches "
             f"{ {k: n for k, n in counts.items() if n} }")
         if not ok:
-            failures.append(f"12b {fmt}: KL {kl:.3e} >= {KL_GATE}")
+            failures.append(f"12b {fmt}: KL {kl:.3e} >= {qkr.KL_GATE}")
         if fmt == "Q4_K":
-            bad, _ = decode_window(cfg, prepared, toks, dropped_bias())
-            row["fault_kl"] = mean_kl(sim, bad)
-            caught = row["fault_kl"] >= KL_GATE
+            bad, _ = counted_row(cfg, prepared, toks, sim, dropped_bias())
+            row["fault_kl"] = bad["kl"]
+            caught = not bad["pass"]
             log(f"  12b {fmt} control (the W4A8 bias term dropped): KL "
                 f"{row['fault_kl']:.3e} -> "
                 + ("fails the gate (caught)" if caught else "MISSED"))
@@ -6186,7 +6288,11 @@ def quant_tools_phase(failures):
     for key, run in (("llama_7b_q4_0", quant_llama),
                      ("gpt2_117m", quant_gpt2)):
         t0 = time.time()
-        out, counts = run(failures)
+        try:
+            out, counts = run(failures)
+        finally:
+            for f in quant_dir().iterdir():
+                f.unlink()
         log(f"  -- {key}: {time.time() - t0:.1f} s")
         if failures:
             break
@@ -6287,7 +6393,6 @@ def magika_phase(failures):
     params, load_s = timed_load("13a Magika GGUF", lambda: magika.load_gguf(
         path))
     cpu = magika.load_gguf(path, device="cpu")
-    path.unlink()
     if not (same_tree(params, host) and same_tree(cpu, host)):
         failures.append("13a: the loaded Magika weights differ from the drawn")
     repo = Path(__file__).resolve().parent
@@ -6320,13 +6425,15 @@ def magika_phase(failures):
             failures.append(f"13a {rel}: labels equal {same}, max |dp| "
                             f"{err:.3e}")
         files[rel] = {"top": top, "max_abs_err": err, "identify_ms": wall}
+    cli, cli_counts = cli_magika(path, files, failures)
+    path.unlink()
     toks = np.stack([magika.file_tokens((repo / r).read_bytes())
                      for r in MAGIKA_FILES])
     best, mean = event_ms(lambda: magika.forward(params, toks), 10)
     log(f"  13a forward of {len(toks)} windows: {best:.3f} ms best, "
         f"{mean:.3f} ms mean (CUDA events)")
     return {"files": files, "load_s": load_s, "forward_ms": best,
-            "forward_windows": len(toks)}
+            "forward_windows": len(toks), "cli": cli}, cli_counts
 
 
 def yolo_gguf(path, host, rng):
@@ -6372,7 +6479,6 @@ def yolo_phase(failures):
     params, load_s = timed_load("13b YOLOv3-tiny GGUF (batch norm folded)",
                                 lambda: yolo.load_gguf(path))
     cpu = yolo.load_gguf(path, device="cpu")
-    path.unlink()
     if not same_tree(params, cpu):
         failures.append("13b: the card's and the CPU's folded weights differ")
     n_par = sum(lp["w"].numel() + lp["b"].numel() for lp in params)
@@ -6398,6 +6504,11 @@ def yolo_phase(failures):
         f"wall best of 3 ({', '.join(f'{t:.1f}' for t in walls)}): "
         f"{len(dets)} detections ({n_cls} with a class over the threshold; "
         f"the CPU pass {n_cpu})")
+    img_path = vision_dir() / "yolo-image.npy"
+    np.save(img_path, img)
+    cli, cli_counts = cli_yolo(path, img_path, dets, failures)
+    path.unlink()
+    img_path.unlink()
     with patched([(yolo, "upscale", tiled_upscale)]):
         bad = yolo.forward(params, x)[1]
     check_control("13b upscale by tile instead of repeat, head23",
@@ -6405,7 +6516,7 @@ def yolo_phase(failures):
     return {"params": n_par, "load_s": load_s, "head_nmse": errs,
             "forward_ms": fwd_best, "detect_ms": min(walls),
             "detections": len(dets), "detections_with_class": n_cls,
-            "detections_cpu": n_cpu}
+            "detections_cpu": n_cpu, "cli": cli}, cli_counts
 
 
 def sam_tensors(params):
@@ -6513,7 +6624,6 @@ def sam_phase(failures):
     del tensors
     (lcfg, params), load_s = timed_load("13c SAM ViT-B .bin",
                                         lambda: sam.load_legacy(path))
-    path.unlink()
     if lcfg != cfg or not same_tree(params, host):
         failures.append("13c: the loaded SAM config or weights differ from "
                         "the drawn")
@@ -6545,6 +6655,11 @@ def sam_phase(failures):
     if not ok:
         failures.append("13c: predict's masks or IoUs have the wrong shape "
                         "or are not finite")
+    img_path = vision_dir() / "sam-image.npy"
+    np.save(img_path, img)
+    cli, cli_counts = cli_sam(path, img_path, masks, iou, failures)
+    path.unlink()
+    img_path.unlink()
     # the card against the CPU at SAM_CPU_LAYERS encoder layers
     cfg_c = replace(cfg, n_enc_layer=SAM_CPU_LAYERS)
     card_c = dict(params, enc_layers=params["enc_layers"][:SAM_CPU_LAYERS])
@@ -6571,20 +6686,21 @@ def sam_phase(failures):
                   nmse(bad, e_cpu), VISION_BLOCK_NMSE, failures)
     return {"load_s": load_s, "encode_ms": enc_ms[0], "decode_ms": dec_ms[0],
             "predict_ms": min(walls), "iou": [float(v) for v in iou],
-            "nmse": errs}
+            "nmse": errs, "cli": cli}, cli_counts
 
 
 def vision_phase(failures):
     """Phase 13: 13a-13c, each with the launch counters at 0 just before
-    and read just after (no kernel lies on this path: they stay 0).
-    Returns (summary, launch counts by run)."""
+    and read just after (no kernel lies on this path: they stay 0), each
+    with its CLI (16f), whose run counts apart. Returns (summary, launch
+    counts by run)."""
     from ggml_imax_tpu_torch import _build
     summary, launches = {}, {}
     for key, run in (("magika", magika_phase), ("yolov3_tiny", yolo_phase),
                      ("sam_vit_b", sam_phase)):
         t0 = time.time()
         _build.reset_launches()
-        summary[key] = run(failures)
+        summary[key], launches[f"cli_{key}"] = run(failures)
         launches[f"vision_{key}"] = dict(_build.LAUNCHES)
         torch.cuda.empty_cache()
         log(f"  -- {key}: {time.time() - t0:.1f} s, kernel launches "
@@ -6781,8 +6897,9 @@ def export_mnist_phase(trained, failures):
 
 
 def mnist_phase(failures):
-    """Phase 14a-14c. Returns (summary, launch counts by run: no kernel
-    lies on these paths, so they stay 0)."""
+    """Phase 14a-14c, then 16g (examples/mnist.py and examples/simple.py).
+    Returns (summary, launch counts by run: no kernel lies on these paths,
+    so they stay 0)."""
     from ggml_imax_tpu_torch import _build
     gen = torch.Generator(device="cuda")
     gen.manual_seed(14)
@@ -6796,6 +6913,8 @@ def mnist_phase(failures):
     _build.reset_launches()
     summary["export"] = export_mnist_phase(trained, failures)
     launches["mnist_export"] = dict(_build.LAUNCHES)
+    summary["cli"], by_run = cli_mnist(failures)
+    launches.update(by_run)
     return summary, launches
 
 
@@ -7536,6 +7655,612 @@ def parallel_phase(failures):
     return summary, launches
 
 
+# ---- phase 16: the entry points. Each example CLI (ggml_imax_tpu_torch/
+# examples/) runs through its main(argv) in this process, stdout captured,
+# where its phase already has its file (16a-16g inside phases 11-14), held
+# to that phase's own result; 16h serve --bench and 16i the quality gate run
+# after phase 15. Their launch counts go on the kernels line as cli_*.
+# greedy tokens of the generation CLIs (16a, 16b, 16d)
+CLI_TOKENS = 8
+# 16d's one subprocess run of `python -m ggml_imax_tpu_torch.examples.gpt2`
+CLI_TIMEOUT = 300
+# 16b and 16d's serve run the loaded layout (dequantize + matmul products),
+# a graph other than their phase's prepared engine. 16d's is held to 11d's
+# engine fed its picks at ROUTE_TOL. 16b's parts from 11b's engine at one
+# forward by ~2x the largest |logit| on this file: there the logits' sign
+# rests on a sum near zero, which the bf16 roundings of the loaded layout
+# flip against both graphs' f32 passes (PERF.md, `chip_smoke.py
+# --llama-graphs`). So it is held to its own graph with every plain
+# version on the card, fed its picks, at ROUTE_TOL.
+# the kernels an entry point's run must launch (PERF.md's rows 1, 3, 5, 6,
+# 7, 9, 14, 16 and 17)
+CLI_KERNELS = ("w4a8_gemv", "w4a16_gemm", "decode_attention",
+               "flash_attention", "nat8_w8a8", "nat8_w8a16",
+               "decode_attention_cells", "flash_backward_dq",
+               "flash_backward_dkv")
+# 16h: examples/serve.py --bench --steady at its default GPT-J-6B geometry
+SERVE_BENCH_ARGV = ["--bench", "--steady", "-np", "8", "--n_predict", "64"]
+# the keys of the JAX package's examples/serve.py --bench --steady line
+SERVE_BENCH_KEYS = ("metric", "value", "unit", "n_requests", "generated",
+                    "p50_ttft_ms", "chunk", "wall_s", "steady_tok_s",
+                    "steady_generated", "n_predict")
+
+
+def shown(a: str) -> str:
+    return a if len(a) <= 60 else f"{a[:40]!r}... ({len(a)} characters)"
+
+
+def run_cli(module, argv, label, patches=()):
+    """ggml_imax_tpu_torch.<module>.main(argv) in this process, its stdout
+    and stderr captured, the launch counters set to 0 just before and read
+    just after. -> (stdout, stderr, launch counts, seconds, exit code:
+    main's return value or SystemExit's code)."""
+    import importlib
+    import io
+    from ggml_imax_tpu_torch import _build
+    mod = importlib.import_module(f"ggml_imax_tpu_torch.{module}")
+    out, err = io.StringIO(), io.StringIO()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err), \
+            patched(patches):
+        try:
+            code = mod.main(list(argv))
+        except SystemExit as e:
+            code = e.code
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    log(f"  {label}: python -m ggml_imax_tpu_torch.{module} "
+        f"{' '.join(shown(str(a)) for a in argv)}: exit {code!r}, "
+        f"{secs:.2f} s; launches { {k: n for k, n in counts.items() if n} }")
+    return out.getvalue(), err.getvalue(), counts, secs, code
+
+
+def cli_prompt(tok, prompt):
+    """The text of the phase's prompt ids and whether it encodes back to
+    them."""
+    text = tok.decode(prompt)
+    return text, tok.encode(text) == list(prompt)
+
+
+def cli_generation(label, module, path, eng, tok, prompt, out, n_ctx, expect,
+                   failures):
+    """16a / 16d: examples.<module> at its default residency ("q4-fused",
+    the phase engine's graph) on the phase's file, greedy, CLI_TOKENS
+    tokens, n_ctx as the phase's engine: stdout must be the prompt's text,
+    then tok.decode of each of the phase's greedy tokens (the phase engine's
+    run of the re-encoded prompt where the text does not encode back to the
+    phase's ids). -> (summary, launch counts, argv, stdout)."""
+    text, same_ids = cli_prompt(tok, prompt)
+    ref = list(out[:CLI_TOKENS]) if same_ids else \
+        eng.generate(tok.encode(text), CLI_TOKENS, temp=0)
+    argv = ["-m", str(path), "-p", text, "-n", str(CLI_TOKENS), "--temp", "0",
+            "-s", "0", "-c", str(n_ctx)]
+    got, err, counts, secs, code = run_cli(f"examples.{module}", argv, label)
+    want = text + "".join(tok.decode([t]) for t in ref) + "\n"
+    ok = code == 0 and got == want
+    log(f"  {label}: the prompt's text encodes back to the phase's ids "
+        f"{same_ids}; stdout is the prompt + tok.decode of the phase's "
+        f"{CLI_TOKENS} greedy tokens: {ok} (generated "
+        f"{got[len(text):].strip()!r})")
+    for line in err.splitlines():
+        if line.startswith(("prefill", "decode")):
+            log(f"  {label}: {line}")
+    if not ok:
+        failures.append(f"{label}: exit {code!r}, stdout {got[-200:]!r} vs "
+                        f"{want[-200:]!r}")
+    check_counts(counts, expect, failures)
+    return {"wall_s": secs, "stdout_equal": ok}, counts, argv, got
+
+
+def forced_engine(eng, ids, picks):
+    """The phase's engine teacher-forced: prefill of ids, then a decode step
+    of each pick but the last. -> (its picks, logits per forward)."""
+    lg, cache = eng.prefill(eng.new_cache(), np.asarray([ids]))
+    logs = [torch.from_numpy(lg)]
+    for i, t in enumerate(picks[:-1]):
+        lg, cache = eng.decode_step(cache, np.asarray([t]), len(ids) + i)
+        logs.append(torch.from_numpy(lg))
+    return [int(x[0].argmax()) for x in logs], logs
+
+
+def engine_recorder(logs):
+    """Patches recording the logits each Engine.prefill / decode_step
+    returns (a CLI's run_generation), on the host."""
+    from ggml_imax_tpu_torch.runtime.engine import Engine
+    prefill, step = Engine.prefill, Engine.decode_step
+
+    def rec_prefill(self, cache, tokens, n_past=0):
+        lg, cache = prefill(self, cache, tokens, n_past)
+        logs.append(torch.from_numpy(lg.copy()))
+        return lg, cache
+
+    def rec_step(self, cache, token_ids, n_past):
+        lg, cache = step(self, cache, token_ids, n_past)
+        logs.append(torch.from_numpy(lg.copy()))
+        return lg, cache
+    return [(Engine, "prefill", rec_prefill), (Engine, "decode_step",
+                                                 rec_step)]
+
+
+def cli_llama(path, eng, params, tok, prompt, out, failures):
+    """16b on 11b's Q4_K_M GGUF: the default residency must exit nonzero
+    with one line naming the type mix and "--resident as-is"; then the CLI
+    at --resident as-is (the loaded layout: dequantize + matmul products,
+    the attention kernels), its logits recorded, and the loaded params
+    (`params`) with every plain version on the card fed its picks within
+    ROUTE_TOL of the largest |logit| (check_forced). Its text against
+    tok.decode of 11b's tokens is logged: 11b's engine is another route.
+    -> (summary, counts)."""
+    from ggml_imax_tpu_torch.models import llama
+    from ggml_imax_tpu_torch.runtime.engine import Engine
+    text, same_ids = cli_prompt(tok, prompt)
+    argv = ["-m", str(path), "-p", text, "-n", str(CLI_TOKENS), "--temp", "0",
+            "-s", "0", "-c", "512"]
+    _, _, _, refuse_s, code = run_cli("examples.llama", argv,
+                                      "16b llama (default --resident)")
+    msg = str(code)
+    refused = code not in (0, None) and "\n" not in msg and \
+        "--resident as-is" in msg and "Q6_K" in msg
+    log(f"  16b: the default residency exits with {msg!r} -> "
+        + ("refused, one line" if refused else "NOT REFUSED AS IT MUST"))
+    if not refused:
+        failures.append(f"16b: the default residency gave {msg!r}")
+    logs = []
+    got, err, counts, secs, code = run_cli(
+        "examples.llama", argv + ["--resident", "as-is"],
+        "16b llama --resident as-is", engine_recorder(logs))
+    picks = [int(x[0].argmax()) for x in logs]
+    ok = code == 0 and got == text + "".join(tok.decode([t])
+                                             for t in picks) + "\n"
+    if not ok:
+        failures.append(f"16b: exit {code!r}, stdout {got[-200:]!r}")
+    with patched(plain_on_card()):
+        plain = forced_engine(Engine(llama, eng.cfg, params, n_ctx=512),
+                              tok.encode(text), picks)
+    check_forced("16b --resident as-is vs the loaded params with every "
+                 "plain version on the card, fed its picks", (picks, logs),
+                 plain, failures, ROUTE_TOL)
+    same = same_ids and picks == list(out[:CLI_TOKENS])
+    log(f"  16b: stdout is the prompt + its picks {ok}; its text equals "
+        f"tok.decode of 11b's greedy tokens {same} (another route: fuse_"
+        f"gate_up, bf16 scales, W4A8/W8A8 activations)")
+    L = eng.cfg.n_layer
+    check_counts(counts, {"decode_attention": (CLI_TOKENS - 1) * L,
+                          "flash_attention": L, "flash_backward_tiles": L},
+                 failures)
+    return {"wall_s": secs, "refusal_s": refuse_s, "refusal": msg,
+            "text_equal_11b": same}, counts
+
+
+def dense_f32(params):
+    """Every QTensor of a params tree dequantized once into a dense f32 one
+    (the numbers an f32 product dequantizes to, without the expansion in
+    each product)."""
+    from ggml_imax_tpu_torch.ops.qmatmul import dequantize
+    from ggml_imax_tpu_torch.quant.device import QTensor
+    if isinstance(params, dict):
+        return {k: dense_f32(v) for k, v in params.items()}
+    if isinstance(params, list):
+        return [dense_f32(v) for v in params]
+    if isinstance(params, QTensor):
+        return QTensor("dense", dequantize(params, torch.float32), None, None,
+                       params.k, params.n, params.ggml_type, name=params.name)
+    return params
+
+
+def llama_graphs() -> dict:
+    """`chip_smoke.py --llama-graphs`: which graph 16b's forwards follow.
+    11b's file, its as-is CLI run (16b's argv, its picks and logits), then
+    teacher-forced passes fed those picks through both graphs (the loaded
+    layout, "as-is"; 11b's prepared one: fuse_gate_up, params_repack with
+    bf16 scales): on the card with the kernels and with every plain version
+    in bf16 and f32, and on the host in f32 (the weights dequantized once).
+    Logs each pass's max |logit diff| per forward and the cosine of its
+    logits against each graph's host f32 pass. -> the readings."""
+    from ggml_imax_tpu_torch.models import llama
+    from ggml_imax_tpu_torch.ops.qmm import params_repack
+    from ggml_imax_tpu_torch.runtime.engine import Engine
+    t_start = time.time()
+    cfg, _, tensors, path, _, _ = write_llama_gguf("graphs")
+    del tensors
+    try:
+        _, params, tok = llama.load_gguf(path)
+        prompt = check_tokenizer("graphs", tok, cfg.n_vocab, [])
+        text, same_ids = cli_prompt(tok, prompt)
+        ids = tok.encode(text)
+        logs = []
+        run_cli("examples.llama", ["-m", str(path), "-p", text, "-n",
+                                   str(CLI_TOKENS), "--temp", "0", "-s", "0",
+                                   "-c", "512", "--resident", "as-is"],
+                "graphs llama --resident as-is", engine_recorder(logs))
+        picks = [int(x[0].argmax()) for x in logs]
+
+        def prepare(p):
+            return params_repack(llama.fuse_gate_up(p),
+                                 scale_dtype=torch.bfloat16)
+
+        def forced(p, dtype, plain=False, device=None):
+            eng = Engine(llama, cfg, p, compute_dtype=dtype, kv_dtype=dtype,
+                         n_ctx=512, device=device)
+            with patched(plain_on_card() if plain else []):
+                return forced_engine(eng, ids, picks)[1]
+        runs = {"as-is bf16 kernels (the CLI)": logs}
+        prepared = prepare(params)
+        for graph, p in (("as-is", params), ("prepared", prepared)):
+            for dtype, plain in ((torch.bfloat16, False),
+                                 (torch.bfloat16, True),
+                                 (torch.float32, True)):
+                key = (f"{graph} {str(dtype)[6:]} "
+                       f"{'plain' if plain else 'kernels'}")
+                if key not in runs:
+                    runs[key] = forced(p, dtype, plain)
+        del params, prepared, p
+        torch.cuda.empty_cache()
+        for graph in ("as-is", "prepared"):
+            t0 = time.time()
+            p = llama.load_gguf(path, device="cpu")[1]
+            p = dense_f32(prepare(p) if graph == "prepared" else p)
+            runs[f"{graph} f32 host"] = forced(p, torch.float32,
+                                               device="cpu")
+            del p
+            log(f"  graphs: {graph} f32 on the host in "
+                f"{time.time() - t0:.1f} s")
+    finally:
+        path.unlink()
+    scale = logit_scale(runs["as-is f32 host"])
+    log(f"  graphs: prompt {len(ids)} ids (the phase's {same_ids}), the "
+        f"CLI's picks {picks}, largest |logit| of the as-is host pass "
+        f"{scale:.4f}; TF32 in matmuls "
+        f"{torch.backends.cuda.matmul.allow_tf32}")
+    out = {"picks": picks, "largest_logit": scale, "runs": {}}
+    for key, lg in runs.items():
+        row = {"picks": [int(x[0].argmax()) for x in lg]}
+        for ref in ("as-is f32 host", "prepared f32 host"):
+            row[f"diff vs {ref}"] = [float((a.float() - b.float()).abs().max())
+                                     for a, b in zip(lg, runs[ref])]
+            row[f"cos vs {ref}"] = [float(torch.nn.functional.cosine_similarity(
+                a.double().flatten(), b.double().flatten(), dim=0))
+                for a, b in zip(lg, runs[ref])]
+        out["runs"][key] = row
+        log(f"  graphs: {key:28s} picks {row['picks']}")
+        for ref in ("as-is f32 host", "prepared f32 host"):
+            log(f"    vs {ref:18s} max |diff| "
+                f"{' '.join(f'{d:.2e}' for d in row[f'diff vs {ref}'])}")
+            log(f"    {'':21s} cosine    "
+                f"{' '.join(f'{c:+.5f}' for c in row[f'cos vs {ref}'])}")
+    log(f"  graphs: {time.time() - t_start:.1f} s")
+    return out
+
+
+def cli_whisper(path, wav, segs, failures):
+    """16c on 11c's .bin and its audio as a WAV: the CLI at beam 5 with
+    11c's cut decode settings (one temperature, WHISPER_TOKENS a window)
+    put into the FullParams it builds: its segment lines equal 11c's
+    transcript's. -> (summary, launch counts)."""
+    from ggml_imax_tpu_torch.runtime import whisper_pipeline as wp
+    full = wp.FullParams
+
+    def cut(**kw):
+        return full(**kw, temperatures=(0.0,), max_tokens=WHISPER_TOKENS)
+    got, _, counts, secs, code = run_cli(
+        "examples.whisper", ["-m", str(path), "-f", str(wav), "-bs", "5"],
+        "16c whisper", [(wp, "FullParams", cut)])
+    want = "".join(f"[{s.t0:7.2f} -> {s.t1:7.2f}] {s.text}\n" for s in segs)
+    ok = code == 0 and got == want
+    log(f"  16c: segments equal 11c's transcript {ok}: {got.strip()!r}")
+    if not ok:
+        failures.append(f"16c: exit {code!r}, {got!r} vs {want!r}")
+    if not counts["nat8_w8a16"] or not counts["flash_attention"]:
+        failures.append(f"16c: launches {counts}")
+    return {"wall_s": secs, "segments_equal": ok}, counts
+
+
+def cli_serve(path, eng, tok, prompt, out, failures):
+    """16d's serve (non-bench): -np 4 sampled twice with one seed (every
+    forked sequence the same run to run); then -np 1 greedy (the loaded
+    layout: dequantize + matmul products, flash), the shared prefill's and
+    each step's logits recorded: 11d's engine fed its picks within
+    ROUTE_TOL of the largest |logit| and picking the same tokens but at a
+    near-tie (check_forced): its picks are 11d's greedy tokens up to a
+    near-tie.
+    -> (summary, launch counts of the greedy run)."""
+    from ggml_imax_tpu_torch.runtime import batched
+    text, same_ids = cli_prompt(tok, prompt)
+    argv = ["-m", str(path), "-p", text, "-n", str(CLI_TOKENS), "-s", "11"]
+    a, _, _, secs, _ = run_cli("examples.serve", argv + ["-np", "4"],
+                               "16d serve -np 4 (sampled)")
+    b, _, _, _, code = run_cli("examples.serve", argv + ["-np", "4"],
+                               "16d serve -np 4 again")
+    seqs = a.split("--- sequence ")[1:]
+    ok = code == 0 and a == b and len(seqs) == 4
+    log(f"  16d serve: 4 forked sequences, the same run to run {ok}, "
+        f"{len(set(seqs))} distinct")
+    if not ok:
+        failures.append(f"16d serve: runs differ or {len(seqs)} sequences")
+    greedy = batched.sample_greedy
+    logs = []
+
+    def rec(lg):
+        logs.append(torch.from_numpy(np.array(lg, np.float32))[None])
+        return greedy(lg)
+    got, _, counts, g_secs, code = run_cli(
+        "examples.serve", argv + ["-np", "1", "--temp", "0"],
+        "16d serve -np 1 greedy", [(batched, "sample_greedy", rec)])
+    picks = [int(x[0].argmax()) for x in logs]
+    if code != 0 or got != "--- sequence 0 ---\n" + text + tok.decode(
+            picks) + "\n":
+        failures.append(f"16d serve greedy: exit {code!r}, {got[-200:]!r}")
+    ids = tok.encode(text)
+    check_forced("16d serve greedy vs 11d's engine fed its picks",
+                 (picks, logs), forced_engine(eng, ids, picks), failures,
+                 ROUTE_TOL)
+    # 11d's engine fed these picks picks them all, so its greedy run is
+    # this sequence, unless it parted at a near-tie check_forced accepts
+    ref = list(out[:CLI_TOKENS]) if same_ids else \
+        eng.generate(ids, CLI_TOKENS, temp=0)
+    same = picks == ref
+    log(f"  16d serve: sequence 0 (greedy) equals 11d's greedy tokens {same}"
+        f"{'' if same else f': {picks} vs {ref}'}")
+    return {"wall_s": secs, "greedy_wall_s": g_secs, "forks_equal": ok,
+            "greedy_equal_11d": same}, counts
+
+
+def cli_module_entry(argv, want, failures):
+    """16d's subprocess: `python -m ggml_imax_tpu_torch.examples.gpt2 argv`
+    from the checkout, its stdout equal to the in-process run's."""
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run(
+            [sys.executable, "-m", "ggml_imax_tpu_torch.examples.gpt2"]
+            + argv, cwd=Path(__file__).resolve().parent, capture_output=True,
+            text=True, timeout=CLI_TIMEOUT)
+        ok = res.returncode == 0 and res.stdout == want
+        note = f"exit {res.returncode}"
+    except subprocess.TimeoutExpired:
+        ok, note = False, f"killed at its {CLI_TIMEOUT} s limit"
+    secs = time.perf_counter() - t0
+    log(f"  16d python -m ggml_imax_tpu_torch.examples.gpt2 (a subprocess): "
+        f"{note}, {secs:.1f} s, stdout equal to the in-process run's {ok}")
+    if not ok:
+        failures.append(f"16d subprocess: {note}")
+    return {"wall_s": secs, "stdout_equal": ok}
+
+
+def cli_serve_bench(failures, phase6):
+    """16h: examples/serve.py --bench --steady -np 8 --n_predict 64 at its
+    default GPT-J-6B geometry: the JSON line parsed, every key of the JAX
+    CLI's line present, generated = 8 x 64; its tok/s, steady tok/s and p50
+    TTFT beside phase 6's (no gate on speed). -> (summary, counts)."""
+    got, _, counts, secs, code = run_cli("examples.serve", SERVE_BENCH_ARGV,
+                                         "16h serve --bench")
+    try:
+        rec = json.loads(got.strip().splitlines()[-1])
+    except (ValueError, IndexError):
+        rec = {}
+    missing = [k for k in SERVE_BENCH_KEYS if k not in rec]
+    ok = code == 0 and not missing and rec.get("generated") == 8 * 64
+    log(f"  16h: {json.dumps(rec)}")
+    log(f"  16h: serve --bench {rec.get('value')} tok/s, steady "
+        f"{rec.get('steady_tok_s')} tok/s, p50 TTFT "
+        f"{rec.get('p50_ttft_ms')} ms; phase 6's step_chunk("
+        f"{SERVE['chunk']}) {phase6['tok_s']:.2f} tok/s, p50 TTFT "
+        f"{phase6['p50_ttft_ms']:.2f} ms, --steady "
+        f"{phase6['steady']['tok_s']:.2f} tok/s (8 x 32 tokens there, 8 x 64 "
+        "here; the CLI's ramp is the per-token step() loop, as the JAX "
+        f"CLI's); keys missing {missing}, generated {rec.get('generated')}")
+    if not ok:
+        failures.append(f"16h: exit {code!r}, missing {missing}, line {rec}")
+    for k in ("w4a16_gemm", "decode_attention_cells", "flash_attention"):
+        if not counts[k]:
+            failures.append(f"16h: no {k} launch")
+    return {"line": rec, "wall_s": secs}, counts
+
+
+def cli_wall_seconds(engines) -> dict:
+    """Every CLI run's summary in the phases' summaries (a dict with its
+    wall_s under a "cli" key), by its path there."""
+    out = {}
+
+    def walk(x, path):
+        if not isinstance(x, dict):
+            return
+        if "wall_s" in x and any(p.startswith("cli") for p in path):
+            out["/".join(path)] = x
+        for k, v in x.items():
+            walk(v, path + (str(k),))
+    walk(engines, ())
+    return out
+
+
+def qgate_dir() -> Path:
+    d = Path(__file__).resolve().parent / "build" / "qgate"
+    d.mkdir(parents=True, exist_ok=True)
+    return d
+
+
+def cli_quality(failures):
+    """16i: tools/quality_gate.py at its small geometry (2L x 128E x 4H,
+    vocab 64, T 256, B 8, 1500 steps) trained on the card (--retrain),
+    every format's row and verdict; the F32 PPL must be under 0.9 x
+    min(vocab, unigram); then tools/quality_kernel_row.py's Q4_0, Q4_K and
+    Q5_0 rows under its KL gate. -> (summary, counts by tool)."""
+    d = qgate_dir()
+    out = d / "QUALITY.md"
+    got, err, counts, secs, code = run_cli(
+        "tools.quality_gate", ["--retrain", "--dir", str(d), "--out",
+                               str(out)], "16i quality_gate")
+    for line in err.splitlines():
+        if line.startswith(("# train", "# trained")):
+            log(f"  16i: {line}")
+    rows = [ln for ln in got.splitlines() if ln.startswith("| ")
+            and not ln.startswith("| configuration")]
+    verdicts = re.findall(r"^- (\S+): our PPL delta .* -> \*\*(PASS|FAIL)\*\*",
+                          got, re.M)
+    learned = "is below the context-free bound" in got
+    trained = re.search(r"# trained (\d+) steps in ([0-9.]+) s, ([0-9.]+) ms",
+                        err)
+    for ln in rows:
+        log(f"  16i {ln}")
+    log(f"  16i: verdicts {verdicts}; learned structure {learned}")
+    for ln in got.splitlines():
+        if ln.startswith(("Language baselines", "The trained model")):
+            log(f"  16i: {ln}")
+    if code != 0 or not learned or len(verdicts) != 10 or any(
+            v != "PASS" for _, v in verdicts):
+        failures.append(f"16i quality_gate: exit {code!r}, learned "
+                        f"{learned}, verdicts {verdicts}")
+    kgot, _, kcounts, ksecs, kcode = run_cli(
+        "tools.quality_kernel_row", ["--dir", str(d), "--out", str(out)],
+        "16i quality_kernel_row")
+    krows = re.findall(r"^\| (Q\S+) \(([^)]*)\) \| ([0-9.]+) \| ([0-9.e+-]+)"
+                       r" \| \*\*(PASS|FAIL)\*\* \|", kgot, re.M)
+    for r in krows:
+        log(f"  16i kernel row {r[0]} ({r[1]}): PPL {r[2]}, mean KL vs sim "
+            f"{r[3]} -> {r[4]}")
+    if kcode != 0 or len(krows) != 3 or any(r[4] != "PASS" for r in krows):
+        failures.append(f"16i quality_kernel_row: exit {kcode!r}, {krows}")
+    for k, c in (("w4a8_gemv", kcounts), ("nat8_w8a8", kcounts),
+                 ("flash_backward_dq", counts), ("flash_backward_dkv", counts),
+                 ("w4a16_gemm", counts), ("nat8_w8a16", counts)):
+        if not c[k]:
+            failures.append(f"16i: no {k} launch")
+    summary = {"wall_s": secs, "kernel_row_s": ksecs, "rows": rows,
+               "verdicts": verdicts, "learned": learned,
+               "kernel_rows": krows}
+    if trained:
+        summary.update(steps=int(trained[1]), train_s=float(trained[2]),
+                       train_ms_per_step=float(trained[3]))
+        log(f"  16i: trained {trained[1]} steps in {trained[2]} s = "
+            f"{trained[3]} ms a step on the card")
+    return summary, {"cli_quality_gate": counts,
+                     "cli_quality_kernel_row": kcounts}
+
+
+def cli_magika(path, files, failures):
+    """16f on 13a's GGUF and files: each printed line's labels and
+    percentages those of 13a's identify (a label may trade places with a
+    neighbour whose probability lies within MAGIKA_PROB_TOL)."""
+    repo = Path(__file__).resolve().parent
+    args = [str(repo / rel) for rel in MAGIKA_FILES]
+    got, _, counts, secs, code = run_cli("examples.magika", [str(path)] + args,
+                                         "16f magika")
+    lines = got.splitlines()
+    ok = code == 0 and len(lines) == len(args)
+    for rel, a, line in zip(MAGIKA_FILES, args, lines):
+        top = files[rel]["top"]
+        name, _, rest = line.partition(": ")
+        items = [it.rsplit(":", 1) for it in rest.split()]
+        for i, ((n, pct), (tn, tp)) in enumerate(zip(items, top[:3])):
+            tie = any(abs(tp - top[j][1]) <= MAGIKA_PROB_TOL
+                      for j in (i - 1, i + 1) if 0 <= j < len(top))
+            ok &= name == a and abs(int(pct[:-1]) - round(100 * tp)) <= 1 \
+                and (n == tn or tie)
+    log(f"  16f magika: {len(lines)} lines, labels and percentages those of "
+        f"13a's identify {ok}: {lines[0] if lines else ''!r}")
+    if not ok:
+        failures.append(f"16f magika: exit {code!r}, {lines}")
+    return {"wall_s": secs, "equal": ok}, counts
+
+
+def cli_yolo(path, img_path, dets, failures):
+    """16f on 13b's GGUF and image: the printed detections those of 13b's
+    detect (threshold 0.5): the same classes in order, the percentages
+    within 1, the boxes within 1.5e-3."""
+    from ggml_imax_tpu_torch.examples.yolo import detection_lines
+    got, _, counts, secs, code = run_cli(
+        "examples.yolo", ["-m", str(path), "-i", str(img_path)], "16f yolo")
+    lines, want = got.splitlines(), detection_lines(dets)
+    num = re.compile(r"[-0-9.]+")
+    ok = code == 0 and len(lines) == len(want)
+    for g, w in zip(lines, want):
+        gv, wv = (list(map(float, num.findall(x.split(":", 1)[1])))
+                  for x in (g, w))
+        ok &= g.split(":")[0] == w.split(":")[0] and abs(gv[0] - wv[0]) <= 1 \
+            and max(abs(a - b) for a, b in zip(gv[1:], wv[1:])) <= 1.5e-3
+    log(f"  16f yolo: {len(lines)} detections printed, those of 13b's detect "
+        f"{ok}" + (f": {lines[0]!r}" if lines else ""))
+    if not ok:
+        failures.append(f"16f yolo: exit {code!r}, {lines[:3]} vs {want[:3]}")
+    return {"wall_s": secs, "equal": ok, "lines": len(lines)}, counts
+
+
+def cli_sam(path, img_path, masks, iou, failures):
+    """16f on 13c's .bin and image with 13c's point: each mask's IoU within
+    1e-3 and area within 0.1% of the image of 13c's predict, the saved masks
+    equal to its on 99.9% of the pixels or more."""
+    out = vision_dir() / "cli-masks.npy"
+    got, _, counts, secs, code = run_cli(
+        "examples.sam", ["-m", str(path), "-i", str(img_path), "-p",
+                         f"{SAM_POINT[0]},{SAM_POINT[1]}", "-o", str(out)],
+        "16f sam")
+    line = re.compile(r"^mask (\d): iou=([-0-9.]+) area=(\d+) px$")
+    rows = [line.match(x) for x in got.splitlines()[:3]]
+    n_px = SAM_IMAGE[0] * SAM_IMAGE[1]
+    ok = code == 0 and all(rows) and len(rows) == 3 and out.exists()
+    if ok:
+        saved = np.load(out)
+        ok = all(abs(float(m[2]) - float(iou[i])) <= 1e-3
+                 and abs(int(m[3]) - int(masks[i].sum())) <= 1e-3 * n_px
+                 for i, m in enumerate(rows)) and \
+            saved.shape == masks.shape and \
+            bool((saved == masks).mean() >= 0.999)
+    log(f"  16f sam: {got.splitlines()[:3]}; IoUs and areas those of 13c's "
+        f"predict {ok}")
+    if not ok:
+        failures.append(f"16f sam: exit {code!r}, {got!r}")
+    out.unlink(missing_ok=True)
+    return {"wall_s": secs, "equal": ok}, counts
+
+
+def cli_mnist(failures):
+    """16g: examples/mnist.py for the FC net and the CNN at 14a's iteration
+    counts, the artifact under build/export; the re-imported prediction
+    must equal the eager forward's on the trained params (recorded at
+    export_model)."""
+    from ggml_imax_tpu_torch.models import mnist
+    out, counts = {}, {}
+    real = mnist.export_model
+    for kind in ("fc", "cnn"):
+        path = export_dir() / f"cli-mnist-{kind}.gitg"
+        seen = []
+
+        def rec(fwd, params, x, p):
+            seen.append((fwd, params, x))
+            return real(fwd, params, x, p)
+        got, _, c, secs, code = run_cli(
+            "examples.mnist", ["--arch", kind, "--iters",
+                               str(MNIST_TRAIN[kind][0]), "--out", str(path)],
+            f"16g mnist {kind}", [(mnist, "export_model", rec)])
+        m = re.search(r"re-imported prediction for sample 0: (\d+) "
+                      r"\(label (\d+)\)", got)
+        acc = re.search(r"^train: (\w+), accuracy ([0-9.]+)$", got, re.M)
+        eager = None
+        if seen:
+            fwd, params, x = seen[0]
+            with torch.no_grad():
+                eager = int(fwd(params, x).argmax())
+        ok = code == 0 and bool(m and acc) and int(m[1]) == eager
+        log(f"  16g mnist {kind}: {got.strip().splitlines()}; the reloaded "
+            f"prediction equals the eager one ({eager}) {ok}")
+        if not ok:
+            failures.append(f"16g mnist {kind}: exit {code!r}, {got!r}")
+        path.unlink(missing_ok=True)
+        out[kind] = {"wall_s": secs, "accuracy": float(acc[2]) if acc
+                     else None, "prediction_equal": ok}
+        counts[f"cli_mnist_{kind}"] = c
+    got, _, c, secs, code = run_cli("examples.simple", [], "16g simple")
+    ok = code == 0 and got.splitlines()[-1:] == ["ok"]
+    log(f"  16g simple: {got.strip().splitlines()} -> "
+        + ("ok" if ok else "FAIL"))
+    if not ok:
+        failures.append(f"16g simple: exit {code!r}, {got!r}")
+    out["simple"], counts["cli_simple"] = {"wall_s": secs, "ok": ok}, c
+    return out, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7577,6 +8302,11 @@ def main() -> int:
     for line in _build.BUILD_LOG.splitlines():
         if any(w in line for w in ("==", "registers", "spill", "Compiling entry")):
             log("#   " + line.strip())
+
+    if sys.argv[1:2] == ["--llama-graphs"]:
+        log(json.dumps({"llama_graphs": llama_graphs()}))
+        log(smi[0] if smi else "nvidia-smi: n/a")
+        return 0
 
     # ---- 2. kernels against their plain versions
     log("# phase 2: kernels vs plain versions (main-path shapes)")
@@ -7882,9 +8612,31 @@ def main() -> int:
         raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
     launches.update(by_path)
     log(f"# phase 15: {time.time() - t0:.1f} s")
+
+    # ---- 16. the entry points: 16a-16g ran inside phases 11-14
+    log("# phase 16: examples/serve.py --bench --steady at GPT-J-6B geometry, "
+        "then tools/quality_gate.py trained on the card and "
+        "tools/quality_kernel_row.py")
+    t0 = time.time()
+    engines["cli_serve_bench"], launches["cli_serve_bench"] = \
+        cli_serve_bench(failures, engines["serving"])
+    if failures:
+        raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
+    torch.cuda.empty_cache()
+    log(f"  -- 16h: {time.time() - t0:.1f} s")
+    t16 = time.time()
+    engines["cli_quality"], by_run = cli_quality(failures)
+    if failures:
+        raise SystemExit("chip_smoke FAILED:\n  " + "\n  ".join(failures))
+    launches.update(by_run)
+    log(f"  -- 16i: {time.time() - t16:.1f} s")
+    cli_walls = {k: round(v.get("wall_s", 0.0), 2) for k, v in
+                 cli_wall_seconds(engines).items()}
+    log(f"  every CLI's wall seconds: {cli_walls}")
+    log(f"# phase 16: {time.time() - t0:.1f} s")
     log("# phases run: 1, 2, 3, 4, 14d, 5, 5b, 6, 7, 8, 8b, 8c, 9, 9b, 9c, "
-        "10, 11, 12, 13, 14, 15")
-    log(f"# phases 1-15: {time.time() - t_start:.1f} s")
+        "10, 11 (16a-16d), 12 (16e), 13 (16f), 14 (16g), 15, 16 (16h, 16i)")
+    log(f"# phases 1-16: {time.time() - t_start:.1f} s")
 
     kernels = []
     for k in KERNELS:
@@ -7895,6 +8647,11 @@ def main() -> int:
         entry["max_abs_err"] = max(ck.errs[k])
         if entry["launches"] == 0:
             raise SystemExit(f"chip_smoke FAILED: {k} never ran on a main path")
+        entry["cli_launches"] = sum(n for p, n in by_path.items()
+                                    if p.startswith("cli_"))
+        if k in CLI_KERNELS and not entry["cli_launches"]:
+            raise SystemExit(f"chip_smoke FAILED: {k} never ran on an entry "
+                             "point's path (phase 16)")
         kernels.append(entry)
     log(json.dumps({"engine": engines, "gated_products_ms": gated}))
     log(smi[0] if smi else "nvidia-smi: n/a")

@@ -146,7 +146,8 @@ def test_port_imports_no_jax():
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'ggml_imax_tpu', 'regex', 'transformers')]\n"
+            "('jax', 'jaxlib', 'ggml_imax_tpu', 'regex', 'transformers', "
+            "'optax')]\n"
             "assert not bad, bad\nprint(len(sys.modules))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
